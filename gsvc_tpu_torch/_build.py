@@ -1,0 +1,119 @@
+"""Build the CUDA kernels in csrc/ at first use and load them with ctypes.
+
+Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
+plain C interface, `build/lib<name>-<hash>.so`; the hash covers the source
+and every header, so an edited kernel never loads a stale build. A file
+lock serialises concurrent builds (several processes may start at once).
+The library is loaded with ctypes, with every pointer and the stream as
+`c_void_p`; each C entry returns `cudaGetLastError()`, which `check`
+turns into an exception.
+
+Nothing here runs at import: the CPU tests import every module, and only
+a call on a CUDA tensor builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_libs: dict = {}
+_libs_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _source_hash(src: Path) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [src] + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    return BUILD_DIR / f"lib{name}-{_source_hash(src)}.so"
+
+
+def _compile(name: str) -> Path:
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if out.exists():  # another process built it while we waited
+                return out
+            tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
+                   "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed for csrc/{name}.cu:\n{' '.join(cmd)}\n"
+                    f"{res.stdout}{res.stderr}"
+                )
+            out.with_suffix(".log").write_text(res.stdout + res.stderr)
+            os.replace(tmp, out)
+            return out
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library of csrc/<name>.cu, compiled on first use."""
+    with _libs_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_compile(name)))
+            lib.gsvc_error_string.restype = ctypes.c_char_p
+            lib.gsvc_error_string.argtypes = [ctypes.c_int]
+            _libs[name] = lib
+        return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas register and shared-memory use) of a build."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.gsvc_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,171 @@
+"""Frame bitstream (PyTorch port of gsvc_tpu/compress/bitstream.py).
+
+`pack_frame` writes the container of `encode_frame` from already-quantised
+numpy codes (the quantising half waits for the compress slice), and
+`decode_frame` + `render_decoded` reconstruct a frame from the bytes. The
+bytes are the JAX package's: fp16 means, rANS-coded 6-bit cholesky codes
+with f32 scale/beta, the VQ codebook and rANS-coded stage indices, and a
+"GSV1" + K/P trailer.
+
+P-frames carry deltas against the previous frame's representation
+checkpoint, which the decoder takes as side information (see the JAX
+module's docstring).
+"""
+
+from __future__ import annotations
+
+import io
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gsvc_tpu_torch.compress.entropy import (
+    compress_matrix_flatten_categorical,
+    decompress_matrix_flatten_categorical,
+)
+from gsvc_tpu_torch.config import FrameConfig
+from gsvc_tpu_torch.core import CHOLESKY_BOUND
+
+CHOL_BITS = 6
+
+
+def pack_frame(
+    xyz16: np.ndarray,
+    q_scale: np.ndarray,
+    q_beta: np.ndarray,
+    chol_codes: np.ndarray,
+    embed: np.ndarray,
+    indices: np.ndarray,
+    frame_type: str = "K",
+) -> bytes:
+    """Quantised frame -> self-contained byte stream.
+
+    xyz16 [N,2] float16 means (raw, pre-tanh), q_scale / q_beta [3] f32,
+    chol_codes [N,3] integer cholesky codes in [0, 2^CHOL_BITS), embed
+    [Q,K,3] f32 codebooks, indices [N,Q] integer stage indices, frame_type
+    "K" (standalone) or "P" (delta frame).
+    """
+    if frame_type not in ("K", "P"):
+        raise ValueError(f"frame_type must be 'K' or 'P', got {frame_type!r}")
+    xyz16 = np.asarray(xyz16, np.float16)
+    n = int(xyz16.shape[0])
+    embed = np.asarray(embed, np.float32)
+    c_comp, c_counts, c_unique = compress_matrix_flatten_categorical(
+        np.asarray(chol_codes, np.int32).flatten()
+    )
+    i_comp, i_counts, i_unique = compress_matrix_flatten_categorical(
+        np.asarray(indices, np.int32).flatten()
+    )
+
+    out = io.BytesIO()
+
+    def put(arr: np.ndarray):
+        arr = np.asarray(arr)
+        dt = arr.dtype.str.encode()
+        out.write(np.uint8(len(dt)).tobytes())
+        out.write(dt)
+        raw = arr.tobytes()
+        out.write(np.uint32(len(raw)).tobytes())
+        out.write(raw)
+
+    out.write(np.uint32(n).tobytes())
+    out.write(np.uint32(embed.shape[0]).tobytes())  # Q
+    out.write(np.uint32(embed.shape[1]).tobytes())  # K
+    put(xyz16)
+    put(np.asarray(q_scale, np.float32))
+    put(np.asarray(q_beta, np.float32))
+    put(c_comp)
+    put(c_counts)
+    put(c_unique)
+    put(embed)
+    put(i_comp)
+    put(i_counts)
+    put(i_unique)
+    out.write(b"GSV1" + frame_type.encode())
+    return out.getvalue()
+
+
+def frame_type(blob: bytes) -> Optional[str]:
+    """'K' or 'P' from the trailer; None for streams written before it."""
+    if len(blob) >= 5 and blob[-5:-1] == b"GSV1":
+        return chr(blob[-1])
+    return None
+
+
+def decode_frame(
+    blob: bytes,
+    p_xyz: Optional[np.ndarray] = None,
+    p_cholesky: Optional[np.ndarray] = None,
+    p_features_dc: Optional[np.ndarray] = None,
+):
+    """Bytes -> (means [N,2], cholesky + bound [N,3], colours [N,3]) numpy.
+
+    p_* are the P-frame side-information buffers (None for K-frames).
+    """
+    buf = memoryview(blob)
+    off = 0
+
+    def take(nbytes):
+        nonlocal off
+        v = buf[off:off + nbytes]
+        off += nbytes
+        return v
+
+    def get():
+        dl = int(np.frombuffer(take(1), np.uint8)[0])
+        dt = np.dtype(bytes(take(dl)).decode())
+        ln = int(np.frombuffer(take(4), np.uint32)[0])
+        return np.frombuffer(take(ln), dt).copy()
+
+    n = int(np.frombuffer(take(4), np.uint32)[0])
+    q = int(np.frombuffer(take(4), np.uint32)[0])
+    k = int(np.frombuffer(take(4), np.uint32)[0])
+    xyz16 = get().reshape(n, 2)
+    q_scale = get()
+    q_beta = get()
+    c_comp, c_counts, c_unique = get(), get(), get()
+    embed = get().reshape(q, k, 3)
+    i_comp, i_counts, i_unique = get(), get(), get()
+
+    codes = decompress_matrix_flatten_categorical(
+        c_comp, c_counts, c_unique, n * 3, (n, 3)
+    ).astype(np.float32)
+    chol_deq = codes * q_scale[None, :] + q_beta[None, :]
+    idx = decompress_matrix_flatten_categorical(
+        i_comp, i_counts, i_unique, q * n, (n, q)
+    )
+    colors = np.zeros((n, 3), np.float32)
+    for s in range(q):
+        colors += embed[s][idx[:, s]]
+
+    def side(a, cols):
+        return np.zeros((n, cols), np.float32) if a is None else np.asarray(a, np.float32)
+
+    raw = torch.from_numpy(xyz16.astype(np.float32) + side(p_xyz, 2))
+    means = torch.tanh(raw).numpy()
+    chol = chol_deq + np.asarray(CHOLESKY_BOUND, np.float32) + side(p_cholesky, 3)
+    return means, chol, colors + side(p_features_dc, 3)
+
+
+def render_decoded(means, chol, colors, cfg: FrameConfig,
+                   device="cpu") -> torch.Tensor:
+    """Render decoded splats on `device`: [H, W, 3] clamped to [0, 1]."""
+    from gsvc_tpu_torch.ops.projection import project_gaussians_2d
+    from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    with torch.no_grad():
+        xys, depths, radii, conics, nth = project_gaussians_2d(
+            t(means), t(chol), cfg.H, cfg.W, cfg.tile_bounds,
+            cfg.block_w, cfg.block_h,
+        )
+        opacity = torch.ones((xys.shape[0], 1), dtype=torch.float32, device=device)
+        img = rasterize_gaussians_sum(
+            xys, depths, radii, conics, nth, t(colors), opacity,
+            cfg.H, cfg.W, cfg.block_h, cfg.block_w,
+            backend=cfg.backend, max_intersects=cfg.max_intersects,
+        )
+        return torch.clamp(img, 0.0, 1.0)

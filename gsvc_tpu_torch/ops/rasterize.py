@@ -1,0 +1,128 @@
+"""Public sum-rasterization API (PyTorch port of gsvc_tpu/ops/rasterize.py).
+
+Mirrors the reference `rasterize_gaussians_sum`
+(gsplat/gsplat/rasterize_sum.py:14-86), with binning and rendering on the
+device and no host sync.
+
+Backends:
+- "cuda": binning through the K1/K2 wrappers and the forward kernel
+  (ops/rasterize_cuda.py); on CPU tensors the wrappers run their plain
+  versions.
+- "torch": the all-PyTorch path (plain binning + ops/rasterize_binned.py),
+  on either device.
+- "dense": the O(N * pixels) oracle (ops/rasterize_dense.py), tests only.
+- "auto": "cuda" for CUDA tensors, "torch" for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from gsvc_tpu_torch.ops import rasterize_cuda
+from gsvc_tpu_torch.ops.binning import bin_gaussians, default_max_intersects
+
+# Per-tile gaussian cap: the reference 3-channel kernel renders only the
+# first BLOCK_SIZE=256 binned gaussians of a tile (forward.cu:613).
+TILE_CAP = 256
+
+BACKENDS = ("auto", "cuda", "torch", "dense")
+
+
+def rasterize_gaussians_sum(
+    xys: torch.Tensor,
+    depths: torch.Tensor,
+    radii: torch.Tensor,
+    conics: torch.Tensor,
+    num_tiles_hit: torch.Tensor,
+    colors: torch.Tensor,
+    opacity: torch.Tensor,
+    img_height: int,
+    img_width: int,
+    BLOCK_H: int = 16,
+    BLOCK_W: int = 16,
+    background: Optional[torch.Tensor] = None,
+    return_alpha: bool = False,
+    backend: str = "auto",
+    max_intersects: Optional[int] = None,
+    tile_rows=None,
+    layout: str = "image",
+):
+    """Accumulation rasterizer: [H, W, C] ("image") or [3, H, W] ("chw").
+
+    `depths` is accepted for API parity and ignored (the sum render is
+    order-independent). Quirks kept for parity with gsvc_tpu:
+    - with zero intersections the image is `background` everywhere
+      (rasterize_sum.py:121-129), though the normal path never composites
+      background (forward.cu:621-624);
+    - `return_alpha` returns zeros (the sum kernel never updates
+      transmittance).
+    """
+    del depths
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if layout == "rows":
+        raise NotImplementedError(
+            "layout='rows' (tile-space training loss) arrives with the "
+            "training slice"
+        )
+    if layout not in ("image", "chw"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if tile_rows is not None:
+        raise NotImplementedError("tile_rows (image sharding) is not ported yet")
+    c_dim = colors.shape[-1]
+    if background is None:
+        background = torch.ones((c_dim,), dtype=colors.dtype, device=colors.device)
+    tile_bounds = (
+        (img_width + BLOCK_W - 1) // BLOCK_W,
+        (img_height + BLOCK_H - 1) // BLOCK_H,
+        1,
+    )
+    if max_intersects is None:
+        max_intersects = default_max_intersects(
+            xys.shape[0], tile_bounds[0] * tile_bounds[1]
+        )
+    if backend == "auto":
+        backend = "cuda" if xys.is_cuda else "torch"
+    # The kernel packs exactly 3 colour channels; other counts take the
+    # binned path, as the reference routes C != 3 to its N-d kernel
+    # (rasterize_sum.py:147-150).
+    if backend == "cuda" and c_dim != 3:
+        backend = "torch"
+
+    if backend == "dense":
+        from gsvc_tpu_torch.ops.rasterize_dense import rasterize_gaussians_sum_dense
+
+        img = rasterize_gaussians_sum_dense(
+            xys, radii, conics, colors, opacity,
+            img_height, img_width, BLOCK_H, BLOCK_W, cap=TILE_CAP,
+        )
+        total = torch.sum(num_tiles_hit)
+        if layout == "chw":
+            img = img.permute(2, 0, 1)
+    else:
+        use_kernels = backend == "cuda"
+        binned = bin_gaussians(
+            xys, radii, num_tiles_hit, tile_bounds, BLOCK_W, BLOCK_H,
+            max_intersects, cap=TILE_CAP, kernels=use_kernels,
+        )
+        total = binned.num_intersects
+        args = (binned, xys, conics, colors, opacity, img_height, img_width,
+                tile_bounds, BLOCK_W, BLOCK_H, TILE_CAP)
+        if not use_kernels:
+            img = rasterize_cuda.rasterize_forward_torch(*args, layout=layout)
+        elif layout == "chw":
+            img = rasterize_cuda.forward_chw(*args)
+        else:
+            img = rasterize_cuda.forward_image(*args)
+
+    # zero-intersect fast path as an arithmetic select (no host sync)
+    live = (total >= 1).to(img.dtype)
+    bg = background.to(img.dtype)
+    bg = bg[:, None, None] if layout == "chw" else bg[None, None, :]
+    img = img * live + bg * (1.0 - live)
+    if return_alpha:
+        hw = img.shape[1:] if layout == "chw" else img.shape[:2]
+        return img, torch.zeros(hw, dtype=img.dtype, device=img.device)
+    return img

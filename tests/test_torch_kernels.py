@@ -1,0 +1,95 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Marked `cuda`: every test skips without a CUDA device (a kernel has no
+CPU mode). On the card they build csrc/ with nvcc on first use. Run them
+with `python -m pytest tests/test_torch_kernels.py -m cuda` on a GPU
+machine; `python3 chip_smoke.py` does the same at 1080p/10k.
+
+Tolerances: K1/K2 exact (integer index work); the forward kernel atol
+1e-5 against the plain render (f32 sums in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gsvc_tpu_torch.ops import fill_cuda, rasterize_cuda
+from gsvc_tpu_torch.ops.binning import bin_gaussians, key_inputs
+from gsvc_tpu_torch.ops.projection import project_gaussians_2d
+from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _scene(dev, n, H, W, seed, big=False):
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-1.1, 1.1, (n, 2))
+    L = rng.uniform(0, 2, (n, 3)) + np.array([0.5, 0.0, 0.5])
+    if big:
+        L[:] = [8.0, 0.0, 8.0]
+    colors = rng.uniform(0, 1, (n, 3)) / (32.0 if big else 1.0)
+    opacity = rng.uniform(0.2, 1.0, (n, 1))
+    t = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+         for a in (means, L, colors, opacity)]
+    tb = ((W + 15) // 16, (H + 15) // 16, 1)
+    return tb, t, project_gaussians_2d(t[0], t[1], H, W, tb)
+
+
+@pytest.mark.parametrize("n,hw,seed,budget,cap,big", [
+    (500, (37, 83), 0, 16384, 256, False), (100, (48, 64), 3, 64, 256, False),
+    (400, (40, 56), 2, 8192, 256, True), (120, (32, 32), 4, 4096, 4, False),
+])
+def test_kernels_match_plain_versions(dev, n, hw, seed, budget, cap, big):
+    H, W = hw
+    tb, (_m, _l, colors, opacity), (xys, _d, radii, conics, nth) = _scene(
+        dev, n, H, W, seed, big)
+    ki = key_inputs(xys, radii, nth, tb, 16, 16, budget)
+    launches = fill_cuda.fill_decode_keys.launches
+    keys = fill_cuda.fill_decode_keys(*ki)
+    assert fill_cuda.fill_decode_keys.launches == launches + 1
+    assert torch.equal(keys, fill_cuda.fill_decode_keys_torch(*ki))
+    skeys = torch.sort(keys).values
+    got = fill_cuda.rank_cap_decode(skeys, cap, n, ki.num_tiles)
+    want = fill_cuda.rank_cap_decode_torch(skeys, cap, n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    binned = bin_gaussians(xys, radii, nth, tb, 16, 16, budget, cap=cap)
+    plain = bin_gaussians(xys, radii, nth, tb, 16, 16, budget, cap=cap, kernels=False)
+    for name in binned._fields:
+        assert torch.equal(getattr(binned, name), getattr(plain, name)), name
+    args = (binned, xys, conics, colors, opacity, H, W, tb, 16, 16, cap)
+    ref = rasterize_cuda.rasterize_forward_torch(*args)
+    img = rasterize_cuda.forward_image(*args)
+    chw = rasterize_cuda.forward_chw(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(img, ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(chw, ref.permute(2, 0, 1), rtol=0, atol=1e-5)
+
+
+def test_dispatch_and_refusals(dev):
+    H, W = 40, 56
+    tb, (_m, _l, colors, opacity), (xys, d, radii, conics, nth) = _scene(dev, 150, H, W, 5)
+    before = rasterize_cuda.forward_chw.launches
+    img = rasterize_gaussians_sum(xys, d, radii, conics, nth, colors, opacity, H, W,
+                                  layout="chw")
+    assert rasterize_cuda.forward_chw.launches == before + 1  # auto -> cuda
+    ref = rasterize_gaussians_sum(xys, d, radii, conics, nth, colors, opacity, H, W,
+                                  backend="torch", layout="chw")
+    torch.testing.assert_close(img, ref, rtol=0, atol=1e-5)
+    binned = bin_gaussians(xys, radii, nth, tb, 16, 16, 4096)
+    args = [binned, xys, conics, colors, opacity, H, W, tb]
+    with pytest.raises(NotImplementedError):
+        rasterize_cuda.forward_image(binned, xys.requires_grad_(), *args[2:])
+    xys.requires_grad_(False)
+    with pytest.raises(ValueError):
+        rasterize_cuda.forward_image(binned, xys.double(), *args[2:])
+    ki = key_inputs(xys, radii, nth, tb, 16, 16, 4096)
+    with pytest.raises(ValueError):
+        fill_cuda.fill_decode_keys(ki.starts.long(), *ki[1:])

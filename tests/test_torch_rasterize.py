@@ -1,0 +1,144 @@
+"""PyTorch port parity: the sum rasterizer against gsvc_tpu.
+
+The port's backends (cuda, whose wrappers run their plain versions on CPU
+tensors; torch; dense) render in both layouts and are held against JAX's
+`binned` and `dense` backends at atol 1e-5 (f32 sums over at most 256
+splats per pixel, taken in another order).
+"""
+
+from functools import lru_cache
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gsvc_tpu.ops.projection import project_gaussians_2d as jproject
+from gsvc_tpu.ops.rasterize import rasterize_gaussians_sum as jrasterize
+from gsvc_tpu_torch.ops import rasterize_cuda
+from gsvc_tpu_torch.ops.binning import bin_gaussians, default_max_intersects
+from gsvc_tpu_torch.ops.projection import project_gaussians_2d
+from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
+from gsvc_tpu_torch.ops.rasterize_binned import rasterize_binned
+
+ATOL = 1e-5
+H, W = 40, 56  # H, W not multiples of 16
+
+
+def _scene(n, c_dim=3, seed=0, alive_frac=1.0):
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-1.1, 1.1, (n, 2)).astype(np.float32)
+    L = (rng.uniform(0, 1, (n, 3)) + np.array([0.5, 0.0, 0.5])).astype(np.float32)
+    colors = rng.uniform(0, 1, (n, c_dim)).astype(np.float32)
+    opacity = rng.uniform(0.2, 1.0, (n, 1)).astype(np.float32)
+    alive = rng.uniform(size=n) < alive_frac
+    return means, L, colors, opacity, alive
+
+
+@lru_cache(maxsize=None)
+def _jax_render(backend):
+    tb = ((W + 15) // 16, (H + 15) // 16, 1)
+
+    def f(m, l, c, o, alive, bg):
+        xys, d, radii, conics, nth = jproject(m, l, H, W, tb, alive=alive)
+        return jrasterize(xys, d, radii, conics, nth, c, o, H, W,
+                          background=bg, backend=backend)
+
+    return jax.jit(f)
+
+
+def _torch_render(scene, backend, layout="image", background=None, **kw):
+    means, L, colors, opacity, alive = (torch.from_numpy(a) for a in scene)
+    tb = ((W + 15) // 16, (H + 15) // 16, 1)
+    xys, d, radii, conics, nth = project_gaussians_2d(means, L, H, W, tb, alive=alive)
+    return rasterize_gaussians_sum(
+        xys, d, radii, conics, nth, colors, opacity, H, W,
+        background=background, backend=backend, layout=layout, **kw,
+    )
+
+
+def _jax(scene, backend, background=None):
+    c_dim = scene[2].shape[1]
+    bg = np.ones(c_dim, np.float32) if background is None else background
+    return np.asarray(_jax_render(backend)(*(jnp.asarray(a) for a in scene),
+                                           jnp.asarray(bg)))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch", "dense", "auto"])
+@pytest.mark.parametrize("layout", ["image", "chw"])
+def test_render_matches_jax_binned_and_dense(backend, layout):
+    scene = _scene(150, seed=1, alive_frac=0.9)
+    img = _torch_render(scene, backend, layout).numpy()
+    if layout == "chw":
+        assert img.shape == (3, H, W)
+        img = img.transpose(1, 2, 0)
+    assert img.shape == (H, W, 3)
+    for jb in ("binned", "dense"):
+        np.testing.assert_allclose(img, _jax(scene, jb), rtol=0, atol=ATOL,
+                                   err_msg=jb)
+
+
+def test_tile_cap_saturation_matches_jax():
+    # 400 large splats on a 3x4 tile grid saturate the 256 cap; colours are
+    # scaled so the sums stay O(1), where atol 1e-5 is ~100 f32 ulps
+    scene = _scene(400, seed=2)
+    scene[1][:] = np.array([8.0, 0.0, 8.0], np.float32)
+    scene[2][:] /= 32.0
+    tb = ((W + 15) // 16, (H + 15) // 16, 1)
+    xys, _d, radii, _c, nth = project_gaussians_2d(
+        torch.from_numpy(scene[0]), torch.from_numpy(scene[1]), H, W, tb)
+    binned = bin_gaussians(xys, radii, nth, tb, 16, 16,
+                           default_max_intersects(400, tb[0] * tb[1]))
+    assert int(binned.tile_counts.max()) > 256
+    img = _torch_render(scene, "auto").numpy()
+    np.testing.assert_allclose(img, _jax(scene, "binned"), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(img, _jax(scene, "dense"), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("layout", ["image", "chw"])
+def test_zero_intersects_returns_background(layout):
+    scene = _scene(20, seed=3, alive_frac=0.0)
+    bg = np.array([0.25, 0.5, 0.75], np.float32)
+    for backend in ("cuda", "torch", "dense"):
+        img, alpha = _torch_render(scene, backend, layout, torch.from_numpy(bg),
+                                   return_alpha=True)
+        want = _jax(scene, "binned", bg)
+        got = img.numpy().transpose(1, 2, 0) if layout == "chw" else img.numpy()
+        np.testing.assert_array_equal(got, want)
+        assert alpha.shape == (H, W) and not alpha.any()
+
+
+def test_five_channels_route_to_binned():
+    scene = _scene(150, c_dim=5, seed=4)
+    want = _jax(scene, "binned")
+    for backend in ("cuda", "torch"):
+        img = _torch_render(scene, backend).numpy()
+        assert img.shape == (H, W, 5)
+        np.testing.assert_allclose(img, want, rtol=0, atol=ATOL)
+    chw = _torch_render(scene, "cuda", "chw").numpy()
+    np.testing.assert_allclose(chw.transpose(1, 2, 0), want, rtol=0, atol=ATOL)
+
+
+def test_forward_wrappers_on_cpu_are_the_plain_version():
+    means, L, colors, opacity, _ = (torch.from_numpy(a) for a in _scene(150, seed=5))
+    tb = ((W + 15) // 16, (H + 15) // 16, 1)
+    xys, _d, radii, conics, nth = project_gaussians_2d(means, L, H, W, tb)
+    binned = bin_gaussians(xys, radii, nth, tb, 16, 16, 4096)
+    args = (binned, xys, conics, colors, opacity, H, W, tb, 16, 16, 256)
+    ref = rasterize_binned(*args)
+    before = rasterize_cuda.forward_image.launches, rasterize_cuda.forward_chw.launches
+    assert torch.equal(rasterize_cuda.forward_image(*args), ref)
+    assert torch.equal(rasterize_cuda.forward_chw(*args), ref.permute(2, 0, 1))
+    after = rasterize_cuda.forward_image.launches, rasterize_cuda.forward_chw.launches
+    assert after == before  # no kernel launch for CPU tensors
+
+
+def test_unported_options_raise():
+    scene = _scene(10, seed=6)
+    with pytest.raises(NotImplementedError):
+        _torch_render(scene, "auto", "rows")
+    with pytest.raises(NotImplementedError):
+        _torch_render(scene, "auto", tile_rows=(0, 1))
+    with pytest.raises(ValueError):
+        _torch_render(scene, "pallas")
