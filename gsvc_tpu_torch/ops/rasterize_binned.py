@@ -13,7 +13,7 @@ from typing import Tuple
 import torch
 
 from gsvc_tpu_torch.ops.binning import BinnedSplats
-from gsvc_tpu_torch.ops.rasterize_dense import ALPHA_CUTOFF
+from gsvc_tpu_torch.ops.rasterize_dense import ALPHA_CUTOFF, _min1_forward_only
 
 # Tiles per step: each materialises [TILE_CHUNK, cap, block_h * block_w]
 # floats (16 MB at cap 256 and 16x16 tiles).
@@ -71,7 +71,7 @@ def rasterize_binned(
             0.5 * (gco[..., 0:1] * dx * dx + gco[..., 2:3] * dy * dy)
             + gco[..., 1:2] * dx * dy
         )
-        alpha = torch.clamp(opac_p[g][:, :, None] * torch.exp(-sigma), max=1.0)
+        alpha = _min1_forward_only(opac_p[g][:, :, None] * torch.exp(-sigma))
         w = torch.where((sigma >= 0.0) & (alpha >= ALPHA_CUTOFF), alpha, 0.0)
         out[t0:t1] = torch.einsum("tkc,tkp->tpc", colors_p[g], w)
     img = (

@@ -19,6 +19,13 @@ from gsvc_tpu_torch.ops.projection import _tile_bbox
 ALPHA_CUTOFF = 1.0 / 255.0
 
 
+def _min1_forward_only(x: torch.Tensor) -> torch.Tensor:
+    """Forward min(x, 1); backward identity (reference backward.cu:824),
+    written as gsvc_tpu's `_min1_forward_only` so forward values match it
+    bit for bit."""
+    return x + (torch.clamp(x, max=1.0) - x).detach()
+
+
 def rasterize_gaussians_sum_dense(
     xys: torch.Tensor,
     radii: torch.Tensor,
@@ -70,7 +77,7 @@ def rasterize_gaussians_sum_dense(
     c2 = conics[:, 1][None, None, :]
     c3 = conics[:, 2][None, None, :]
     sigma = 0.5 * (c1 * dx * dx + c3 * dy * dy) + c2 * dx * dy  # [H, W, N]
-    alpha = torch.clamp(opacity.reshape(-1)[None, None, :] * torch.exp(-sigma), max=1.0)
+    alpha = _min1_forward_only(opacity.reshape(-1)[None, None, :] * torch.exp(-sigma))
     contrib = member & (sigma >= 0.0) & (alpha >= ALPHA_CUTOFF)
     w = torch.where(contrib, alpha, torch.zeros_like(alpha))
     return torch.einsum("hwn,nc->hwc", w, colors)

@@ -134,6 +134,43 @@ def test_forward_wrappers_on_cpu_are_the_plain_version():
     assert after == before  # no kernel launch for CPU tensors
 
 
+@lru_cache(maxsize=None)
+def _jax_grad_fn(backend):
+    tb = ((W + 15) // 16, (H + 15) // 16, 1)
+
+    def loss(m, l, c, o, wgt):
+        xys, d, radii, conics, nth = jproject(m, l, H, W, tb)
+        img = jrasterize(xys, d, radii, conics, nth, c, o, H, W, backend=backend)
+        return jnp.mean((img - 0.3) ** 2 * wgt)
+
+    return jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))
+
+
+def _torch_grads(scene, wgt, backend):
+    means, L, colors, opacity = (torch.from_numpy(a).requires_grad_() for a in scene[:4])
+    tb = ((W + 15) // 16, (H + 15) // 16, 1)
+    xys, d, radii, conics, nth = project_gaussians_2d(means, L, H, W, tb)
+    img = rasterize_gaussians_sum(xys, d, radii, conics, nth, colors, opacity, H, W,
+                                  backend=backend)
+    loss = torch.mean((img - 0.3) ** 2 * torch.from_numpy(wgt))
+    return torch.autograd.grad(loss, (means, L, colors, opacity))
+
+
+@pytest.mark.parametrize("backend", ["torch", "dense", "cuda"])
+def test_gradients_with_opacity_above_one_match_jax(backend):
+    # opacity up to 2 puts opac * vis > 1 near many centres, where alpha's
+    # min(1, .) must pass the gradient through (forward-only, as gsvc_tpu's
+    # `_min1_forward_only`); a plain clamp would zero it there
+    scene = list(_scene(120, seed=7))
+    scene[3] = np.random.default_rng(8).uniform(0.2, 2.0, (120, 1)).astype(np.float32)
+    wgt = np.random.default_rng(9).uniform(0.5, 1.5, (H, W, 3)).astype(np.float32)
+    want = _jax_grad_fn("binned")(*(jnp.asarray(a) for a in scene[:4]), jnp.asarray(wgt))
+    got = _torch_grads(scene, wgt, backend)
+    for name, g, w in zip(("means", "L", "colors", "opacity"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-3, atol=1e-6,
+                                   err_msg=name)
+
+
 def test_unported_options_raise():
     scene = _scene(10, seed=6)
     with pytest.raises(NotImplementedError):
