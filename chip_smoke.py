@@ -3,24 +3,38 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path once at 1920x1080 with 10k splats, the
-paper's operating point, and fails (non-zero exit) at the first fault:
+Drives the port's serving path and its training step once at 1920x1080
+with 10k splats, the paper's operating point, and fails (non-zero exit) at
+the first fault:
 
 0. device: a CUDA card, its name and power limit from nvidia-smi;
-1. build: the kernels of gsvc_tpu_torch/csrc, compiled with nvcc;
+1. build: the kernels of gsvc_tpu_torch/csrc, one nvcc per source, in
+   parallel;
 2. kernels: K1 (fill_decode_keys), K2 (rank_cap_decode), K4 (forward,
-   [H,W,3]) and K5 (forward, [3,H,W]) on the bench scene (bench.py's
-   scene, seed 0, unit opacity), each against its plain PyTorch version
-   on the card: keys and ids exactly, renders within max-abs 1e-4;
-3. slice: a K-frame stream of the scene written with `pack_frame`, then
-   decoded by `python -m gsvc_tpu_torch.decode` (its `main`) and rendered
-   once more as the planar eval render (`render_frame`, layout "chw").
-   Launch counters are zeroed just before and read just after; every
-   kernel must have launched. decoded.rgb must be within 1 uint8 level of
-   the plain path's render, and the eval render within 1e-4;
-4. times: each kernel beside its plain version, and the eval render
-   (projection + binning + render + clip, "chw") in frames per second on
-   both paths, all with CUDA events on a chained loop.
+   [H,W,3] and the tile-row "rows" store), K5 (forward, [3,H,W]), K6
+   (backward into the expansion slots) and K3 (segmented cumsum) on the
+   bench scene (bench.py's scene, seed 0, unit opacity), each against its
+   plain PyTorch version on the card: keys and ids exactly, renders within
+   max-abs 1e-4, the rows store exactly image_to_rows of the image store,
+   K6 / K3 and the autograd function's per-splat gradients (against
+   autograd through the plain renderer) within 1e-4 of the largest entry;
+3. serving slice: a K-frame stream of the scene written with `pack_frame`,
+   then decoded by `python -m gsvc_tpu_torch.decode` (its `main`) and
+   rendered once more as the planar eval render (`render_frame`, layout
+   "chw"). decoded.rgb must be within 1 uint8 level of the plain path's
+   render, and the eval render within 1e-4;
+4. training slice: `fit_frame` with removal control (the K-frame mode) from
+   `init_splats` toward the bench scene's render, twice from one seed: PSNR
+   must rise, the two runs must be bitwise identical, and no binning budget
+   may overflow; then a few adaptive-control steps (the P-frame mode),
+   which revive splats;
+5. times: each kernel beside its plain version, the eval render
+   (projection + binning + render + clip, "chw") in frames per second, and
+   the train step in ms (kernel path with the rows loss and with the image
+   loss, against the all-PyTorch path), all with CUDA events.
+
+Around each of phases 3 and 4 every launch counter is zeroed just before
+and read just after; each kernel of that path must have launched.
 
 Prints a JSON line of the kernels, then, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -37,6 +51,9 @@ from pathlib import Path
 
 H, W, N = 1080, 1920, 10000
 RENDER_TOL = 1e-4
+GRAD_TOL = 1e-4  # max-abs error over the largest entry of the plain result
+TRAIN_ITERS = 300
+LIBS = ("fill", "segsum", "rasterize_fwd", "rasterize_bwd")
 
 
 def fail(msg: str) -> None:
@@ -82,6 +99,12 @@ def event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def errors(got, want):
+    """(max-abs error, max-abs error over the largest entry of want)."""
+    err = float((got - want).abs().max())
+    return err, err / max(float(want.abs().max()), 1e-30)
+
+
 def main() -> int:
     repo = Path(__file__).resolve().parent
     if not (repo / "gsvc_tpu_torch" / "__init__.py").is_file():
@@ -114,19 +137,24 @@ def main() -> int:
     )
     from gsvc_tpu_torch.config import FrameConfig
     from gsvc_tpu_torch.core import CHOLESKY_BOUND, from_numpy
-    from gsvc_tpu_torch.models.represent import render_frame
+    from gsvc_tpu_torch.models.represent import (
+        fit_frame,
+        init_train_state,
+        make_rows_target,
+        make_train_step,
+        render_frame,
+    )
     from gsvc_tpu_torch.ops import fill_cuda, rasterize_cuda
     from gsvc_tpu_torch.ops.binning import bin_gaussians, key_inputs
     from gsvc_tpu_torch.ops.projection import project_gaussians_2d
-    from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
+    from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum
     from gsvc_tpu_torch.utils.profiling import device_loop_time
 
     # -- phase 1: build --------------------------------------------------
     t0 = time.perf_counter()
-    for lib in ("fill", "rasterize_fwd"):
-        _build.load(lib)
+    _build.build_all(LIBS)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for lib in ("fill", "rasterize_fwd")
+    ptxas = [ln.strip() for lib in LIBS
              for ln in _build.build_log(lib).splitlines() if "Used" in ln]
     print(f"phase 1 build: {build_s:.2f} s; " + " | ".join(ptxas))
 
@@ -165,9 +193,64 @@ def main() -> int:
         errs[layout] = float((got - ref).abs().max())
         if not (torch.isfinite(got).all() and errs[layout] <= RENDER_TOL):
             fail(f"forward {layout}: max-abs {errs[layout]} > {RENDER_TOL}")
+    rows = rasterize_cuda.forward_rows(*rargs)
+    rows_ref = image_to_rows(rasterize_cuda.forward_image(*rargs), H, W)
+    errs["rows"] = float((rows - rows_ref).abs().max())
+    if not torch.equal(rows, rows_ref):
+        fail(f"forward rows differs from image_to_rows(K4 image): {errs['rows']}")
     print(f"phase 2 kernels: intersections {n_isect}, budget {budget}; K1, K2 "
           f"exact; forward max-abs image {errs['image']:.3g} chw "
-          f"{errs['chw']:.3g} (tol {RENDER_TOL})")
+          f"{errs['chw']:.3g} (tol {RENDER_TOL}); rows exact")
+
+    # K6 in each layout and K3 on its slots, against their plain versions
+    gen = torch.Generator(device=dev).manual_seed(0)
+    v_img = torch.randn((H, W, 3), device=dev, generator=gen)
+    v_by_layout = {"image": v_img, "chw": v_img.permute(2, 0, 1).contiguous(),
+                   "rows": image_to_rows(v_img, H, W)}
+    geom = (H, W, tb, 16, 16, 256)
+    bargs = (binned, xys, conics, colors, opacity)
+    slots_ref = rasterize_cuda.rasterize_backward_torch(*bargs, v_img, *geom)
+    k6 = {}
+    for layout, v in v_by_layout.items():
+        slots = rasterize_cuda.backward_slots(*bargs, v, *geom, layout=layout)
+        k6[layout] = errors(slots, slots_ref)
+        if not (torch.isfinite(slots).all() and k6[layout][1] <= GRAD_TOL):
+            fail(f"K6 {layout}: max-abs {k6[layout][0]}, rel {k6[layout][1]} "
+                 f"> {GRAD_TOL}")
+    errs["K6"] = max(e[0] for e in k6.values())
+    flags = rasterize_cuda.segment_flags(binned.gauss_slot_start, budget)
+    seg = fill_cuda.segmented_cumsum(slots_ref, flags)
+    seg_ref = fill_cuda.segmented_cumsum_torch(slots_ref, flags)
+    errs["K3"], k3_rel = errors(seg, seg_ref)
+    if not (torch.isfinite(seg).all() and k3_rel <= GRAD_TOL):
+        fail(f"K3: max-abs {errs['K3']}, rel {k3_rel} > {GRAD_TOL}")
+
+    # per-splat gradients of the autograd function against autograd through
+    # the plain renderer, on one loss
+    wgt = torch.rand((H, W, 3), device=dev, generator=gen) + 0.5
+    torch.cuda.reset_peak_memory_stats(dev)
+    per_splat = []
+    with torch.enable_grad():
+        for kernels in (True, False):
+            leaves = [t.clone().requires_grad_() for t in (xys, conics, colors, opacity)]
+            render = (rasterize_cuda.rasterize_sum if kernels
+                      else rasterize_cuda.rasterize_forward_torch)
+            img = render(binned, *leaves, *geom)
+            per_splat.append(torch.autograd.grad(
+                torch.sum((img - 0.3) ** 2 * wgt), leaves))
+    grad_errs = {}
+    for name, a, b in zip(("xys", "conics", "colors", "opacity"), *per_splat):
+        grad_errs[name] = errors(a, b)
+        if not (torch.isfinite(a).all() and grad_errs[name][1] <= GRAD_TOL):
+            fail(f"per-splat grad {name}: max-abs {grad_errs[name][0]}, rel "
+                 f"{grad_errs[name][1]} > {GRAD_TOL}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    print("phase 2 kernels: K6 (max-abs, rel) " + ", ".join(
+        f"{k} ({a:.3g}, {r:.3g})" for k, (a, r) in k6.items())
+        + f"; K3 ({errs['K3']:.3g}, {k3_rel:.3g}); per-splat grads of the "
+        "autograd function vs plain autograd " + ", ".join(
+            f"{k} ({a:.3g}, {r:.3g})" for k, (a, r) in grad_errs.items())
+        + f" (tol rel {GRAD_TOL}); peak {peak_gb:.1f} GiB")
 
     # -- phase 3: the slice, through the decoder CLI --------------------
     from gsvc_tpu_torch import decode as decode_cli
@@ -198,7 +281,13 @@ def main() -> int:
                            max_intersects=dec_budget)
 
     counters = (fill_cuda.fill_decode_keys, fill_cuda.rank_cap_decode,
-                rasterize_cuda.forward_image, rasterize_cuda.forward_chw)
+                rasterize_cuda.forward_image, rasterize_cuda.forward_chw,
+                rasterize_cuda.forward_rows, rasterize_cuda.backward_slots,
+                fill_cuda.segmented_cumsum)
+    serve_kernels = ("fill_decode_keys", "rank_cap_decode", "forward_image",
+                     "forward_chw")
+    train_kernels = ("fill_decode_keys", "rank_cap_decode", "forward_rows",
+                     "backward_slots", "segmented_cumsum")
     with tempfile.TemporaryDirectory() as tmp:
         bs = Path(tmp) / "bitstream"
         bs.mkdir()
@@ -214,7 +303,7 @@ def main() -> int:
         launches = {c.__name__: c.launches for c in counters}
         if rc != 0:
             fail(f"decode returned {rc}")
-        missing = [k for k, v in launches.items() if v <= 0]
+        missing = [k for k in serve_kernels if launches[k] <= 0]
         if missing:
             fail(f"kernels not launched on the main path: {missing}")
         decoded = np.fromfile(Path(tmp) / "decoded" / "decoded.rgb", np.uint8)
@@ -231,11 +320,63 @@ def main() -> int:
     eval_err = float((eval_img - eval_ref).abs().max())
     if not (torch.isfinite(eval_img).all() and eval_err <= RENDER_TOL):
         fail(f"eval render max-abs {eval_err} > {RENDER_TOL}")
-    print(f"phase 3 slice: decode + eval render {slice_s:.2f} s; decoded.rgb "
+    print(f"phase 3 serving slice: decode + eval render {slice_s:.2f} s; decoded.rgb "
           f"within {level} level(s) of the plain render; eval chw max-abs "
           f"{eval_err:.3g}; launches {launches}")
 
-    # -- phase 4: times --------------------------------------------------
+    # -- phase 4: the training slice -------------------------------------
+    torch.set_grad_enabled(True)
+    gt = torch.clamp(rasterize_cuda.forward_image(*rargs), 0.0, 1.0)
+
+    def psnr_of(img):
+        return float(10.0 * torch.log10(1.0 / torch.mean((img - gt) ** 2)))
+
+    def fit(cfg, seed=0):
+        state = init_train_state(cfg, generator=torch.Generator().manual_seed(seed),
+                                 device=dev)
+        psnr0 = psnr_of(render_frame(state.params, state.alive, cfg))
+        res = fit_frame(state, gt, cfg,
+                        draws=torch.Generator(device=dev).manual_seed(seed + 1))
+        return psnr0, res
+
+    kcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N,
+                       iterations=TRAIN_ITERS, isremoval=True)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    psnr0, res = fit(kcfg)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    train_launches = {c.__name__: c.launches for c in counters}
+    missing = [k for k in train_kernels if train_launches[k] <= 0]
+    if missing:
+        fail(f"kernels not launched on the training path: {missing}")
+    psnr1 = psnr_of(res.image)
+    if not (res.image.shape == (H, W, 3) and torch.isfinite(res.image).all()):
+        fail("fit_frame returned a non-finite or misshapen image")
+    if res.state.it != TRAIN_ITERS or not psnr1 > psnr0:
+        fail(f"fit: it {res.state.it}, PSNR {psnr0:.3f} -> {psnr1:.3f} dB")
+    if int(res.state.max_overflow) != 0:
+        fail(f"binning budget overflowed by {int(res.state.max_overflow)}")
+    alive_k = int(res.state.alive.sum())
+    _psnr0b, res_b = fit(kcfg)
+    same = all(torch.equal(getattr(res.state.params, k), getattr(res_b.state.params, k))
+               for k in ("xyz", "cholesky", "features_dc", "rgb_w"))
+    if not (same and torch.equal(res.image, res_b.image)
+            and torch.equal(res.state.alive, res_b.state.alive)):
+        fail("two fits from one seed differ")
+    dcfg = FrameConfig(H=H, W=W, num_points=9000, max_num_points=N, iterations=5,
+                       isdensity=True)
+    _p, res_d = fit(dcfg, seed=3)
+    alive_d = int(res_d.state.alive.sum())
+    if alive_d != N or not torch.isfinite(res_d.image).all():
+        fail(f"adaptive control: {alive_d} alive after the revive, want {N}")
+    print(f"phase 4 training slice: fit_frame {TRAIN_ITERS} its (removal "
+          f"control) in {fit_s:.2f} s, PSNR {psnr0:.3f} -> {psnr1:.3f} dB, "
+          f"{alive_k} alive, overflow 0; a second fit is bitwise identical; "
+          f"adaptive control revived to {alive_d}; launches {train_launches}")
+
+    # -- phase 5: times --------------------------------------------------
     def eval_fps(backend: str, reps: int) -> float:
         def chained(m):
             x, d, r, c, k = project_gaussians_2d(m, L, H, W, tb)
@@ -248,8 +389,9 @@ def main() -> int:
         return 1.0 / device_loop_time(chained, means, reps=reps, outer=3)
 
     fps = {"torch": [], "cuda": []}
-    for backend in ("torch", "cuda", "cuda", "torch"):
-        fps[backend].append(eval_fps(backend, 100 if backend == "cuda" else 10))
+    with torch.no_grad():
+        for backend in ("torch", "cuda", "cuda", "torch"):
+            fps[backend].append(eval_fps(backend, 100 if backend == "cuda" else 10))
     timed = [
         ("K1 fill_decode_keys", "gsvc_tpu_torch/csrc/fill.cu",
          "gsvc_tpu/ops/fill_pallas.py:57", "fill_decode_keys", errs["K1"],
@@ -268,17 +410,66 @@ def main() -> int:
          errs["chw"], lambda: rasterize_cuda.forward_chw(*rargs),
          lambda: rasterize_cuda.rasterize_forward_torch(*rargs, layout="chw")),
     ]
+    v_rows = v_by_layout["rows"]
+    timed += [
+        ("K4 forward rows", "gsvc_tpu_torch/csrc/rasterize_fwd.cu",
+         "gsvc_tpu/ops/rasterize_pallas.py:428", "forward_rows",
+         errs["rows"], lambda: rasterize_cuda.forward_rows(*rargs),
+         lambda: rasterize_cuda.rasterize_forward_torch(*rargs, layout="rows")),
+        ("K6 backward", "gsvc_tpu_torch/csrc/rasterize_bwd.cu",
+         "gsvc_tpu/ops/rasterize_pallas.py:676", "backward_slots", errs["K6"],
+         lambda: rasterize_cuda.backward_slots(*bargs, v_rows, *geom, layout="rows"),
+         lambda: rasterize_cuda.rasterize_backward_torch(*bargs, v_rows, *geom,
+                                                         layout="rows")),
+        ("K3 segmented_cumsum", "gsvc_tpu_torch/csrc/segsum.cu",
+         "gsvc_tpu/ops/fill_pallas.py:169", "segmented_cumsum", errs["K3"],
+         lambda: fill_cuda.segmented_cumsum(slots_ref, flags),
+         lambda: fill_cuda.segmented_cumsum_torch(slots_ref, flags)),
+    ]
     kernels = []
     for name, src, replaces, counter, err, kern, plain in timed:
         ms = event_ms(torch, kern, 50)
         plain_ms = event_ms(torch, plain, 5)
+        path_launches = launches if counter in serve_kernels else train_launches
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[counter],
+                        "replaces": replaces, "launches": path_launches[counter],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-        print(f"phase 4 time [{smi}]: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    print(f"phase 4 time [{smi}]: eval render 1080p/10k chw fps: kernel path "
+        print(f"phase 5 time [{smi}]: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(f"phase 5 time [{smi}]: eval render 1080p/10k chw fps: kernel path "
           f"{fps['cuda']}, plain path {fps['torch']} (order plain, kernel, "
           f"kernel, plain)")
+
+    def train_step_ms(backend: str, rows_loss: bool, reps: int) -> float:
+        """Mean ms of the removal-control train step, chained through its
+        parameters, CUDA events around `reps` steps after two warm-ups."""
+        cfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N,
+                          iterations=10**6, isremoval=True, backend=backend)
+        state = init_train_state(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=dev)
+        step = make_train_step(cfg)
+        target = make_rows_target(gt, cfg) if rows_loss else None
+        for _ in range(2):
+            state = step(state, gt, target)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            state = step(state, gt, target)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    step_ms = {"plain": [], "kernel rows loss": [], "kernel image loss": []}
+    for key in ("plain", "kernel rows loss", "kernel image loss",
+                "kernel image loss", "kernel rows loss", "plain"):
+        if key == "plain":
+            step_ms[key].append(train_step_ms("torch", False, 3))
+        else:
+            step_ms[key].append(train_step_ms("cuda", key.endswith("rows loss"), 50))
+    print(f"phase 5 time [{smi}]: train step 1080p/10k ms (removal control, "
+          f"L2): " + "; ".join(f"{k} {v}" for k, v in step_ms.items())
+          + " (order plain, rows, image, image, rows, plain)")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
 plain C interface, `build/lib<name>-<hash>.so`; the hash covers the source
 and every header, so an edited kernel never loads a stale build. A file
-lock serialises concurrent builds (several processes may start at once).
+lock per library serialises concurrent builds of it (several processes may
+start at once); `build_all` runs one nvcc per source, all at once.
 The library is loaded with ctypes, with every pointer and the stream as
 `c_void_p`; each C entry returns `cudaGetLastError()`, which `check`
 turns into an exception.
@@ -21,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent
@@ -63,7 +65,7 @@ def _compile(name: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock:
+    with open(BUILD_DIR / f".lock-{name}", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if out.exists():  # another process built it while we waited
@@ -95,6 +97,15 @@ def load(name: str) -> ctypes.CDLL:
             lib.gsvc_error_string.argtypes = [ctypes.c_int]
             _libs[name] = lib
         return lib
+
+
+def build_all(names) -> None:
+    """Compile the named libraries in parallel (one nvcc each), then load."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        list(pool.map(_compile, names))
+    for name in names:
+        load(name)
 
 
 def build_log(name: str) -> str:

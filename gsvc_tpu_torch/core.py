@@ -33,6 +33,12 @@ class GaussianFrame(nn.Module):
         self.cholesky = nn.Parameter(cholesky)
         self.features_dc = nn.Parameter(features_dc)
         self.rgb_w = nn.Parameter(rgb_w)
+        # a buffer, so the training step adds it without a host-to-device copy
+        self.register_buffer(
+            "_bound",
+            torch.tensor(CHOLESKY_BOUND, dtype=cholesky.dtype, device=cholesky.device),
+            persistent=False,
+        )
 
     @property
     def capacity(self) -> int:
@@ -44,10 +50,7 @@ class GaussianFrame(nn.Module):
 
     @property
     def get_cholesky_elements(self) -> torch.Tensor:
-        bound = torch.tensor(
-            CHOLESKY_BOUND, dtype=self.cholesky.dtype, device=self.cholesky.device
-        )
-        return self.cholesky + bound
+        return self.cholesky + self._bound
 
     @property
     def get_features(self) -> torch.Tensor:
@@ -110,3 +113,50 @@ def init_splats(
     rgb_w = torch.full((cap, 1), rgb_w_value, dtype=torch.float32, device=device)
     alive = torch.arange(cap, device=device) < num_points
     return GaussianFrame(xyz, u_chol, u_feat, rgb_w), alive
+
+
+def train_state_from_numpy(state, device="cpu"):
+    """Carry a gsvc_tpu `TrainState` across as the port's `TrainState`.
+
+    `state` is the JAX state or any object (or mapping) with the same
+    fields, as numpy-convertible arrays: params (see `from_numpy`), alive,
+    opt (step, exp_avg / exp_avg_sq / exp_avg_diff / neg_pre_grad dicts
+    keyed like `_trainable`, fresh), it, lr_frozen, best_loss, patience,
+    grace, stop, loss, psnr, max_overflow. The iteration counter, Adan's
+    step and fresh flags, lr_frozen and grace become host values. Tests use
+    it to start both packages mid-run.
+    """
+    from gsvc_tpu_torch.models.represent import TrainState
+    from gsvc_tpu_torch.optim.adan import AdanState
+
+    def get(obj, k):
+        return obj[k] if isinstance(obj, Mapping) else getattr(obj, k)
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    opt = get(state, "opt")
+
+    def tree(k):
+        return {name: t(v) for name, v in get(opt, k).items()}
+
+    adan = AdanState(
+        step=int(np.asarray(get(opt, "step"))),
+        exp_avg=tree("exp_avg"), exp_avg_sq=tree("exp_avg_sq"),
+        exp_avg_diff=tree("exp_avg_diff"), neg_pre_grad=tree("neg_pre_grad"),
+        fresh={k: bool(np.asarray(v)) for k, v in get(opt, "fresh").items()},
+    )
+    return TrainState(
+        params=from_numpy(get(state, "params"), device),
+        alive=t(get(state, "alive"), torch.bool),
+        opt=adan,
+        it=int(np.asarray(get(state, "it"))),
+        lr_frozen=bool(np.asarray(get(state, "lr_frozen"))),
+        best_loss=t(get(state, "best_loss")),
+        patience=t(get(state, "patience"), torch.int32),
+        grace=int(np.asarray(get(state, "grace"))),
+        stop=t(get(state, "stop"), torch.bool),
+        loss=t(get(state, "loss")),
+        psnr=t(get(state, "psnr")),
+        max_overflow=t(get(state, "max_overflow"), torch.int32),
+    )

@@ -1,7 +1,7 @@
-// Forward sum-rasterizer, K4 (layout "image", [H, W, 3]) and K5 (layout
-// "chw", [3, H, W]) as one kernel templated on the store. The Python side,
-// with the plain PyTorch version and the design note, is
-// gsvc_tpu_torch/ops/rasterize_cuda.py.
+// Forward sum-rasterizer, K4 (layout "image", [H, W, 3], and layout "rows",
+// the tile-row blocks of image_to_rows) and K5 (layout "chw", [3, H, W]) as
+// one kernel templated on the store. The Python side, with the plain
+// PyTorch version and the design note, is gsvc_tpu_torch/ops/rasterize_cuda.py.
 //
 // One CTA per tile and one thread per pixel. The tile's first
 // min(count, cap) lanes are gathered once into shared memory; every thread
@@ -13,8 +13,9 @@ namespace {
 
 constexpr float kAlphaCutoff = 1.0f / 255.0f;
 constexpr int kFields = 9;  // x y c1 c2 c3 opac r g b
+enum Layout { kImage = 0, kChw = 1, kRows = 2 };
 
-template <bool kChw>
+template <int kLayout>
 __global__ void forward_kernel(const int* __restrict__ tile_bin_start,
                                const int* __restrict__ tile_counts,
                                const int* __restrict__ gauss_ids,
@@ -23,7 +24,7 @@ __global__ void forward_kernel(const int* __restrict__ tile_bin_start,
                                const float* __restrict__ colors,
                                const float* __restrict__ opacity, int n,
                                int img_h, int img_w, int tb_x, int cap,
-                               float* __restrict__ out) {
+                               int r_out, float* __restrict__ out) {
   extern __shared__ float lanes[];  // [kFields][cap]
   float* s_x = lanes;
   float* s_y = lanes + cap;
@@ -76,9 +77,22 @@ __global__ void forward_kernel(const int* __restrict__ tile_bin_start,
     }
   }
 
-  if (px >= img_w || py >= img_h) return;
+  const bool inside = px < img_w && py < img_h;
+  if (kLayout == kRows) {
+    // row ty*r_out + 3*tx + c, column ly*block_w + lx; zero past the image
+    // edge, as image_to_rows pads
+    const long long npix = static_cast<long long>(blockDim.x) * blockDim.y;
+    const long long base =
+        (static_cast<long long>(blockIdx.y) * r_out + 3 * blockIdx.x) * npix +
+        threadIdx.y * blockDim.x + threadIdx.x;
+    out[base] = inside ? acc_r : 0.0f;
+    out[base + npix] = inside ? acc_g : 0.0f;
+    out[base + 2 * npix] = inside ? acc_b : 0.0f;
+    return;
+  }
+  if (!inside) return;
   const long long pix = static_cast<long long>(py) * img_w + px;
-  if (kChw) {
+  if (kLayout == kChw) {
     const long long plane = static_cast<long long>(img_h) * img_w;
     out[pix] = acc_r;
     out[plane + pix] = acc_g;
@@ -98,8 +112,8 @@ GSVC_EXPORT int rasterize_forward(const void* tile_bin_start,
                                   const void* conics, const void* colors,
                                   const void* opacity, int n, int img_h,
                                   int img_w, int tb_x, int tb_y, int block_w,
-                                  int block_h, int cap, int chw, void* out,
-                                  void* stream) {
+                                  int block_h, int cap, int layout,
+                                  int r_out, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(tb_x, tb_y);
   const dim3 block(block_w, block_h);
@@ -113,12 +127,15 @@ GSVC_EXPORT int rasterize_forward(const void* tile_bin_start,
   const float* op = static_cast<const float*>(opacity);
   float* o = static_cast<float*>(out);
   if (tb_x > 0 && tb_y > 0) {
-    if (chw) {
-      forward_kernel<true><<<grid, block, smem, s>>>(
-          tbs, cnt, ids, x, c, rgb, op, n, img_h, img_w, tb_x, cap, o);
+    if (layout == kChw) {
+      forward_kernel<kChw><<<grid, block, smem, s>>>(
+          tbs, cnt, ids, x, c, rgb, op, n, img_h, img_w, tb_x, cap, r_out, o);
+    } else if (layout == kRows) {
+      forward_kernel<kRows><<<grid, block, smem, s>>>(
+          tbs, cnt, ids, x, c, rgb, op, n, img_h, img_w, tb_x, cap, r_out, o);
     } else {
-      forward_kernel<false><<<grid, block, smem, s>>>(
-          tbs, cnt, ids, x, c, rgb, op, n, img_h, img_w, tb_x, cap, o);
+      forward_kernel<kImage><<<grid, block, smem, s>>>(
+          tbs, cnt, ids, x, c, rgb, op, n, img_h, img_w, tb_x, cap, r_out, o);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,31 +1,134 @@
-"""Per-frame representation model: the render half of
-gsvc_tpu/models/represent.py (`render_frame`, `render_frame_pos`).
+"""Per-frame representation model and its training loop (PyTorch port of
+gsvc_tpu/models/represent.py): `render_frame(_pos/_rows)`, the train step
+`make_train_step`, `fit_frame` and `pre_train_frame`.
 
-The training loop (`make_train_step`, `fit_frame`) arrives with the
-training slice.
+One step is the reference train_iter (GaussianSplats_Represent.py:191-207):
+render, loss, backward (autograd; on the "cuda" backend the rasterizer's
+backward is K6 and the K3 reduction), splat control, Adan, StepLR, the
+binning-overflow check and early stopping. Splats live at a fixed capacity
+beside an `alive` mask, as in gsvc_tpu. The port updates the parameters in
+place (saves a copy of every tensor per step) and keeps the iteration
+counter, the Adan step, `lr_frozen` and the early-stop grace on the host,
+so control iterations need no sync; the device is read only where the JAX
+step branches on a device value: the prune count at the control threshold
+and the early-stop patience (`fit_frame` reads it only when it could have
+run out).
+
+Reference quirks kept (see gsvc_tpu's module docstring): control
+iterations that rebuild parameters skip the Adan update and restart its
+moments while its step keeps counting; after the threshold's
+`update_optimizer` the learning rate is frozen at base lr; colours render
+as features_dc * rgb_W with no activation.
+
+Random draws of `_revive` are injected: a step takes a `torch.Generator`
+or a callable n -> (u_xyz [n,2] in U(-1,1), u_chol [n,3], u_feat [n,3]),
+so parity tests feed both packages the same numbers.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Union
+
+import numpy as np
 import torch
 
 from gsvc_tpu_torch.config import FrameConfig
-from gsvc_tpu_torch.core import CHOLESKY_BOUND, GaussianFrame
+from gsvc_tpu_torch.core import CHOLESKY_BOUND, GaussianFrame, init_splats
+from gsvc_tpu_torch.ops.binning import budget_overflow, default_max_intersects
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
-from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
+from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum
+from gsvc_tpu_torch.optim.adan import (
+    AdanState,
+    adan_init,
+    adan_reset_moments,
+    adan_step,
+)
+from gsvc_tpu_torch.optim.schedule import step_lr
+from gsvc_tpu_torch.utils.losses import loss_fn
+
+Draws = Union[None, torch.Generator, Callable[[int], tuple]]
 
 
-@torch.no_grad()
-def render_frame(
-    params: GaussianFrame, alive: torch.Tensor, cfg: FrameConfig,
-    rgb_w_trainable: bool = True, layout: str = "image",
-) -> torch.Tensor:
-    """model.forward(): render + clamp to [0, 1].
+@dataclasses.dataclass
+class TrainState:
+    params: GaussianFrame
+    alive: torch.Tensor  # [N] bool
+    opt: AdanState
+    it: int  # iterations completed
+    lr_frozen: bool  # update_optimizer happened (scheduler quirk)
+    best_loss: torch.Tensor  # [] f32 early-stop best
+    patience: torch.Tensor  # [] int32 iters without improvement
+    grace: int  # early-stop grace countdown
+    stop: torch.Tensor  # [] bool
+    loss: torch.Tensor  # [] f32 last loss
+    psnr: torch.Tensor  # [] f32 last psnr
+    max_overflow: torch.Tensor  # [] int32 worst binning budget overflow seen
 
-    Mirrors GaussianSplats_Represent.py:83-90 (opacity ones, colours
-    premultiplied by rgb_W, clamp outside the rasterizer). layout="image"
-    returns [H, W, 3], layout="chw" the planar [3, H, W].
-    """
+
+class FitResult(NamedTuple):
+    state: TrainState
+    image: torch.Tensor  # final render [H, W, 3]
+
+
+def _trainable(params: GaussianFrame) -> dict:
+    return {
+        "xyz": params.xyz,
+        "cholesky": params.cholesky,
+        "features_dc": params.features_dc,
+        "rgb_w": params.rgb_w,
+    }
+
+
+def init_train_state(
+    cfg: FrameConfig, warm: Optional[GaussianFrame] = None,
+    warm_count: Optional[int] = None, uniforms=None,
+    generator: Optional[torch.Generator] = None, device="cpu",
+) -> TrainState:
+    """Fresh state, optionally warm-started from a previous frame's splats
+    (train_video_Represent.py:64-69: xyz/cholesky/features copied, rgb_W
+    restarts at its init value). `uniforms` / `generator` feed
+    `init_splats`."""
+    rgb_w_value = 0.01 if cfg.isremoval else 1.0
+    params, alive = init_splats(
+        cfg.num_points, capacity=cfg.max_num_points, rgb_w_value=rgb_w_value,
+        uniforms=uniforms, generator=generator, device=device,
+    )
+    if warm is not None:
+        count = warm_count if warm_count is not None else cfg.num_points
+        m = torch.arange(cfg.max_num_points, device=device) < count
+        with torch.no_grad():
+            params = GaussianFrame(
+                torch.where(m[:, None], warm.xyz, params.xyz),
+                torch.where(m[:, None], warm.cholesky, params.cholesky),
+                torch.where(m[:, None], warm.features_dc, params.features_dc),
+                params.rgb_w.detach().clone(),
+            )
+        alive = m
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    return TrainState(
+        params=params, alive=alive, opt=adan_init(_trainable(params)), it=0,
+        lr_frozen=False, best_loss=scalar(float("inf"), torch.float32),
+        patience=scalar(0, torch.int32),
+        grace=cfg.stable_control if (cfg.isdensity or cfg.isremoval) else 0,
+        stop=scalar(False, torch.bool), loss=scalar(float("inf"), torch.float32),
+        psnr=scalar(0.0, torch.float32), max_overflow=scalar(0, torch.int32),
+    )
+
+
+def _clip01(x: torch.Tensor) -> torch.Tensor:
+    """clip to [0, 1] with jnp.clip's gradient (half at a tie)."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
+def _render(params: GaussianFrame, alive, cfg: FrameConfig, layout="image",
+            rgb_w_trainable=True) -> torch.Tensor:
+    """The differentiable model.forward(): render + clip to [0, 1]
+    (GaussianSplats_Represent.py:83-90: opacity ones, colours
+    premultiplied by rgb_W, clip outside the rasterizer)."""
     colors = params.get_features if rgb_w_trainable else params.features_dc
     xys, depths, radii, conics, nth = project_gaussians_2d(
         params.get_xyz, params.get_cholesky_elements, cfg.H, cfg.W,
@@ -38,7 +141,25 @@ def render_frame(
         cfg.H, cfg.W, cfg.block_h, cfg.block_w,
         backend=cfg.backend, max_intersects=cfg.max_intersects, layout=layout,
     )
-    return torch.clamp(img, 0.0, 1.0)
+    return _clip01(img) if img.requires_grad else torch.clamp(img, 0.0, 1.0)
+
+
+@torch.no_grad()
+def render_frame(
+    params: GaussianFrame, alive: torch.Tensor, cfg: FrameConfig,
+    rgb_w_trainable: bool = True, layout: str = "image",
+) -> torch.Tensor:
+    """model.forward(): [H, W, 3] ("image"), planar [3, H, W] ("chw") or
+    the tile-row blocks of `image_to_rows` ("rows")."""
+    return _render(params, alive, cfg, layout, rgb_w_trainable)
+
+
+@torch.no_grad()
+def render_frame_rows(params: GaussianFrame, alive: torch.Tensor,
+                      cfg: FrameConfig) -> torch.Tensor:
+    """model.forward() in the tile-row block layout (the clip commutes with
+    the tiling, so tile-space clip is exact)."""
+    return _render(params, alive, cfg, "rows")
 
 
 @torch.no_grad()
@@ -63,3 +184,264 @@ def render_frame_pos(
         backend=cfg.backend, max_intersects=cfg.max_intersects,
     )
     return torch.clamp(img, 0.0, 1.0)
+
+
+def _use_rows_loss(cfg: FrameConfig, device) -> bool:
+    """Pointwise losses (L1/L2) run in the rasterizer's tile-row layout,
+    skipping the untile transpose in both passes, when the backend resolves
+    to the kernels ("cuda", or "auto" on a CUDA device); structural losses
+    need the image."""
+    if cfg.loss_type not in ("L2", "L1"):
+        return False
+    return cfg.backend == "cuda" or (
+        cfg.backend == "auto" and torch.device(device).type == "cuda")
+
+
+def make_rows_target(gt: torch.Tensor, cfg: FrameConfig):
+    """The [H, W, 3] target and its valid-pixel mask in the layout="rows"
+    blocks, made once per frame fit."""
+    h = gt.shape[0]
+    gt_rows = image_to_rows(gt, h, cfg.W, cfg.block_h, cfg.block_w)
+    mask = image_to_rows(torch.ones_like(gt), h, cfg.W, cfg.block_h, cfg.block_w)
+    return gt_rows, mask
+
+
+def _loss_and_psnr(params, alive, gt, cfg: FrameConfig, lambda_value,
+                   rows_target=None):
+    """(loss, (sq_sum, render)): the differentiable loss, and the sum of
+    squared error the caller turns into PSNR (detached)."""
+    denom = cfg.H * cfg.W * 3
+    if rows_target is not None:
+        rows = _render(params, alive, cfg, "rows")
+        gt_rows, mask = rows_target
+        diff = (rows - gt_rows) * mask  # mask zeroes tile-padding pixels
+        sq = torch.sum(diff * diff)
+        loss = sq if cfg.loss_type == "L2" else torch.sum(torch.abs(diff))
+        return loss / denom, (sq.detach(), rows)
+    img = _render(params, alive, cfg)
+    loss = loss_fn(img.permute(2, 0, 1), gt.permute(2, 0, 1), cfg.loss_type,
+                   lambda_value=lambda_value)
+    sq = torch.sum((img.detach() - gt) ** 2)
+    return loss, (sq, img)
+
+
+def _alive_rank_by_weight(params: GaussianFrame, alive: torch.Tensor) -> torch.Tensor:
+    """Rank of each slot by |rgb_W| among alive slots (dead slots last; ties
+    by slot index, a stable sort like torch.sort in the reference,
+    GaussianSplats_Represent.py:102)."""
+    keys = torch.where(alive, torch.abs(params.rgb_w[:, 0]), float("inf"))
+    order = torch.argsort(keys, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(keys.shape[0], device=keys.device)
+    return rank
+
+
+def _prune(params, alive, remove_count):
+    return alive & (_alive_rank_by_weight(params, alive) >= remove_count)
+
+
+def _draw(draws: Draws, n: int, device):
+    """(u_xyz [n,2] in U(-1,1), u_chol [n,3], u_feat [n,3]) on `device`."""
+    if callable(draws):
+        u = draws(n)
+    else:
+        gdev = draws.device if draws is not None else device
+
+        def rand(*shape):
+            return torch.rand(shape, generator=draws, dtype=torch.float32, device=gdev)
+
+        u = (2.0 * rand(n, 2) - 1.0, rand(n, 3), rand(n, 3))
+    return [(a if isinstance(a, torch.Tensor) else torch.tensor(np.asarray(a)))
+            .to(device=device, dtype=torch.float32) for a in u]
+
+
+def _revive(params: GaussianFrame, alive, uniforms, add_count: int):
+    """Revive the first `add_count` dead slots with fresh random splats
+    (the reference appends new tensors, GaussianSplats_Represent.py:136-143;
+    slot order differs, as in gsvc_tpu)."""
+    u_xyz, u_chol, u_feat = uniforms
+    dead = ~alive
+    dead_rank = torch.cumsum(dead.to(torch.int32), 0) - 1
+    revive = dead & (dead_rank < add_count)
+    rv = revive[:, None]
+    new_xyz = torch.atanh(torch.clamp(u_xyz, -1.0 + 1e-7, 1.0 - 1e-7))
+    with torch.no_grad():
+        params = GaussianFrame(
+            torch.where(rv, new_xyz, params.xyz),
+            torch.where(rv, u_chol, params.cholesky),
+            torch.where(rv, u_feat, params.features_dc),
+            torch.where(rv, 0.01, params.rgb_w),
+        )
+    return params, alive | revive
+
+
+def _threshold_prune(params, alive, target: int):
+    """At the control threshold, prune down to `target` alive splats; the
+    count is read from the device (the JAX step branches on it too)."""
+    rc = int(torch.sum(alive.to(torch.int32))) - target
+    if rc > 0:
+        return _prune(params, alive, rc), True
+    return alive, False
+
+
+def _removal_control(params, alive, it: int, cfg: FrameConfig):
+    """GaussianSplats_Represent.py:98-128. Returns (params, alive, rebuilt,
+    hit_threshold)."""
+    thresh = 4000
+    interval_events = thresh // cfg.densification_interval
+    per_step = int((cfg.removal_rate / interval_events) * cfg.max_num_points)
+    target = int(cfg.max_num_points * (1.0 - cfg.removal_rate))
+    if it < thresh:
+        return params, _prune(params, alive, per_step), True, False
+    if it == thresh:
+        alive, rebuilt = _threshold_prune(params, alive, target)
+        return params, alive, rebuilt, True
+    return params, alive, False, False
+
+
+def _adaptive_control(params, alive, draws: Draws, it: int, cfg: FrameConfig):
+    """GaussianSplats_Represent.py:130-172. Returns (params, alive, rebuilt,
+    hit_threshold)."""
+    t_rm, t_add = 500, 500
+    thresh = t_rm + t_add
+    den = int(cfg.max_num_points * cfg.removal_rate)
+    events = t_rm // cfg.densification_interval
+    per_step = int(den / events) if events else 0
+    target = int(cfg.max_num_points * (1.0 - cfg.removal_rate))
+    if it == 1:
+        u = _draw(draws, alive.shape[0], alive.device)
+        params, alive = _revive(params, alive, u, den)
+        return params, alive, den > 0, False
+    if t_add <= it < thresh:
+        return params, _prune(params, alive, per_step), True, False
+    if it == thresh:
+        alive, rebuilt = _threshold_prune(params, alive, target)
+        return params, alive, rebuilt, True
+    return params, alive, False, False
+
+
+def _psnr(cfg: FrameConfig, sq: torch.Tensor) -> torch.Tensor:
+    return 10.0 * torch.log10(cfg.H * cfg.W * 3 / torch.clamp(sq, min=1e-20))
+
+
+def _loss_and_grads(state: TrainState, gt, cfg: FrameConfig, lambda_value,
+                    rows_target):
+    tr = _trainable(state.params)
+    loss, (sq, _render_out) = _loss_and_psnr(
+        state.params, state.alive, gt, cfg, lambda_value, rows_target)
+    grads = torch.autograd.grad(loss, list(tr.values()))
+    return loss.detach(), sq, dict(zip(tr, grads))
+
+
+def make_train_step(cfg: FrameConfig, lambda_value: float = 0.0,
+                    draws: Draws = None):
+    """One reference train_iter: forward/loss/backward, splat control, Adan
+    step, scheduler step, overflow check, early stopping.
+
+    step(state, gt, rows_target=None) updates the state's parameters in
+    place and returns the next state; `rows_target` (make_rows_target,
+    made once per frame) runs the loss in tile-row space."""
+    num_tiles = cfg.tile_bounds[0] * cfg.tile_bounds[1]
+    mi = (cfg.max_intersects if cfg.max_intersects is not None
+          else default_max_intersects(cfg.max_num_points, num_tiles))
+    interval = cfg.densification_interval
+
+    def step(state: TrainState, gt: torch.Tensor, rows_target=None) -> TrainState:
+        it = state.it + 1  # 1-based like the reference loop
+        loss, sq, grads = _loss_and_grads(state, gt, cfg, lambda_value, rows_target)
+        psnr = _psnr(cfg, sq)
+
+        params, alive = state.params, state.alive
+        rebuilt = hit_threshold = False
+        with torch.no_grad():
+            if cfg.isdensity and (it == 1 or it % interval == 0):
+                params, alive, rebuilt, hit_threshold = _adaptive_control(
+                    params, alive, draws, it, cfg)
+            elif cfg.isremoval and not cfg.isdensity and it % interval == 0:
+                params, alive, rebuilt, hit_threshold = _removal_control(
+                    params, alive, it, cfg)
+
+            # binning budget overflow, on the control-step parameters (a
+            # silent overflow drops the highest-index splats and their grads)
+            max_overflow = state.max_overflow
+            if it == 1 or it % interval == 0:
+                nth = project_gaussians_2d(
+                    params.get_xyz, params.get_cholesky_elements, cfg.H, cfg.W,
+                    cfg.tile_bounds, cfg.block_w, cfg.block_h, alive=alive)[4]
+                max_overflow = torch.maximum(max_overflow, budget_overflow(nth, mi))
+
+            # scheduler-detach quirk: after update_optimizer lr stays at base
+            lr_frozen = state.lr_frozen or hit_threshold
+            lr = cfg.lr if lr_frozen else step_lr(cfg.lr, it - 1)
+            if rebuilt:
+                # rebuilt parameters have no grads in the reference: the
+                # update is skipped, moments restart, the step still counts
+                opt = adan_reset_moments(state.opt)
+                opt.step += 1
+            else:
+                tr = _trainable(params)
+                new_tr, opt = adan_step(tr, grads, state.opt, lr,
+                                        betas=cfg.betas, eps=cfg.eps)
+                for k, p in tr.items():
+                    p.copy_(new_tr[k])
+            if hit_threshold:
+                opt.step = 0
+
+            # early stopping (EarlyStopping, utils.py:188-211), on the device
+            improved = state.best_loss - loss > cfg.early_stop_min_delta
+            first = torch.isinf(state.best_loss)
+            best_loss = torch.where(improved | first, loss, state.best_loss)
+            patience = torch.where(improved | first, 0, state.patience + 1)
+            grace = state.grace - 1
+            stop = (patience >= cfg.early_stop_patience) & (grace < 0)
+
+        return TrainState(
+            params=params, alive=alive, opt=opt, it=it, lr_frozen=lr_frozen,
+            best_loss=best_loss, patience=patience.to(torch.int32), grace=grace,
+            stop=stop, loss=loss, psnr=psnr, max_overflow=max_overflow,
+        )
+
+    return step
+
+
+def fit_frame(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
+              lambda_value: float = 0.0, draws: Draws = None) -> FitResult:
+    """Run the per-frame optimisation to cfg.iterations or early stop.
+
+    Stops at exactly the iteration where gsvc_tpu's while_loop stops. The
+    patience grows by at most one a step, so after reading it as p the
+    stop cannot come within the next patience - p steps: the device is
+    read about once per early_stop_patience steps, not every step.
+    gt: [H, W, 3] float32 in [0, 1].
+    """
+    step = make_train_step(cfg, lambda_value, draws)
+    rows_target = make_rows_target(gt, cfg) if _use_rows_loss(cfg, gt.device) else None
+    next_check = state.it
+    stopped = bool(state.stop)
+    while not stopped and state.it < cfg.iterations:
+        state = step(state, gt, rows_target)
+        if state.grace < 0 and state.it >= next_check:
+            p = int(state.patience)
+            stopped = p >= cfg.early_stop_patience
+            next_check = state.it + cfg.early_stop_patience - p
+    return FitResult(state=state, image=render_frame(state.params, state.alive, cfg))
+
+
+def pre_train_frame(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
+                    lambda_value: float = 0.7) -> FitResult:
+    """The pre_train loop (no control, no early stop): the K-frame
+    detection pass (SimpleTrainer2d.pre_train, train_video_Represent.py:117-133)."""
+    rows_target = make_rows_target(gt, cfg) if _use_rows_loss(cfg, gt.device) else None
+    for _ in range(cfg.iterations):
+        it = state.it + 1
+        loss, sq, grads = _loss_and_grads(state, gt, cfg, lambda_value, rows_target)
+        tr = _trainable(state.params)
+        with torch.no_grad():
+            new_tr, opt = adan_step(tr, grads, state.opt, step_lr(cfg.lr, it - 1),
+                                    betas=cfg.betas, eps=cfg.eps)
+            for k, p in tr.items():
+                p.copy_(new_tr[k])
+        state = dataclasses.replace(state, opt=opt, it=it, loss=loss,
+                                    psnr=_psnr(cfg, sq))
+    return FitResult(state=state,
+                     image=render_frame(state.params, state.alive, cfg))

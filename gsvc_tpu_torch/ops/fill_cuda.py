@@ -1,5 +1,5 @@
-"""Tile-binning index kernels K1 and K2 (csrc/fill.cu), with their plain
-PyTorch versions.
+"""Tile-binning index kernels K1 and K2 (csrc/fill.cu) and the segmented
+cumsum K3 (csrc/segsum.cu), with their plain PyTorch versions.
 
 K1 `fill_decode_keys` replaces `_fill_kernel` / `fill_decode_keys` of
 gsvc_tpu/ops/fill_pallas.py. The TPU scatters one seed per gaussian and
@@ -21,6 +21,17 @@ latency at these sizes; the design keeps each to one pass over its slots
 with coalesced lane-parallel access (K1's per-gaussian writes are strided
 by the bbox, which is small). Keys are int64 here, with the JAX uint32
 values: PyTorch's uint32 sort support is thin.
+
+K3 `segmented_cumsum` replaces `_segsum_kernel` / `segmented_cumsum`, the
+lane->splat gradient reduction's scan. The TPU carries each row's running
+sum from one sequential grid step to the next and scans inside a block by
+log-shift rolls. CUDA blocks cannot carry, so it becomes three passes in a
+fixed order: a block-local segmented scan (a thread's 4 lanes in order,
+then warp shuffles, then the 8 warp totals), one thread per row turning
+the block tails into carries in block order, and a fix-up adding each
+block's carry to its lanes before the block's first flag. It reads and
+writes each value twice (~6 MB at 1080p/10k), so memory traffic and the
+three launches bound it.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. `<wrapper>.launches` counts the launches.
@@ -154,6 +165,66 @@ def rank_cap_decode(sorted_keys: torch.Tensor, cap: int, n: int,
 
 
 rank_cap_decode.launches = 0
+
+
+def segmented_cumsum_torch(vals: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: the inclusive cumsum along the last axis minus
+    the cumsum carried in from before each lane's segment start (taken in
+    float64, so the difference loses nothing in f32)."""
+    s = vals.shape[-1]
+    cs = torch.cumsum(vals.to(torch.float64), dim=-1)
+    lane = torch.arange(s, dtype=torch.int64, device=vals.device)
+    start = torch.cummax(torch.where(flags != 0, lane, 0), 0).values
+    before = torch.where(start > 0, cs[..., (start - 1).clamp(min=0)], 0.0)
+    return (cs - before).to(vals.dtype)
+
+
+_SEG_BLOCK = 1024  # lanes per CTA in csrc/segsum.cu
+
+
+def segmented_cumsum(vals: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """K3: inclusive segmented cumsum of [R, S] float32 values along S;
+    flags [S] int32 is nonzero at each segment's first lane (gsvc_tpu's
+    `fill_pallas.segmented_cumsum`)."""
+    if not vals.is_cuda:
+        return segmented_cumsum_torch(vals, flags)
+    dev = vals.device
+    if vals.dtype != torch.float32 or vals.dim() != 2 or vals.shape[0] > 32:
+        raise ValueError("segmented_cumsum: vals must be float32 [R <= 32, S], "
+                         f"got {vals.dtype} {tuple(vals.shape)}")
+    rows, s = vals.shape
+    if flags.dtype != torch.int32 or tuple(flags.shape) != (s,) or flags.device != dev:
+        raise ValueError(f"segmented_cumsum: flags must be int32 [{s}] on {dev}")
+    v = vals.contiguous()
+    out = torch.empty_like(v)
+    nb = max((s + _SEG_BLOCK - 1) // _SEG_BLOCK, 1)
+    tail = torch.empty((rows, nb), dtype=torch.float32, device=dev)
+    carry = torch.empty_like(tail)
+    bflag = torch.empty((rows, nb), dtype=torch.int32, device=dev)
+    first = torch.empty((nb,), dtype=torch.int32, device=dev)
+    lib = _segsum_lib()
+    with torch.cuda.device(dev):
+        rc = lib.segmented_cumsum(
+            _build.ptr(v), _build.ptr(flags.contiguous()), rows, s,
+            _build.ptr(tail), _build.ptr(bflag), _build.ptr(first),
+            _build.ptr(carry), _build.ptr(out), _build.stream_ptr(dev),
+        )
+    _build.check(lib, rc, "segmented_cumsum")
+    segmented_cumsum.launches += 1
+    return out
+
+
+segmented_cumsum.launches = 0
+
+
+def _segsum_lib() -> ctypes.CDLL:
+    lib = _build.load("segsum")
+    if not getattr(lib, "_gsvc_bound", False):
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.segmented_cumsum.restype = i32
+        lib.segmented_cumsum.argtypes = [vp, vp, i32, i64] + [vp] * 6
+        lib._gsvc_bound = True
+    return lib
 
 
 def _fill_lib() -> ctypes.CDLL:

@@ -5,11 +5,11 @@ Mirrors the reference `rasterize_gaussians_sum`
 device and no host sync.
 
 Backends:
-- "cuda": binning through the K1/K2 wrappers and the forward kernel
-  (ops/rasterize_cuda.py); on CPU tensors the wrappers run their plain
-  versions.
-- "torch": the all-PyTorch path (plain binning + ops/rasterize_binned.py),
-  on either device.
+- "cuda": binning through the K1/K2 wrappers and the kernels' autograd
+  function (ops/rasterize_cuda.py: forward K4/K5, backward K6 then the K3
+  reduction); on CPU tensors the wrappers run their plain versions.
+- "torch": the all-PyTorch path (plain binning + ops/rasterize_binned.py,
+  differentiated by autograd), on either device.
 - "dense": the O(N * pixels) oracle (ops/rasterize_dense.py), tests only.
 - "auto": "cuda" for CUDA tensors, "torch" for CPU tensors.
 """
@@ -28,6 +28,26 @@ from gsvc_tpu_torch.ops.binning import bin_gaussians, default_max_intersects
 TILE_CAP = 256
 
 BACKENDS = ("auto", "cuda", "torch", "dense")
+
+
+def _grid(img_height: int, img_width: int, block_h: int, block_w: int):
+    return (img_width + block_w - 1) // block_w, (img_height + block_h - 1) // block_h
+
+
+def image_to_rows(img: torch.Tensor, img_height: int, img_width: int,
+                  BLOCK_H: int = 16, BLOCK_W: int = 16) -> torch.Tensor:
+    """Tile a [H, W, 3] image into the layout="rows" blocks (targets and
+    masks of tile-space training losses); gsvc_tpu's `image_to_rows`."""
+    tb_x, tb_y = _grid(img_height, img_width, BLOCK_H, BLOCK_W)
+    return rasterize_cuda.image_to_rows(img, tb_x, tb_y, BLOCK_W, BLOCK_H)
+
+
+def rows_to_image(rows: torch.Tensor, img_height: int, img_width: int,
+                  BLOCK_H: int = 16, BLOCK_W: int = 16) -> torch.Tensor:
+    """Inverse of the layout="rows" output: blocks -> [H, W, 3] image."""
+    tb_x, tb_y = _grid(img_height, img_width, BLOCK_H, BLOCK_W)
+    return rasterize_cuda.rows_to_image(rows, tb_x, tb_y, img_height,
+                                        img_width, BLOCK_W, BLOCK_H)
 
 
 def rasterize_gaussians_sum(
@@ -49,7 +69,10 @@ def rasterize_gaussians_sum(
     tile_rows=None,
     layout: str = "image",
 ):
-    """Accumulation rasterizer: [H, W, C] ("image") or [3, H, W] ("chw").
+    """Accumulation rasterizer: [H, W, C] ("image"), [3, H, W] ("chw"), or
+    ("rows", 3 channels) the [tb_y * round8(3*tb_x), BLOCK_H*BLOCK_W]
+    tile-row blocks of `image_to_rows`, which pointwise losses consume
+    without an untile transpose. Differentiable on every backend.
 
     `depths` is accepted for API parity and ignored (the sum render is
     order-independent). Quirks kept for parity with gsvc_tpu:
@@ -62,16 +85,15 @@ def rasterize_gaussians_sum(
     del depths
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
-    if layout == "rows":
-        raise NotImplementedError(
-            "layout='rows' (tile-space training loss) arrives with the "
-            "training slice"
-        )
-    if layout not in ("image", "chw"):
+    if layout not in rasterize_cuda.LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
     if tile_rows is not None:
         raise NotImplementedError("tile_rows (image sharding) is not ported yet")
     c_dim = colors.shape[-1]
+    if layout == "rows" and c_dim != 3:
+        raise ValueError("layout='rows' holds exactly 3 channels")
+    if layout == "rows" and return_alpha:
+        raise ValueError("return_alpha unsupported for layout='rows'")
     if background is None:
         background = torch.ones((c_dim,), dtype=colors.dtype, device=colors.device)
     tile_bounds = (
@@ -101,6 +123,8 @@ def rasterize_gaussians_sum(
         total = torch.sum(num_tiles_hit)
         if layout == "chw":
             img = img.permute(2, 0, 1)
+        elif layout == "rows":
+            img = image_to_rows(img, img_height, img_width, BLOCK_H, BLOCK_W)
     else:
         use_kernels = backend == "cuda"
         binned = bin_gaussians(
@@ -110,17 +134,22 @@ def rasterize_gaussians_sum(
         total = binned.num_intersects
         args = (binned, xys, conics, colors, opacity, img_height, img_width,
                 tile_bounds, BLOCK_W, BLOCK_H, TILE_CAP)
-        if not use_kernels:
-            img = rasterize_cuda.rasterize_forward_torch(*args, layout=layout)
-        elif layout == "chw":
-            img = rasterize_cuda.forward_chw(*args)
+        if use_kernels:
+            img = rasterize_cuda.rasterize_sum(*args, layout=layout)
         else:
-            img = rasterize_cuda.forward_image(*args)
+            img = rasterize_cuda.rasterize_forward_torch(*args, layout=layout)
 
     # zero-intersect fast path as an arithmetic select (no host sync)
     live = (total >= 1).to(img.dtype)
     bg = background.to(img.dtype)
-    bg = bg[:, None, None] if layout == "chw" else bg[None, None, :]
+    if layout == "rows":
+        # background per block row (t, c) is background[row % 3], as in
+        # gsvc_tpu (the padding rows past 3*tb_x shift that phase)
+        bg = bg[torch.arange(img.shape[0], device=img.device) % 3][:, None]
+    elif layout == "chw":
+        bg = bg[:, None, None]
+    else:
+        bg = bg[None, None, :]
     img = img * live + bg * (1.0 - live)
     if return_alpha:
         hw = img.shape[1:] if layout == "chw" else img.shape[:2]

@@ -20,6 +20,24 @@ from gsvc_tpu_torch.ops.rasterize_dense import ALPHA_CUTOFF, _min1_forward_only
 TILE_CHUNK = 64
 
 
+def tile_lane_ids(binned: BinnedSplats, cap: int, n: int) -> torch.Tensor:
+    """[T, cap] int64 gaussian id of each tile's first `cap` lanes; slots
+    past a tile's count get id n, which gathers the zero row of `zrow`."""
+    dev = binned.tile_bin_start.device
+    k_range = torch.arange(cap, dtype=torch.int64, device=dev)
+    lanes = binned.sorted_gauss_ids.shape[0]
+    start = binned.tile_bin_start.to(torch.int64)[:, None]
+    idx = (start + k_range).clamp(max=max(lanes - 1, 0))  # [T, cap]
+    ids = binned.sorted_gauss_ids.to(torch.int64)[idx] if lanes else torch.full_like(idx, n)
+    count = torch.clamp(binned.tile_counts, max=cap).to(torch.int64)[:, None]
+    return torch.where(k_range[None, :] < count, ids, n)
+
+
+def zrow(a: torch.Tensor) -> torch.Tensor:
+    """`a` with one zero row appended (index n)."""
+    return torch.cat([a, torch.zeros((1,) + a.shape[1:], dtype=a.dtype, device=a.device)])
+
+
 def rasterize_binned(
     binned: BinnedSplats,
     xys: torch.Tensor,
@@ -40,18 +58,7 @@ def rasterize_binned(
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
     num_tiles = tb_x * tb_y
 
-    # per-(tile, slot) gaussian ids; dead slots point at a zero row (id n)
-    k_range = torch.arange(cap, dtype=torch.int64, device=dev)
-    lanes = binned.sorted_gauss_ids.shape[0]
-    start = binned.tile_bin_start.to(torch.int64)[:, None]
-    idx = (start + k_range).clamp(max=max(lanes - 1, 0))  # [T, cap]
-    ids = binned.sorted_gauss_ids.to(torch.int64)[idx] if lanes else torch.full_like(idx, n)
-    count = torch.clamp(binned.tile_counts, max=cap).to(torch.int64)[:, None]
-    ids = torch.where(k_range[None, :] < count, ids, n)
-
-    def zrow(a):
-        return torch.cat([a, torch.zeros((1,) + a.shape[1:], dtype=a.dtype, device=dev)])
-
+    ids = tile_lane_ids(binned, cap, n)
     xys_p, conics_p = zrow(xys), zrow(conics)
     colors_p, opac_p = zrow(colors), zrow(opacity.reshape(-1))
 

@@ -173,8 +173,10 @@ def test_gradients_with_opacity_above_one_match_jax(backend):
 
 def test_unported_options_raise():
     scene = _scene(10, seed=6)
-    with pytest.raises(NotImplementedError):
-        _torch_render(scene, "auto", "rows")
+    with pytest.raises(ValueError):  # rows hold exactly 3 channels
+        _torch_render(_scene(10, c_dim=5, seed=6), "auto", "rows")
+    with pytest.raises(ValueError):
+        _torch_render(scene, "auto", "rows", return_alpha=True)
     with pytest.raises(NotImplementedError):
         _torch_render(scene, "auto", tile_rows=(0, 1))
     with pytest.raises(ValueError):
