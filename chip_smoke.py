@@ -31,13 +31,30 @@ the first fault:
 5. times: each kernel beside its plain version, the eval render
    (projection + binning + render + clip, "chw") in frames per second, and
    the train step in ms (kernel path with the rows loss and with the image
-   loss, against the all-PyTorch path), all with CUDA events.
+   loss, against the all-PyTorch path), all with CUDA events;
+6. the encoder: a 4-frame 1080p I420 clip (the bench scene, the same moved
+   by a few pixels, then a cut to another seed's scene and its move),
+   through `python -m gsvc_tpu_torch.drivers.represent` (10k splats,
+   --is_rm --is_ad, K-frame detection), `drivers.compress` (QAT, rANS,
+   `frame_N.gsvc`) and `decode`, each by its `main`. It fails unless every
+   CLI returns 0, K_frames.txt starts with 1 and leaves a P-frame, every
+   fit beats its starting render's PSNR, no budget overflow is reported,
+   the bitstream trailers match K_frames.txt, and each decoded PSNR is
+   within 0.1 dB of the compress stage's; it prints per-frame fit seconds,
+   QAT ms a step, eval fps and bpp.
 
-Around each of phases 3 and 4 every launch counter is zeroed just before
-and read just after; each kernel of that path must have launched.
+Around each of phases 3 and 4, and around each CLI of phase 6, every
+launch counter is zeroed just before and read just after; each kernel of
+that path must have launched. The kernels' JSON reports phase 6's counts.
 
 Prints a JSON line of the kernels, then, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+    python3 chip_smoke.py --profile
+
+runs phases 0 and 1, then profiles the represent and QAT train steps
+(`profile_steps`: host and device ms a step, launches, device idle share,
+the top device and host ops) and exits without the smoke's checks.
 """
 
 from __future__ import annotations
@@ -53,6 +70,10 @@ H, W, N = 1080, 1920, 10000
 RENDER_TOL = 1e-4
 GRAD_TOL = 1e-4  # max-abs error over the largest entry of the plain result
 TRAIN_ITERS = 300
+# phase 6: the represent fits run to the splat-control threshold (4000 with
+# --is_rm), where K- and P-frames reach the same splat count, which the
+# compress stage's delta model needs
+ENC_ITERS, KDETECT_ITERS, QAT_ITERS = 4000, 100, 300
 LIBS = ("fill", "segsum", "rasterize_fwd", "rasterize_bwd")
 
 
@@ -61,9 +82,9 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bench_scene(np, torch, dev):
+def bench_scene(np, torch, dev, seed=0):
     """bench.py's scene (seed 0): means, cholesky L, colours, opacity."""
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     means = rng.uniform(-0.999, 0.999, (N, 2))
     L = np.stack(
         [rng.uniform(1.0, 6.0, N), rng.normal(0.0, 1.0, N),
@@ -105,7 +126,242 @@ def errors(got, want):
     return err, err / max(float(want.abs().max()), 1e-30)
 
 
+def rgb_to_i420(np, rgb):
+    """uint8 [H, W, 3] -> one I420 frame: the exact inverse of the port's
+    BT.601 `io.yuv.yuv420_to_rgb` matrix, chroma averaged over 2x2."""
+    m = np.array([[1.164, 0.0, 1.596], [1.164, -0.392, -0.813], [1.164, 2.017, 0.0]])
+    ycc = rgb.astype(np.float64) @ np.linalg.inv(m).T + np.array([16.0, 128.0, 128.0])
+    h, w = rgb.shape[:2]
+    chroma = ycc[..., 1:].reshape(h // 2, 2, w // 2, 2, 2).mean(axis=(1, 3))
+    planes = (ycc[..., 0], chroma[..., 0], chroma[..., 1])
+    return b"".join(np.clip(np.round(p), 0, 255).astype(np.uint8).tobytes()
+                    for p in planes)
+
+
+def train_lines(path):
+    """{frame: {field: value}} of a driver's train.txt Frame_N lines."""
+    import re
+
+    out = {}
+    for ln in Path(path).read_text().splitlines():
+        m = re.match(r"Frame_(\d+): \d+x\d+, (.*)$", ln)
+        if m:
+            out[int(m.group(1))] = {
+                k: float(v) for k, v in re.findall(r"([\w-]+):(-?[\d.]+)s?", m.group(2))}
+    return out
+
+
+def render_scene(torch, means, L, colors, opacity, tb):
+    """[H, W, 3] render of a scene through K1, K2 and K4, clipped to [0, 1]."""
+    from gsvc_tpu_torch.ops import rasterize_cuda
+    from gsvc_tpu_torch.ops.binning import bin_gaussians
+    from gsvc_tpu_torch.ops.projection import project_gaussians_2d
+
+    with torch.no_grad():
+        xys, _d, radii, conics, nth = project_gaussians_2d(means, L, H, W, tb)
+        budget = (int(nth.sum()) * 21 // 20 // 8192 + 1) * 8192
+        binned = bin_gaussians(xys, radii, nth, tb, 16, 16, budget, kernels=True)
+        img = rasterize_cuda.forward_image(binned, xys, conics, colors, opacity,
+                                           H, W, tb, 16, 16, 256)
+        return torch.clamp(img, 0.0, 1.0)
+
+
+def encoder_phase(np, torch, dev, smi, counters, clip, tmp: Path) -> dict:
+    """Phase 6: the 4-frame clip through `drivers.represent`,
+    `drivers.compress` and `decode` (each CLI's `main`), checked; returns
+    the launch counts summed over the three CLIs."""
+    import contextlib
+    import io
+
+    from gsvc_tpu_torch import decode as decode_cli
+    from gsvc_tpu_torch.compress.bitstream import frame_type
+    from gsvc_tpu_torch.drivers import compress as compress_cli
+    from gsvc_tpu_torch.drivers import represent as represent_cli
+    from gsvc_tpu_torch.io import process_yuv_video
+    from gsvc_tpu_torch.models.represent import render_frame
+
+    yuv = tmp / "clip.yuv"
+    yuv.write_bytes(b"".join(
+        rgb_to_i420(np, (img.cpu().numpy() * 255.0).round().astype(np.uint8))
+        for img in clip))
+    n_frames = len(clip)
+    ck, cq = tmp / "ck", tmp / "cq"
+    common = ["-d", str(yuv), "--data_name", "smoke", "--width", str(W), "--height",
+              str(H), "--image_length", str(n_frames), "--num_points", str(N)]
+    rep_argv = common + ["--iterations", str(ENC_ITERS), "--kdetect_iterations",
+                         str(KDETECT_ITERS), "--is_rm", "--is_ad",
+                         "--checkpoint_dir", str(ck)]
+    run = f"GaussianVideo_{ENC_ITERS}_{N}"
+    npz = ck / "models" / "smoke" / run / "gmodels_state_dict.npz"
+    kfile = ck / "result" / "smoke" / "K_frames.txt"
+    bs = cq / "models" / "smoke" / f"GaussianVideo_{QAT_ITERS}_{N}" / "bitstream"
+    clis = [
+        ("represent", represent_cli.main, rep_argv,
+         ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
+          "segmented_cumsum", "forward_chw")),
+        ("compress", compress_cli.main, common + [
+            "--iterations", str(QAT_ITERS), "--model_path", str(npz),
+            "--k_frames_dir", str(ck), "--checkpoint_dir", str(cq)],
+         ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
+          "segmented_cumsum", "forward_chw")),
+        ("decode", decode_cli.main, [
+            "--bitstream", str(bs), "--height", str(H), "--width", str(W),
+            "--model_path", str(npz), "--k_frames", str(kfile), "-d", str(yuv),
+            "--no_png", "--out", str(tmp / "decoded")],
+         ("fill_decode_keys", "rank_cap_decode", "forward_image")),
+    ]
+    total = {c.__name__: 0 for c in counters}
+    for name, main, argv, needed in clis:
+        err = io.StringIO()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        sys.stderr.write(err.getvalue())
+        if rc != 0:
+            fail(f"{name} returned {rc}")
+        if "WARNING" in err.getvalue():
+            fail(f"{name} reported an intersection budget overflow")
+        missing = [k for k in needed if launches[k] <= 0]
+        if missing:
+            fail(f"kernels not launched by {name}: {missing}; launches {launches}")
+        for k, v in launches.items():
+            total[k] += v
+        print(f"phase 6 {name}: {secs:.2f} s; launches {launches}")
+
+    k_frames = [int(x) for x in kfile.read_text().split()]
+    if k_frames[0] != 1 or len(k_frames) >= n_frames:
+        fail(f"K_frames.txt {k_frames}: want frame 1 first and a P-frame")
+    for f in range(1, n_frames + 1):
+        want = "K" if f in k_frames else "P"
+        got = frame_type((bs / f"frame_{f}.gsvc").read_bytes())
+        if got != want:
+            fail(f"frame {f}: bitstream trailer {got}, K_frames.txt says {want}")
+    rep = train_lines(ck / "result" / "smoke" / run / "train.txt")
+    enc = train_lines(cq / "result" / "smoke" / f"GaussianVideo_{QAT_ITERS}_{N}"
+                      / "train.txt")
+    dec = train_lines(tmp / "decoded" / "decode.txt")
+    if not (sorted(rep) == sorted(enc) == sorted(dec) == list(range(1, n_frames + 1))):
+        fail(f"frames logged: represent {sorted(rep)}, compress {sorted(enc)}, "
+             f"decode {sorted(dec)}")
+
+    # each frame's fit must beat the render it started from: the trainer the
+    # driver built (same seed; a P-frame warm-starts from the checkpoint)
+    args = represent_cli.parse_args(rep_argv)
+    frames = process_yuv_video(str(yuv), W, H)
+    gmodels = compress_cli.load_gmodels(str(npz))
+    counts = {int(a.split("_")[1]): int(b) for a, b in (
+        ln.split(":") for ln in (ck / "result" / "smoke" / run /
+                                 "num_gaussian_points.txt").read_text().splitlines())}
+    init_psnr = {}
+    for f in range(1, n_frames + 1):
+        is_k = f in k_frames
+        tr = represent_cli.SimpleTrainer2d(
+            frames[f - 1], f, num_points=N if is_k else counts[f - 1],
+            max_num_points=N, iterations=ENC_ITERS, args=args,
+            Trained_Model=None if is_k else gmodels[f"frame_{f - 1}"],
+            isdensity=not is_k, isremoval=is_k, removal_rate=args.removal_rate,
+            seed=args.seed)
+        img = render_frame(tr.state.params, tr.state.alive, tr.cfg)
+        init_psnr[f] = float(10.0 * torch.log10(1.0 / torch.mean((img - tr.gt) ** 2)))
+        if not rep[f]["PSNR"] > init_psnr[f]:
+            fail(f"frame {f}: fitted PSNR {rep[f]['PSNR']} <= initial {init_psnr[f]:.4f}")
+        if abs(dec[f]["PSNR"] - enc[f]["PSNR"]) >= 0.1:
+            fail(f"frame {f}: decoded PSNR {dec[f]['PSNR']} vs encoder {enc[f]['PSNR']}")
+    print(f"phase 6 encoder [{smi}]: {W}x{H}, {N} splats, {n_frames} frames, K-frames "
+          f"{k_frames}; splats kept {counts}")
+    for f in range(1, n_frames + 1):
+        print(f"phase 6 frame {f} [{smi}]: {'K' if f in k_frames else 'P'}; represent "
+              f"{ENC_ITERS} its {rep[f]['Training']:.2f} s, PSNR {init_psnr[f]:.3f} -> "
+              f"{rep[f]['PSNR']:.4f} dB, eval {rep[f]['FPS']:.1f} fps; QAT {QAT_ITERS} its "
+              f"{enc[f]['Training']:.2f} s = {1e3 * enc[f]['Training'] / QAT_ITERS:.2f} "
+              f"ms/step, PSNR {enc[f]['PSNR']:.4f} dB, bpp {enc[f]['bpp']:.4f}, eval "
+              f"{enc[f]['FPS']:.1f} fps; decoded PSNR {dec[f]['PSNR']:.4f} dB")
+    return total
+
+
+def profile_steps(np, torch, dev, smi) -> None:
+    """`--profile`: where a train step's time goes at 1080p/10k, for the
+    represent step (removal control, rows L2, from `init_splats`) and the
+    QAT step (K-frame mode, the bench scene as its checkpoint, the compress
+    driver's budget), each fitting the bench scene's render.
+
+    Per step: host enqueue and synced ms over 50 chained steps on the host
+    clock, then torch.profiler over 20 more. Device busy sums the self time
+    of device-side events only (kernels, copies, fills): a host op's device
+    time is that of the kernels it launched, so adding host ops would count
+    those kernels twice. Device idle = 1 - busy / synced step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsvc_tpu_torch.config import FrameConfig
+    from gsvc_tpu_torch.core import CHOLESKY_BOUND
+    from gsvc_tpu_torch.models import compress
+    from gsvc_tpu_torch.models.represent import (
+        init_train_state,
+        make_rows_target,
+        make_train_step,
+    )
+    from gsvc_tpu_torch.ops.binning import default_max_intersects
+
+    tb = ((W + 15) // 16, (H + 15) // 16, 1)
+    means, L, colors, opacity = bench_scene(np, torch, dev)
+    gt = render_scene(torch, means, L, colors, opacity, tb)
+    rcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=10**6,
+                       isremoval=True)
+    qcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=1,
+                       max_intersects=default_max_intersects(N, tb[0] * tb[1], factor=32))
+    gmodel = {"_xyz": np.arctanh(means.cpu().numpy()),
+              "_cholesky": L.cpu().numpy() - np.float32(CHOLESKY_BOUND),
+              "_features_dc": colors.cpu().numpy()}
+    steps = (
+        ("represent step (removal control, rows L2)", make_train_step(rcfg),
+         init_train_state(rcfg, generator=torch.Generator().manual_seed(0), device=dev),
+         make_rows_target(gt, rcfg)),
+        ("QAT step (K-frame)",
+         compress.make_train_step_quantize(qcfg, draws=torch.Generator().manual_seed(0)),
+         compress.init_compress_state(gmodel, None, dev), make_rows_target(gt, qcfg)),
+    )
+    launch_keys = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+    for name, step, state, target in steps:
+        for _ in range(5):
+            state = step(state, gt, target)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            state = step(state, gt, target)
+        enqueue_ms = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        synced_ms = (time.perf_counter() - t0) / 50 * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                state = step(state, gt, target)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in device) / 20 / 1e3
+        if busy_ms <= 0:
+            fail(f"profile {name}: the profiler recorded no device time")
+        launches = sum(e.count for e in events if e.key in launch_keys) / 20
+        print(f"profile [{smi}]: {name}: host enqueue {enqueue_ms:.4f} ms, synced "
+              f"{synced_ms:.4f} ms a step; device busy {busy_ms:.4f} ms over "
+              f"{sum(e.count for e in device) / 20:.1f} device events and {launches:.1f} "
+              f"kernel launches a step; device idle {100 * (1 - busy_ms / synced_ms):.1f} %")
+        for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
+            print(f"profile   device {e.key[:64]:64s} {e.self_device_time_total / 20:9.1f} "
+                  f"us x{e.count / 20:.1f} a step")
+        for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]:
+            print(f"profile   host {e.key[:64]:64s} {e.self_cpu_time_total / 20:9.1f} "
+                  f"us x{e.count / 20:.1f} a step")
+
+
 def main() -> int:
+    argv = sys.argv[1:]
+    if argv not in ([], ["--profile"]):
+        fail(f"usage: {Path(__file__).name} [--profile]; got {argv}")
     repo = Path(__file__).resolve().parent
     if not (repo / "gsvc_tpu_torch" / "__init__.py").is_file():
         fail(f"gsvc_tpu_torch is not beside {Path(__file__).name}")
@@ -157,6 +413,9 @@ def main() -> int:
     ptxas = [ln.strip() for lib in LIBS
              for ln in _build.build_log(lib).splitlines() if "Used" in ln]
     print(f"phase 1 build: {build_s:.2f} s; " + " | ".join(ptxas))
+    if argv == ["--profile"]:
+        profile_steps(np, torch, dev, smi)
+        return 0
 
     # -- phase 2: kernels against their plain versions ----------------
     tb = ((W + 15) // 16, (H + 15) // 16, 1)
@@ -429,10 +688,9 @@ def main() -> int:
     kernels = []
     for name, src, replaces, counter, err, kern, plain in timed:
         ms = event_ms(torch, kern, 50)
-        plain_ms = event_ms(torch, plain, 5)
-        path_launches = launches if counter in serve_kernels else train_launches
+        plain_ms = event_ms(torch, plain, 3)
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": path_launches[counter],
+                        "replaces": replaces, "launches": counter,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
         print(f"phase 5 time [{smi}]: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms")
     print(f"phase 5 time [{smi}]: eval render 1080p/10k chw fps: kernel path "
@@ -470,6 +728,19 @@ def main() -> int:
     print(f"phase 5 time [{smi}]: train step 1080p/10k ms (removal control, "
           f"L2): " + "; ".join(f"{k} {v}" for k, v in step_ms.items())
           + " (order plain, rows, image, image, rows, plain)")
+
+    # -- phase 6: the encoder, YUV -> .gsvc -> decoded frames --------------
+    torch.set_grad_enabled(True)
+    clip = [gt]  # frames 1-2: the bench scene, then moved by (3, 2) pixels
+    shift = torch.tensor([3 * 2.0 / W, 2 * 2.0 / H], device=dev)
+    clip.append(render_scene(torch, means + shift, L, colors, opacity, tb))
+    means_b, L_b, colors_b, opacity_b = bench_scene(np, torch, dev, seed=1)
+    clip.append(render_scene(torch, means_b, L_b, colors_b, opacity_b, tb))  # a cut
+    clip.append(render_scene(torch, means_b + shift, L_b, colors_b, opacity_b, tb))
+    with tempfile.TemporaryDirectory() as tmp:
+        enc_launches = encoder_phase(np, torch, dev, smi, counters, clip, Path(tmp))
+    for k in kernels:
+        k["launches"] = enc_launches[k["launches"]]
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

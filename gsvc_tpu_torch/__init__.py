@@ -9,7 +9,11 @@ version on CPU tensors, so the package imports and is tested on a CPU.
 
 Ported so far: the decode / eval-render path (projection, binning with
 kernels K1/K2, the forward rasterizer K4/K5, the bitstream decoder and
-`python -m gsvc_tpu_torch.decode`).
+`python -m gsvc_tpu_torch.decode`), the training step (the backward
+rasterizer K6 and the K3 reduction, Adan, splat control) and the encoder
+(`python -m gsvc_tpu_torch.drivers.represent`, then
+`python -m gsvc_tpu_torch.drivers.compress`: K-frame detection, the QAT
+compress stage and the `.gsvc` bitstream encoder).
 """
 
 __version__ = "0.1.0"

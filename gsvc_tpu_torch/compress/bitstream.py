@@ -1,11 +1,13 @@
 """Frame bitstream (PyTorch port of gsvc_tpu/compress/bitstream.py).
 
-`pack_frame` writes the container of `encode_frame` from already-quantised
-numpy codes (the quantising half waits for the compress slice), and
-`decode_frame` + `render_decoded` reconstruct a frame from the bytes. The
-bytes are the JAX package's: fp16 means, rANS-coded 6-bit cholesky codes
-with f32 scale/beta, the VQ codebook and rANS-coded stage indices, and a
-"GSV1" + K/P trailer.
+`encode_frame` quantises a fitted `CompressState` and `pack_frame` writes
+the container from the numpy codes; `decode_frame` + `render_decoded`
+reconstruct a frame from the bytes. The bytes are the JAX package's: fp16
+means, rANS-coded 6-bit cholesky codes with f32 scale/beta, the VQ
+codebook and rANS-coded stage indices, and a "GSV1" + K/P trailer. The
+encoder takes the frame type from its caller; gsvc_tpu infers it from
+whether the side information is all zeros, and writes the same bytes
+whenever that guess is right.
 
 P-frames carry deltas against the previous frame's representation
 checkpoint, which the decoder takes as side information (see the JAX
@@ -84,6 +86,33 @@ def pack_frame(
     put(i_unique)
     out.write(b"GSV1" + frame_type.encode())
     return out.getvalue()
+
+
+def encode_frame(state, cfg: FrameConfig, frame_type: str) -> bytes:
+    """A fitted `models.compress.CompressState` -> its byte stream: exactly
+    what `measure_bits` counts, in the container of `pack_frame`.
+    `frame_type` is "K" (frame mode) or "P" (delta mode); `cfg` is accepted
+    for the JAX signature's sake."""
+    from gsvc_tpu_torch.compress.quantizers import (
+        UniformQuantParams,
+        residual_vq_forward,
+        uniform_quantize,
+    )
+
+    del cfg
+    p = state.params
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    with torch.no_grad():
+        _deq, codes = uniform_quantize(
+            p.cholesky, UniformQuantParams(scale=p.q_scale, beta=p.q_beta), CHOL_BITS)
+        _colors, idx, _l, _ = residual_vq_forward(p.features_dc, state.vq, False)
+    return pack_frame(
+        host(p.xyz).astype(np.float32).astype(np.float16), host(p.q_scale),
+        host(p.q_beta), host(codes), host(state.vq.embed), host(idx), frame_type,
+    )
 
 
 def frame_type(blob: bytes) -> Optional[str]:

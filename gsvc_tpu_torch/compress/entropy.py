@@ -32,6 +32,10 @@ def judge_type(vmin, vmax):
     return np.int32
 
 
+def get_np_size(x: np.ndarray) -> int:
+    return x.size * x.itemsize
+
+
 def _quantize_pmf(counts: np.ndarray) -> np.ndarray:
     """Counts -> integer pmf summing to 2^PRECISION, every symbol >= 1."""
     counts = counts.astype(np.float64)

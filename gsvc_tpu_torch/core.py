@@ -107,12 +107,76 @@ def init_splats(
 
         uniforms = (2.0 * draw(cap, 2) - 1.0, draw(cap, 3), draw(cap, 3))
     u_xyz, u_chol, u_feat = (
-        torch.as_tensor(np.asarray(u, np.float32), device=device) for u in uniforms
+        torch.tensor(np.asarray(u, np.float32), device=device) for u in uniforms
     )
     xyz = torch.atanh(torch.clamp(u_xyz, -1.0 + 1e-7, 1.0 - 1e-7))
     rgb_w = torch.full((cap, 1), rgb_w_value, dtype=torch.float32, device=device)
     alive = torch.arange(cap, device=device) < num_points
     return GaussianFrame(xyz, u_chol, u_feat, rgb_w), alive
+
+
+def _field(obj, k):
+    """Field `k` of a mapping or an object."""
+    return obj[k] if isinstance(obj, Mapping) else getattr(obj, k)
+
+
+def _adan_from_numpy(opt, device):
+    """A gsvc_tpu `AdanState` (numpy-convertible leaves) as the port's;
+    the step and the fresh flags become host values."""
+    from gsvc_tpu_torch.optim.adan import AdanState
+
+    def tree(k):
+        return {name: torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
+                for name, v in _field(opt, k).items()}
+
+    return AdanState(
+        step=int(np.asarray(_field(opt, "step"))),
+        exp_avg=tree("exp_avg"), exp_avg_sq=tree("exp_avg_sq"),
+        exp_avg_diff=tree("exp_avg_diff"), neg_pre_grad=tree("neg_pre_grad"),
+        fresh={k: bool(np.asarray(v)) for k, v in _field(opt, "fresh").items()},
+    )
+
+
+def compress_state_from_numpy(state, device="cpu"):
+    """Carry a gsvc_tpu `CompressState` across as the port's `CompressState`.
+
+    `state` is the JAX state or any object (or mapping) with its fields as
+    numpy-convertible arrays: params and best_params (xyz, cholesky,
+    features_dc, q_scale, q_beta), vq and best_vq (embed, cluster_size,
+    embed_avg, initted), opt (as in `train_state_from_numpy`), it,
+    best_psnr, loss, psnr, p_xyz, p_cholesky, p_features_dc. The JAX PRNG
+    key has no counterpart: the port takes its k-means draws as an
+    argument. The iteration counter, Adan's step and fresh flags and the
+    VQ `initted` flags become host values."""
+    from gsvc_tpu_torch.compress.quantizers import VQState
+    from gsvc_tpu_torch.models.compress import CompressParams, CompressState
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+    def params(p):
+        return CompressParams(**{k: t(_field(p, k)) for k in (
+            "xyz", "cholesky", "features_dc", "q_scale", "q_beta")})
+
+    def vq(v):
+        return VQState(embed=t(_field(v, "embed")), cluster_size=t(_field(v, "cluster_size")),
+                       embed_avg=t(_field(v, "embed_avg")),
+                       initted=bool(np.asarray(_field(v, "initted"))))
+
+    return CompressState(
+        params=params(_field(state, "params")),
+        vq=vq(_field(state, "vq")),
+        opt=_adan_from_numpy(_field(state, "opt"), device),
+        it=int(np.asarray(_field(state, "it"))),
+        best_psnr=t(_field(state, "best_psnr")),
+        best_params=params(_field(state, "best_params")),
+        best_vq=vq(_field(state, "best_vq")),
+        loss=t(_field(state, "loss")),
+        psnr=t(_field(state, "psnr")),
+        p_xyz=t(_field(state, "p_xyz")),
+        p_cholesky=t(_field(state, "p_cholesky")),
+        p_features_dc=t(_field(state, "p_features_dc")),
+    )
 
 
 def train_state_from_numpy(state, device="cpu"):
@@ -127,36 +191,21 @@ def train_state_from_numpy(state, device="cpu"):
     it to start both packages mid-run.
     """
     from gsvc_tpu_torch.models.represent import TrainState
-    from gsvc_tpu_torch.optim.adan import AdanState
-
-    def get(obj, k):
-        return obj[k] if isinstance(obj, Mapping) else getattr(obj, k)
 
     def t(a, dtype=torch.float32):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
-    opt = get(state, "opt")
-
-    def tree(k):
-        return {name: t(v) for name, v in get(opt, k).items()}
-
-    adan = AdanState(
-        step=int(np.asarray(get(opt, "step"))),
-        exp_avg=tree("exp_avg"), exp_avg_sq=tree("exp_avg_sq"),
-        exp_avg_diff=tree("exp_avg_diff"), neg_pre_grad=tree("neg_pre_grad"),
-        fresh={k: bool(np.asarray(v)) for k, v in get(opt, "fresh").items()},
-    )
     return TrainState(
-        params=from_numpy(get(state, "params"), device),
-        alive=t(get(state, "alive"), torch.bool),
-        opt=adan,
-        it=int(np.asarray(get(state, "it"))),
-        lr_frozen=bool(np.asarray(get(state, "lr_frozen"))),
-        best_loss=t(get(state, "best_loss")),
-        patience=t(get(state, "patience"), torch.int32),
-        grace=int(np.asarray(get(state, "grace"))),
-        stop=t(get(state, "stop"), torch.bool),
-        loss=t(get(state, "loss")),
-        psnr=t(get(state, "psnr")),
-        max_overflow=t(get(state, "max_overflow"), torch.int32),
+        params=from_numpy(_field(state, "params"), device),
+        alive=t(_field(state, "alive"), torch.bool),
+        opt=_adan_from_numpy(_field(state, "opt"), device),
+        it=int(np.asarray(_field(state, "it"))),
+        lr_frozen=bool(np.asarray(_field(state, "lr_frozen"))),
+        best_loss=t(_field(state, "best_loss")),
+        patience=t(_field(state, "patience"), torch.int32),
+        grace=int(np.asarray(_field(state, "grace"))),
+        stop=t(_field(state, "stop"), torch.bool),
+        loss=t(_field(state, "loss")),
+        psnr=t(_field(state, "psnr")),
+        max_overflow=t(_field(state, "max_overflow"), torch.int32),
     )

@@ -68,13 +68,10 @@ def main(argv=None) -> int:
         render_decoded,
     )
     from gsvc_tpu_torch.config import FrameConfig
+    from gsvc_tpu_torch.drivers.common import load_gmodels, resolve_device
     from gsvc_tpu_torch.ops.projection import project_gaussians_2d
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "--device cuda but no CUDA device is available (use --device cpu)"
-        )
+    device = resolve_device(args.device)
 
     bs_dir = Path(args.bitstream)
     frames = _find_frames(bs_dir)
@@ -87,8 +84,6 @@ def main(argv=None) -> int:
 
     gmodels = None
     if args.model_path:
-        from gsvc_tpu_torch.drivers.compress import load_gmodels
-
         gmodels = load_gmodels(args.model_path)
 
     p_frames = [n for n, _ in frames if n not in k_frames]

@@ -1,6 +1,7 @@
 """Per-frame representation model and its training loop (PyTorch port of
 gsvc_tpu/models/represent.py): `render_frame(_pos/_rows)`, the train step
-`make_train_step`, `fit_frame` and `pre_train_frame`.
+`make_train_step`, `fit_frame` (and its resumable slice
+`fit_frame_partial`), `fit_frame_trace` and `pre_train_frame`.
 
 One step is the reference train_iter (GaussianSplats_Represent.py:191-207):
 render, loss, backward (autograd; on the "cuda" backend the rasterizer's
@@ -186,23 +187,32 @@ def render_frame_pos(
     return torch.clamp(img, 0.0, 1.0)
 
 
-def _use_rows_loss(cfg: FrameConfig, device) -> bool:
-    """Pointwise losses (L1/L2) run in the rasterizer's tile-row layout,
-    skipping the untile transpose in both passes, when the backend resolves
-    to the kernels ("cuda", or "auto" on a CUDA device); structural losses
-    need the image."""
-    if cfg.loss_type not in ("L2", "L1"):
-        return False
+def uses_kernels(cfg: FrameConfig, device) -> bool:
+    """Whether the backend resolves to the kernel path: "cuda", or "auto"
+    on a CUDA device."""
     return cfg.backend == "cuda" or (
         cfg.backend == "auto" and torch.device(device).type == "cuda")
 
 
-def make_rows_target(gt: torch.Tensor, cfg: FrameConfig):
-    """The [H, W, 3] target and its valid-pixel mask in the layout="rows"
-    blocks, made once per frame fit."""
+def _use_rows_loss(cfg: FrameConfig, device) -> bool:
+    """Pointwise losses (L1/L2) run in the rasterizer's tile-row layout,
+    skipping the untile transpose in both passes, on the kernel path;
+    structural losses need the image."""
+    return cfg.loss_type in ("L2", "L1") and uses_kernels(cfg, device)
+
+
+def make_rows_target(gt: torch.Tensor, cfg: FrameConfig, valid_h=None):
+    """The [h, W, 3] target and its valid-pixel mask in the layout="rows"
+    blocks, made once per frame fit. `valid_h` (an int or a [] tensor)
+    masks the pixel rows at or past it too: a tile-row shard of a frame
+    whose height the shards do not divide holds padding rows there."""
     h = gt.shape[0]
     gt_rows = image_to_rows(gt, h, cfg.W, cfg.block_h, cfg.block_w)
-    mask = image_to_rows(torch.ones_like(gt), h, cfg.W, cfg.block_h, cfg.block_w)
+    ones = torch.ones_like(gt)
+    if valid_h is not None:
+        ridx = torch.arange(h, device=gt.device)[:, None, None]
+        ones = torch.where(ridx < valid_h, ones, 0.0)
+    mask = image_to_rows(ones, h, cfg.W, cfg.block_h, cfg.block_w)
     return gt_rows, mask
 
 
@@ -414,24 +424,63 @@ def fit_frame(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
     read about once per early_stop_patience steps, not every step.
     gt: [H, W, 3] float32 in [0, 1].
     """
+    state = fit_frame_partial(state, gt, cfg.iterations, cfg, lambda_value, draws)
+    return FitResult(state=state, image=render_frame(state.params, state.alive, cfg))
+
+
+def _rows_target_for(gt: torch.Tensor, cfg: FrameConfig):
+    return make_rows_target(gt, cfg) if _use_rows_loss(cfg, gt.device) else None
+
+
+def fit_frame_partial(state: TrainState, gt: torch.Tensor, limit: int,
+                      cfg: FrameConfig, lambda_value: float = 0.0,
+                      draws: Draws = None) -> TrainState:
+    """Resumable slice of `fit_frame`: the same steps up to iteration
+    min(limit, cfg.iterations) or the early stop. Chained slices with one
+    `draws` generator equal one `fit_frame` bitwise, early stop included
+    (the stop rule reads only the state)."""
     step = make_train_step(cfg, lambda_value, draws)
-    rows_target = make_rows_target(gt, cfg) if _use_rows_loss(cfg, gt.device) else None
+    rows_target = _rows_target_for(gt, cfg)
+    lim = min(int(limit), cfg.iterations)
     next_check = state.it
     stopped = bool(state.stop)
-    while not stopped and state.it < cfg.iterations:
+    while not stopped and state.it < lim:
         state = step(state, gt, rows_target)
         if state.grace < 0 and state.it >= next_check:
             p = int(state.patience)
             stopped = p >= cfg.early_stop_patience
             next_check = state.it + cfg.early_stop_patience - p
-    return FitResult(state=state, image=render_frame(state.params, state.alive, cfg))
+    return state
+
+
+def fit_frame_trace(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
+                    lambda_value: float = 0.0, trace_every: int = 1,
+                    draws: Draws = None):
+    """The reference `train_iter_trace` loop (GaussianSplats_Represent.py:
+    175-188): cfg.iterations steps with no early stop and the loss lambda
+    fixed to 0, keeping the render from the PRE-update parameters of
+    iterations trace_every, 2*trace_every, ... (gsvc_tpu's
+    `fit_frame_trace`; `lambda_value` is accepted and ignored there too).
+
+    Returns (final state, images [iterations // trace_every, H, W, 3])."""
+    del lambda_value
+    step = make_train_step(cfg, 0.0, draws)
+    rows_target = _rows_target_for(gt, cfg)
+    images = []
+    for i in range(cfg.iterations):
+        if (i + 1) % trace_every == 0:
+            images.append(render_frame(state.params, state.alive, cfg))
+        state = step(state, gt, rows_target)
+    if not images:
+        return state, gt.new_zeros((0, cfg.H, cfg.W, 3))
+    return state, torch.stack(images)
 
 
 def pre_train_frame(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
                     lambda_value: float = 0.7) -> FitResult:
     """The pre_train loop (no control, no early stop): the K-frame
     detection pass (SimpleTrainer2d.pre_train, train_video_Represent.py:117-133)."""
-    rows_target = make_rows_target(gt, cfg) if _use_rows_loss(cfg, gt.device) else None
+    rows_target = _rows_target_for(gt, cfg)
     for _ in range(cfg.iterations):
         it = state.it + 1
         loss, sq, grads = _loss_and_grads(state, gt, cfg, lambda_value, rows_target)

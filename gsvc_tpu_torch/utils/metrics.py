@@ -24,12 +24,14 @@ def psnr(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0) -> t
 
 @contextlib.contextmanager
 def _no_tf32():
-    old = torch.backends.cudnn.allow_tf32
+    """Exact float32 convolutions and matmuls on the card for the block."""
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = old
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
 
 
 def _gaussian_window(win_size: int, sigma: float, device) -> torch.Tensor:

@@ -1,16 +1,26 @@
 """Device timing on the card (the port's twin of
-gsvc_tpu/utils/profiling.py `device_loop_time`).
+gsvc_tpu/utils/profiling.py `_sync` and `device_loop_time`).
 
-A chained loop x -> fn(x) timed with CUDA events: each iteration's input
-depends on the previous output, so the device runs them in order, and the
-events bracket device work rather than the host's enqueue.
+`_sync` is the barrier the drivers take before reading the host clock:
+PyTorch enqueues CUDA work asynchronously, so a clock read without it
+times the host's enqueue. `device_loop_time` times a chained loop
+x -> fn(x) with CUDA events: each iteration's input depends on the
+previous output, so the device runs them in order, and the events bracket
+device work rather than the host's enqueue.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+
+
+def _sync(t: Optional[torch.Tensor]) -> None:
+    """Wait for the device of `t` to finish its queued work (no-op on CPU
+    tensors, whose ops run synchronously)."""
+    if t is not None and t.is_cuda:
+        torch.cuda.synchronize(t.device)
 
 
 def device_loop_time(

@@ -147,6 +147,42 @@ def test_rasterize_sum_gradients_match_plain_autograd(dev):
         _close(a, b)
 
 
+@pytest.mark.parametrize("delta", [False, True])
+def test_qat_step_kernels_match_plain_backend(dev, delta):
+    """One QAT step of the compress stage: the kernel path (rows loss, K4
+    rows, K6, K3) against autograd through the plain renderer ("torch"),
+    from the same state and the same k-means rows."""
+    from gsvc_tpu_torch.config import FrameConfig
+    from gsvc_tpu_torch.models import compress as comp
+    from gsvc_tpu_torch.models.represent import _rows_target_for
+
+    H, W, n = 72, 104, 400
+    rng = np.random.default_rng(11)
+    gmodel = {"_xyz": np.arctanh(rng.uniform(-0.9, 0.9, (n, 2))).astype(np.float32),
+              "_cholesky": rng.uniform(0, 2, (n, 3)).astype(np.float32),
+              "_features_dc": rng.uniform(0, 1, (n, 3)).astype(np.float32)}
+    p_gmodel = ({k: (v - rng.normal(0, 0.05, v.shape)).astype(np.float32)
+                 for k, v in gmodel.items()} if delta else None)
+    gt = torch.rand((H, W, 3), device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    out = {}
+    for backend in ("cuda", "torch"):
+        cfg = FrameConfig(H=H, W=W, num_points=n, max_num_points=n, iterations=1,
+                          backend=backend)
+        state = comp.init_compress_state(gmodel, p_gmodel, dev)
+        before = rasterize_cuda.backward_slots.launches
+        out[backend] = comp._loss_and_grads(state, gt, cfg, _rows_target_for(gt, cfg),
+                                            torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        assert rasterize_cuda.backward_slots.launches == before + (backend == "cuda")
+    (recon, vq, grads, new_vq), (recon_p, vq_p, grads_p, new_vq_p) = out["cuda"], out["torch"]
+    torch.testing.assert_close(recon, recon_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(vq, vq_p, rtol=1e-6, atol=0)
+    assert torch.equal(new_vq.embed, new_vq_p.embed)
+    for name in grads:
+        assert torch.isfinite(grads[name]).all() and grads_p[name].abs().max() > 0, name
+        _close(grads[name], grads_p[name])
+
+
 def test_train_steps_are_deterministic(dev):
     from gsvc_tpu_torch.config import FrameConfig
     from gsvc_tpu_torch.models.represent import fit_frame, init_train_state
