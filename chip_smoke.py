@@ -41,11 +41,20 @@ the first fault:
    fit beats its starting render's PSNR, no budget overflow is reported,
    the bitstream trailers match K_frames.txt, and each decoded PSNR is
    within 0.1 dB of the compress stage's; it prints per-frame fit seconds,
-   QAT ms a step, eval fps and bpp.
+   QAT ms a step, eval fps and bpp;
+7. the profiling path (`gsvc_tpu_torch.scripts`): the harnesses' kernels
+   against their plain versions (P1's K4 variants within max-abs 1e-4,
+   P5's job-based backward C and D within 1e-4 of K6's slots, P6's
+   transposes exactly), timed, then the six harnesses' mains (P3, P2, P4,
+   P1, P6, P5) at 1080p/10k with a few repetitions a stage.
 
-Around each of phases 3 and 4, and around each CLI of phase 6, every
-launch counter is zeroed just before and read just after; each kernel of
-that path must have launched. The kernels' JSON reports phase 6's counts.
+Around each of phases 3 and 4, around each CLI of phase 6 and around the
+mains of phase 7, every launch counter is zeroed just before and read just
+after; each kernel of that path must have launched. The kernels' JSON
+reports phase 6's counts for K1-K6 and phase 7's for the harnesses'
+kernels, and each kernel's bound (`scripts.profile_micro_ops.kernel_work`,
+`utils.profiling.roofline_ms`) and library call (null where no single
+PyTorch call computes the same function).
 
 Prints a JSON line of the kernels, then, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -74,50 +83,14 @@ TRAIN_ITERS = 300
 # --is_rm), where K- and P-frames reach the same splat count, which the
 # compress stage's delta model needs
 ENC_ITERS, KDETECT_ITERS, QAT_ITERS = 4000, 100, 300
-LIBS = ("fill", "segsum", "rasterize_fwd", "rasterize_bwd")
+PROFILE_ITERS = 10  # phase 7: timed repetitions of each harness stage
+LIBS = ("fill", "segsum", "rasterize_fwd", "rasterize_bwd", "profile_kernel_parts",
+        "profile_bwd_variants", "probe_transpose")
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def bench_scene(np, torch, dev, seed=0):
-    """bench.py's scene (seed 0): means, cholesky L, colours, opacity."""
-    rng = np.random.default_rng(seed)
-    means = rng.uniform(-0.999, 0.999, (N, 2))
-    L = np.stack(
-        [rng.uniform(1.0, 6.0, N), rng.normal(0.0, 1.0, N),
-         rng.uniform(1.0, 6.0, N)],
-        axis=1,
-    )
-    colors = rng.uniform(0, 1, (N, 3))
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-
-    return t(means), t(L), t(colors), torch.ones((N, 1), device=dev)
-
-
-def event_ms(torch, fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps calls, after a warm-up.
-
-    A spin kernel queued first keeps the card busy while the host enqueues
-    the calls, so the events bracket device time rather than the host's
-    launch rate (where enqueueing takes longer than the spin, as for the
-    plain versions' thousands of launches, host time shows through).
-    """
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(20_000_000)  # ~10 ms of device cycles
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def errors(got, want):
@@ -284,6 +257,116 @@ def encoder_phase(np, torch, dev, smi, counters, clip, tmp: Path) -> dict:
     return total
 
 
+def timed_row(smi, phase, name, src, replaces, counter, err, kern, plain, work,
+              library=None) -> dict:
+    """A kernel's entry of the kernels JSON: kern() and plain() timed alone
+    (CUDA events behind a spin kernel), library() where one PyTorch call
+    computes the same function, and the bound of `work` (bytes, ops).
+    `launches` holds the counter's name until the path's run fills it."""
+    from gsvc_tpu_torch.utils.profiling import event_ms, roofline_ms
+
+    ms = event_ms(kern, 50)
+    plain_ms = event_ms(plain, 3)
+    library_ms = event_ms(library, 50) if library is not None else None
+    bound_ms, bound_by = roofline_ms(*work)
+    print(f"phase {phase} time [{smi}]: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / ms:.1f} %), library "
+          + ("none" if library_ms is None else f"{library_ms:.4f} ms"))
+    return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": counter, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def profiling_phase(torch, dev, smi, sc, v_rows, counters) -> list:
+    """Phase 7: the new kernels of the profiling harnesses against their
+    plain versions at 1080p/10k (P1's variants within max-abs RENDER_TOL,
+    P5's C and D within GRAD_TOL of K6's slots, A exactly and B, E within
+    GRAD_TOL of their plain versions, P6's transposes exactly), timed; then
+    the six harnesses' mains with every launch counter zeroed just before
+    and read just after. Returns the new kernels' JSON entries."""
+    from gsvc_tpu_torch.ops import rasterize_cuda
+    from gsvc_tpu_torch.scripts import common
+    from gsvc_tpu_torch.scripts import probe_transpose as p6
+    from gsvc_tpu_torch.scripts import profile_bwd_chain as p4
+    from gsvc_tpu_torch.scripts import profile_bwd_variants as p5
+    from gsvc_tpu_torch.scripts import profile_fwd_chain as p2
+    from gsvc_tpu_torch.scripts import profile_kernel_parts as p1
+    from gsvc_tpu_torch.scripts import profile_micro_ops as p3
+
+    rargs, geom = sc.rargs, (sc.H, sc.W, sc.tb)
+    kernels = []
+    with torch.no_grad():
+        valid = {v: p1.valid_pairs(v, sc) for v in p1.VARIANTS}
+        for v, wrapper in p1.FORWARD_PARTS.items():
+            got, want = wrapper(*rargs), p1.render_parts_torch(v, *rargs)
+            err = float((got - want).abs().max())
+            if not (torch.isfinite(got).all() and err <= RENDER_TOL):
+                fail(f"P1 {v}: max-abs {err} > {RENDER_TOL} against its plain version")
+            kernels.append(timed_row(
+                smi, 7, f"P1 forward_parts {v}", "gsvc_tpu_torch/csrc/profile_kernel_parts.cu",
+                "scripts/profile_kernel_parts.py:52", wrapper.__name__, err,
+                lambda w=wrapper: w(*rargs), lambda v=v: p1.render_parts_torch(v, *rargs),
+                p1.parts_work(v, sc, valid[v])))
+        jobs = p5.build_jobs(sc.binned)
+        bargs = (*rargs[:5], v_rows, *geom)
+        k6 = rasterize_cuda.backward_slots(*bargs, 16, 16, 256, "rows")
+        for v, wrapper in p5.BACKWARD_JOBS.items():
+            got = wrapper(*bargs, jobs)
+            plain = p5.backward_jobs_torch(v, *bargs, jobs)
+            err, rel = errors(got, k6 if v in ("C", "D") else plain)
+            ok = torch.equal(got, plain) if v == "A" else rel <= GRAD_TOL
+            if not (torch.isfinite(got).all() and ok):
+                fail(f"P5 {v}: max-abs {err}, rel {rel} against "
+                     + ("K6's slots" if v in ("C", "D") else "its plain version"))
+            kernels.append(timed_row(
+                smi, 7, f"P5 backward_jobs {v}", "gsvc_tpu_torch/csrc/profile_bwd_variants.cu",
+                "scripts/profile_bwd_variants.py:109", wrapper.__name__, err,
+                lambda w=wrapper: w(*bargs, jobs),
+                lambda v=v: p5.backward_jobs_torch(v, *bargs, jobs),
+                p5.jobs_work(v, sc, jobs.tile.shape[0], valid["full"])))
+        for name, x in p6.probe_inputs(sc, dev).items():
+            if not torch.equal(p6.transpose_last2(x), p6.transpose_last2_torch(x)):
+                fail(f"P6 transpose {name} differs from x.transpose(-1, -2)")
+            kernels.append(timed_row(
+                smi, 7, f"P6 transpose {name}", "gsvc_tpu_torch/csrc/probe_transpose.cu",
+                "scripts/probe_mxu_transpose.py:" + ("79" if x.dim() == 3 else "32"),
+                "transpose_last2", 0.0, lambda x=x: p6.transpose_last2(x),
+                lambda x=x: p6.transpose_last2_torch(x), (8 * x.numel(), 0),
+                library=lambda x=x: p6.transpose_last2_torch(x)))
+        k4_rows = rasterize_cuda.forward_rows(*rargs)
+        planar = p6.rows_to_chw(k4_rows, *geom)
+        if not (torch.equal(planar, p6.rows_to_chw_torch(k4_rows, *geom))
+                and torch.equal(planar, rasterize_cuda.forward_chw(*rargs))):
+            fail("P6 rows_to_chw differs from its plain version or from K5")
+        kernels.append(timed_row(
+            smi, 7, "P6 rows_to_chw", "gsvc_tpu_torch/csrc/probe_transpose.cu",
+            "scripts/probe_mxu_transpose.py:71", "rows_to_chw", 0.0,
+            lambda: p6.rows_to_chw(k4_rows, *geom),
+            lambda: p6.rows_to_chw_torch(k4_rows, *geom),
+            (common.rows_bytes(sc) + 12 * sc.H * sc.W, 0)))
+
+    new = [*p1.FORWARD_PARTS.values(), *p5.BACKWARD_JOBS.values(), p6.transpose_last2,
+           p6.rows_to_chw]
+    every = list(counters) + new
+    for c in every:
+        c.launches = 0
+    t0 = time.perf_counter()
+    for mod in (p3, p2, p4, p1, p6, p5):
+        rc = mod.main(["--iters", str(PROFILE_ITERS)])
+        if rc != 0:
+            fail(f"{mod.__name__} returned {rc}")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in every}
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"kernels not launched on the profiling path: {missing}; launches {launches}")
+    for k in kernels:
+        k["launches"] = launches[k["launches"]]
+    print(f"phase 7 profiling path: the six harnesses in {secs:.2f} s; launches {launches}")
+    return kernels
+
+
 def profile_steps(np, torch, dev, smi) -> None:
     """`--profile`: where a train step's time goes at 1080p/10k, for the
     represent step (removal control, rows L2, from `init_splats`) and the
@@ -291,12 +374,9 @@ def profile_steps(np, torch, dev, smi) -> None:
     driver's budget), each fitting the bench scene's render.
 
     Per step: host enqueue and synced ms over 50 chained steps on the host
-    clock, then torch.profiler over 20 more. Device busy sums the self time
-    of device-side events only (kernels, copies, fills): a host op's device
-    time is that of the kernels it launched, so adding host ops would count
-    those kernels twice. Device idle = 1 - busy / synced step."""
-    from torch.profiler import ProfilerActivity, profile
-
+    clock, then torch.profiler over 20 more (`utils.profiling.profile_device`:
+    device busy sums device-side events only). Device idle = 1 - busy /
+    synced step."""
     from gsvc_tpu_torch.config import FrameConfig
     from gsvc_tpu_torch.core import CHOLESKY_BOUND
     from gsvc_tpu_torch.models import compress
@@ -306,9 +386,11 @@ def profile_steps(np, torch, dev, smi) -> None:
         make_train_step,
     )
     from gsvc_tpu_torch.ops.binning import default_max_intersects
+    from gsvc_tpu_torch.scripts.common import bench_scene
+    from gsvc_tpu_torch.utils.profiling import device_events, launches, profile_device
 
     tb = ((W + 15) // 16, (H + 15) // 16, 1)
-    means, L, colors, opacity = bench_scene(np, torch, dev)
+    means, L, colors, opacity = bench_scene(N, dev)
     gt = render_scene(torch, means, L, colors, opacity, tb)
     rcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=10**6,
                        isremoval=True)
@@ -325,7 +407,6 @@ def profile_steps(np, torch, dev, smi) -> None:
          compress.make_train_step_quantize(qcfg, draws=torch.Generator().manual_seed(0)),
          compress.init_compress_state(gmodel, None, dev), make_rows_target(gt, qcfg)),
     )
-    launch_keys = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
     for name, step, state, target in steps:
         for _ in range(5):
             state = step(state, gt, target)
@@ -336,20 +417,18 @@ def profile_steps(np, torch, dev, smi) -> None:
         enqueue_ms = (time.perf_counter() - t0) / 50 * 1e3
         torch.cuda.synchronize()
         synced_ms = (time.perf_counter() - t0) / 50 * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                state = step(state, gt, target)
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in device) / 20 / 1e3
-        if busy_ms <= 0:
-            fail(f"profile {name}: the profiler recorded no device time")
-        launches = sum(e.count for e in events if e.key in launch_keys) / 20
+        box = [state]
+
+        def once(step=step, target=target):
+            box[0] = step(box[0], gt, target)
+
+        busy_ms, events = profile_device(once, 20)
+        device = device_events(events)
         print(f"profile [{smi}]: {name}: host enqueue {enqueue_ms:.4f} ms, synced "
               f"{synced_ms:.4f} ms a step; device busy {busy_ms:.4f} ms over "
-              f"{sum(e.count for e in device) / 20:.1f} device events and {launches:.1f} "
-              f"kernel launches a step; device idle {100 * (1 - busy_ms / synced_ms):.1f} %")
+              f"{sum(e.count for e in device) / 20:.1f} device events and "
+              f"{launches(events) / 20:.1f} kernel launches a step; device idle "
+              f"{100 * (1 - busy_ms / synced_ms):.1f} %")
         for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"profile   device {e.key[:64]:64s} {e.self_device_time_total / 20:9.1f} "
                   f"us x{e.count / 20:.1f} a step")
@@ -404,7 +483,10 @@ def main() -> int:
     from gsvc_tpu_torch.ops.binning import bin_gaussians, key_inputs
     from gsvc_tpu_torch.ops.projection import project_gaussians_2d
     from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum
-    from gsvc_tpu_torch.utils.profiling import device_loop_time
+    from gsvc_tpu_torch.scripts.common import Scene, bench_scene, budget_for
+    from gsvc_tpu_torch.scripts.profile_kernel_parts import valid_pairs
+    from gsvc_tpu_torch.scripts.profile_micro_ops import kernel_work
+    from gsvc_tpu_torch.utils.profiling import device_loop_time, event_ms
 
     # -- phase 1: build --------------------------------------------------
     t0 = time.perf_counter()
@@ -419,11 +501,11 @@ def main() -> int:
 
     # -- phase 2: kernels against their plain versions ----------------
     tb = ((W + 15) // 16, (H + 15) // 16, 1)
-    means, L, colors, opacity = bench_scene(np, torch, dev)
+    means, L, colors, opacity = bench_scene(N, dev)
     torch.set_grad_enabled(False)
     xys, _d, radii, conics, nth = project_gaussians_2d(means, L, H, W, tb)
     n_isect = int(nth.sum())
-    budget = int(np.ceil(n_isect * 1.05 / 8192)) * 8192
+    budget = budget_for(nth)
     ki = key_inputs(xys, radii, nth, tb, 16, 16, budget)
     keys = fill_cuda.fill_decode_keys(*ki)
     keys_plain = fill_cuda.fill_decode_keys_torch(*ki)
@@ -685,14 +767,10 @@ def main() -> int:
          lambda: fill_cuda.segmented_cumsum(slots_ref, flags),
          lambda: fill_cuda.segmented_cumsum_torch(slots_ref, flags)),
     ]
-    kernels = []
-    for name, src, replaces, counter, err, kern, plain in timed:
-        ms = event_ms(torch, kern, 50)
-        plain_ms = event_ms(torch, plain, 3)
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counter,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-        print(f"phase 5 time [{smi}]: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    sc = Scene(H, W, N, tb, means, L, colors, opacity, xys, _d, radii, conics, nth,
+               budget, binned)
+    work = kernel_work(sc, valid_pairs("full", sc), k3_rows=slots_ref.shape[0])
+    kernels = [timed_row(smi, 5, *row, work[row[0]]) for row in timed]
     print(f"phase 5 time [{smi}]: eval render 1080p/10k chw fps: kernel path "
           f"{fps['cuda']}, plain path {fps['torch']} (order plain, kernel, "
           f"kernel, plain)")
@@ -734,13 +812,16 @@ def main() -> int:
     clip = [gt]  # frames 1-2: the bench scene, then moved by (3, 2) pixels
     shift = torch.tensor([3 * 2.0 / W, 2 * 2.0 / H], device=dev)
     clip.append(render_scene(torch, means + shift, L, colors, opacity, tb))
-    means_b, L_b, colors_b, opacity_b = bench_scene(np, torch, dev, seed=1)
+    means_b, L_b, colors_b, opacity_b = bench_scene(N, dev, seed=1)
     clip.append(render_scene(torch, means_b, L_b, colors_b, opacity_b, tb))  # a cut
     clip.append(render_scene(torch, means_b + shift, L_b, colors_b, opacity_b, tb))
     with tempfile.TemporaryDirectory() as tmp:
         enc_launches = encoder_phase(np, torch, dev, smi, counters, clip, Path(tmp))
     for k in kernels:
         k["launches"] = enc_launches[k["launches"]]
+
+    # -- phase 7: the profiling path ------------------------------------
+    kernels += profiling_phase(torch, dev, smi, sc, v_rows, counters)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -257,42 +257,58 @@ def rasterize_backward_torch(
                      tb_y, block_w, block_h)
 
     ids = tile_lane_ids(binned, cap, n)  # [T, cap]
-    xys_p, conics_p = zrow(xys.to(dtype)), zrow(conics.to(dtype))
-    colors_p, opac_p = zrow(colors.to(dtype)), zrow(opacity.reshape(-1).to(dtype))
-    local_y = torch.arange(block_h, dtype=dtype, device=dev).repeat_interleave(block_w)
-    local_x = torch.arange(block_w, dtype=dtype, device=dev).repeat(block_h)
-
+    splats = padded_splats(xys, conics, colors, opacity)
     out = torch.zeros((GRAD_FIELDS, s + 1), dtype=dtype, device=dev)
     for t0 in range(0, num_tiles, TILE_CHUNK):
         t1 = min(t0 + TILE_CHUNK, num_tiles)
         tids = torch.arange(t0, t1, device=dev)
         g = ids[t0:t1]  # [tc, cap]
-        px = ((tids % tb_x) * block_w).to(dtype)[:, None] + local_x  # [tc, pix]
-        py = ((tids // tb_x) * block_h).to(dtype)[:, None] + local_y
-        dx = xys_p[g, 0][:, :, None] - px[:, None, :]  # [tc, cap, pix]
-        dy = xys_p[g, 1][:, :, None] - py[:, None, :]
-        c1, c2, c3 = (conics_p[g, i][:, :, None] for i in range(3))
-        sigma = 0.5 * (c1 * dx * dx + c3 * dy * dy) + c2 * dx * dy
-        vis = torch.exp(-sigma)
-        alpha_u = opac_p[g][:, :, None] * vis
-        alpha = torch.clamp(alpha_u, max=1.0)
-        valid = (sigma >= 0.0) & (alpha >= ALPHA_CUTOFF)
-        v = vt[t0:t1]  # [tc, pix, 3]
-        v_alpha = torch.where(valid, torch.einsum("tkc,tpc->tkp", colors_p[g], v), 0.0)
-        v_sigma = -alpha_u * v_alpha  # the min(1, .) is forward-only
-        w = torch.where(valid, alpha, 0.0)
-        grads = [
-            torch.sum((c1 * dx + c2 * dy) * v_sigma, -1),  # x
-            torch.sum((c3 * dy + c2 * dx) * v_sigma, -1),  # y
-            torch.sum(0.5 * dx * dx * v_sigma, -1),  # c1
-            torch.sum(dx * dy * v_sigma, -1),  # c2, unhalved
-            torch.sum(0.5 * dy * dy * v_sigma, -1),  # c3
-            torch.sum(vis * v_alpha, -1),  # opacity
-            *torch.einsum("tkp,tpc->ctk", w, v),  # r g b
-        ]
+        grads = lane_grads(g, tids, vt[t0:t1], splats, tb_x, block_w, block_h)
         slots = _lane_slots(binned, g, tids, tb_x, n)
-        out[:, slots.reshape(-1)] = torch.stack(grads).reshape(GRAD_FIELDS, -1)
+        out[:, slots.reshape(-1)] = grads.reshape(GRAD_FIELDS, -1)
     return out[:, :s]
+
+
+def padded_splats(xys, conics, colors, opacity):
+    """(xys, conics, colors, opacity [N]) in float32, each with a zero row
+    appended at index N (the id of lanes that hold no splat)."""
+    f32 = torch.float32
+    return (zrow(xys.to(f32)), zrow(conics.to(f32)), zrow(colors.to(f32)),
+            zrow(opacity.reshape(-1).to(f32)))
+
+
+def lane_grads(g, tids, v, splats, tb_x: int, block_w: int = 16,
+               block_h: int = 16) -> torch.Tensor:
+    """[9, tc, k] gradients (x y c1 c2 c3 opac r g b) of the lanes with
+    splat ids g [tc, k] (into `padded_splats`) in tiles tids [tc], each
+    summed over its tile's pixels against the tile's image gradient
+    v [tc, pix, 3]: K6's per-pair math as dense [tc, k, pix] tensors."""
+    xys_p, conics_p, colors_p, opac_p = splats
+    dtype, dev = xys_p.dtype, xys_p.device
+    local_y = torch.arange(block_h, dtype=dtype, device=dev).repeat_interleave(block_w)
+    local_x = torch.arange(block_w, dtype=dtype, device=dev).repeat(block_h)
+    px = ((tids % tb_x) * block_w).to(dtype)[:, None] + local_x  # [tc, pix]
+    py = ((tids // tb_x) * block_h).to(dtype)[:, None] + local_y
+    dx = xys_p[g, 0][:, :, None] - px[:, None, :]  # [tc, k, pix]
+    dy = xys_p[g, 1][:, :, None] - py[:, None, :]
+    c1, c2, c3 = (conics_p[g, i][:, :, None] for i in range(3))
+    sigma = 0.5 * (c1 * dx * dx + c3 * dy * dy) + c2 * dx * dy
+    vis = torch.exp(-sigma)
+    alpha_u = opac_p[g][:, :, None] * vis
+    alpha = torch.clamp(alpha_u, max=1.0)
+    valid = (sigma >= 0.0) & (alpha >= ALPHA_CUTOFF)
+    v_alpha = torch.where(valid, torch.einsum("tkc,tpc->tkp", colors_p[g], v), 0.0)
+    v_sigma = -alpha_u * v_alpha  # the min(1, .) is forward-only
+    w = torch.where(valid, alpha, 0.0)
+    return torch.stack([
+        torch.sum((c1 * dx + c2 * dy) * v_sigma, -1),  # x
+        torch.sum((c3 * dy + c2 * dx) * v_sigma, -1),  # y
+        torch.sum(0.5 * dx * dx * v_sigma, -1),  # c1
+        torch.sum(dx * dy * v_sigma, -1),  # c2, unhalved
+        torch.sum(0.5 * dy * dy * v_sigma, -1),  # c3
+        torch.sum(vis * v_alpha, -1),  # opacity
+        *torch.einsum("tkp,tpc->ctk", w, v),  # r g b
+    ])
 
 
 def backward_slots(binned, xys, conics, colors, opacity, v_out, img_height,

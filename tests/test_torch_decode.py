@@ -203,6 +203,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'gsvc_tpu')]\n"
         "assert not bad, bad\n"
+        "harnesses = [m for m in sys.modules if m.startswith('gsvc_tpu_torch.scripts.')]\n"
+        "assert len(harnesses) >= 7, harnesses  # the six harnesses and common\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

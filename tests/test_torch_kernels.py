@@ -10,7 +10,10 @@ Tolerances: K1/K2 exact (integer index work); the forward kernel atol
 exactly `image_to_rows` of the image store (the same sums); K6's per-slot
 grads, K3's scan and the autograd function's per-splat grads within 1e-4
 of each tensor's largest entry (f32 sums over up to 256 pixels, or a
-segment, in another order).
+segment, in another order). The profiling harnesses' kernels
+(gsvc_tpu_torch/scripts), at a small size and at 1080p/10k: P1's K4
+variants max-abs 1e-4 against their plain versions, P5's job-based C and
+D within 1e-4 of K6's largest slot, P6's transposes exactly.
 """
 
 import numpy as np
@@ -181,6 +184,74 @@ def test_qat_step_kernels_match_plain_backend(dev, delta):
     for name in grads:
         assert torch.isfinite(grads[name]).all() and grads_p[name].abs().max() > 0, name
         _close(grads[name], grads_p[name])
+
+
+_SIZES = {"small": (400, 40, 56), "1080p": (10000, 1080, 1920)}
+
+
+def _bench(dev, size):
+    from gsvc_tpu_torch.scripts import common
+
+    return common.scene(*_SIZES[size], dev)
+
+
+@pytest.mark.parametrize("size", list(_SIZES))
+def test_parts_kernels_match_plain_versions(dev, size):
+    """P1: each K4 variant against its plain version, max-abs 1e-4 (f32
+    sums in another order; __expf against exp for fast_exp)."""
+    from gsvc_tpu_torch.scripts import profile_kernel_parts as p1
+
+    sc = _bench(dev, size)
+    for v, wrapper in p1.FORWARD_PARTS.items():
+        before = wrapper.launches
+        got = wrapper(*sc.rargs)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        want = p1.render_parts_torch(v, *sc.rargs)
+        assert float((got - want).abs().max()) <= 1e-4, v
+
+
+@pytest.mark.parametrize("size", list(_SIZES))
+def test_job_kernels_match_k6_and_plain_versions(dev, size):
+    """P5: C and D within 1e-4 of K6's largest slot (another summation
+    order), A exactly its plain copy, B and E within 1e-4 of theirs."""
+    from gsvc_tpu_torch.scripts import profile_bwd_variants as p5
+
+    sc = _bench(dev, size)
+    v = torch.randn((sc.H, sc.W, 3), device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    bargs = (*sc.rargs[:5], image_to_rows(v, sc.H, sc.W), sc.H, sc.W, sc.tb)
+    jobs = p5.build_jobs(sc.binned)
+    k6 = rasterize_cuda.backward_slots(*bargs, 16, 16, 256, "rows")
+    for name, wrapper in p5.BACKWARD_JOBS.items():
+        before = wrapper.launches
+        got = wrapper(*bargs, jobs)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        plain = p5.backward_jobs_torch(name, *bargs, jobs)
+        if name == "A":
+            assert torch.equal(got, plain)
+        else:
+            _close(got, k6 if name in "CD" else plain)
+        if name in "CD":
+            assert torch.equal(got != 0, k6 != 0)
+
+
+@pytest.mark.parametrize("size", list(_SIZES))
+def test_transpose_kernels_are_exact(dev, size):
+    """P6: the transposes and rows -> planar exactly (copies)."""
+    from gsvc_tpu_torch.scripts import probe_transpose as p6
+
+    sc = _bench(dev, size)
+    for x in p6.probe_inputs(sc, dev).values():
+        assert torch.equal(p6.transpose_last2(x), p6.transpose_last2_torch(x))
+    rows = rasterize_cuda.forward_rows(*sc.rargs)
+    before = p6.rows_to_chw.launches
+    planar = p6.rows_to_chw(rows, sc.H, sc.W, sc.tb)
+    assert p6.rows_to_chw.launches == before + 1
+    assert torch.equal(planar, p6.rows_to_chw_torch(rows, sc.H, sc.W, sc.tb))
+    assert torch.equal(planar, rasterize_cuda.forward_chw(*sc.rargs))
+    with pytest.raises(ValueError):
+        p6.transpose_last2(rows.double())
 
 
 def test_train_steps_are_deterministic(dev):
