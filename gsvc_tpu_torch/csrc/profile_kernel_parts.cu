@@ -159,14 +159,14 @@ __global__ void parts_kernel(const int* __restrict__ tile_bin_start,
   out[base + 2 * npix] = inside ? acc_b : 0.0f;
 }
 
-template <int kVariant>
-void launch(dim3 grid, dim3 block, size_t smem, cudaStream_t s, const int* tbs,
-            const int* cnt, const int* ids, const float* x, const float* c,
-            const float* rgb, const float* op, int n, int img_h, int img_w,
-            int tb_x, int cap, int r_out, float* o) {
-  parts_kernel<kVariant><<<grid, block, smem, s>>>(
-      tbs, cnt, ids, x, c, rgb, op, n, img_h, img_w, tb_x, cap, r_out, o);
-}
+using PartsKernel = void (*)(const int*, const int*, const int*, const float*,
+                            const float*, const float*, const float*, int, int,
+                            int, int, int, int, float*);
+// indexed by Variant
+const PartsKernel kPartsKernels[] = {
+    parts_kernel<kFull>,  parts_kernel<kNoSigma>,  parts_kernel<kNoExp>,
+    parts_kernel<kNoAcc>, parts_kernel<kFastExp>, parts_kernel<kExp2>};
+constexpr int kNumVariants = sizeof(kPartsKernels) / sizeof(kPartsKernels[0]);
 
 }  // namespace
 
@@ -177,46 +177,17 @@ GSVC_EXPORT int forward_parts(const void* tile_bin_start, const void* tile_count
                               int tb_x, int tb_y, int block_w, int block_h,
                               int cap, int variant, int r_out, void* out,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(tb_x, tb_y);
-  const dim3 block(block_w, block_h);
-  const size_t smem = sizeof(float) * (kFields * cap + 3);
-  const int* tbs = static_cast<const int*>(tile_bin_start);
-  const int* cnt = static_cast<const int*>(tile_counts);
-  const int* ids = static_cast<const int*>(gauss_ids);
-  const float* x = static_cast<const float*>(xys);
-  const float* c = static_cast<const float*>(conics);
-  const float* rgb = static_cast<const float*>(colors);
-  const float* op = static_cast<const float*>(opacity);
-  float* o = static_cast<float*>(out);
-  if (tb_x <= 0 || tb_y <= 0) return static_cast<int>(cudaGetLastError());
-  switch (variant) {
-    case kFull:
-      launch<kFull>(grid, block, smem, s, tbs, cnt, ids, x, c, rgb, op, n, img_h,
-                    img_w, tb_x, cap, r_out, o);
-      break;
-    case kNoSigma:
-      launch<kNoSigma>(grid, block, smem, s, tbs, cnt, ids, x, c, rgb, op, n,
-                       img_h, img_w, tb_x, cap, r_out, o);
-      break;
-    case kNoExp:
-      launch<kNoExp>(grid, block, smem, s, tbs, cnt, ids, x, c, rgb, op, n,
-                     img_h, img_w, tb_x, cap, r_out, o);
-      break;
-    case kNoAcc:
-      launch<kNoAcc>(grid, block, smem, s, tbs, cnt, ids, x, c, rgb, op, n,
-                     img_h, img_w, tb_x, cap, r_out, o);
-      break;
-    case kFastExp:
-      launch<kFastExp>(grid, block, smem, s, tbs, cnt, ids, x, c, rgb, op, n,
-                       img_h, img_w, tb_x, cap, r_out, o);
-      break;
-    case kExp2:
-      launch<kExp2>(grid, block, smem, s, tbs, cnt, ids, x, c, rgb, op, n,
-                    img_h, img_w, tb_x, cap, r_out, o);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (variant < 0 || variant >= kNumVariants) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (tb_x <= 0 || tb_y <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = sizeof(float) * (kFields * cap + 3);
+  kPartsKernels[variant]<<<dim3(tb_x, tb_y), dim3(block_w, block_h), smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(tile_bin_start), static_cast<const int*>(tile_counts),
+      static_cast<const int*>(gauss_ids), static_cast<const float*>(xys),
+      static_cast<const float*>(conics), static_cast<const float*>(colors),
+      static_cast<const float*>(opacity), n, img_h, img_w, tb_x, cap, r_out,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

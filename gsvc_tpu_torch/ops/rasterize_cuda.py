@@ -143,8 +143,11 @@ forward_rows = _forward_wrapper(
 FORWARD = {"image": forward_image, "chw": forward_chw, "rows": forward_rows}
 
 
-def _check_inputs(what, binned, xys, conics, colors, opacity, tile_bounds,
-                  block_w, block_h, cap):
+def check_inputs(what, binned, xys, conics, colors, opacity, tile_bounds,
+                 block_w, block_h, cap):
+    """Raise ValueError unless the splats are float32 [N, .] and the binning
+    int32 on one device, on `tile_bounds`' grid, and one tile's lanes fit a
+    CTA; the splats' float32 buffers, contiguous (`what` names the caller)."""
     dev = xys.device
     n = xys.shape[0]
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
@@ -170,8 +173,8 @@ def _launch_forward(binned, xys, conics, colors, opacity, img_height,
                     layout) -> torch.Tensor:
     dev = xys.device
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
-    f32 = _check_inputs("rasterize_forward", binned, xys, conics, colors,
-                        opacity, tile_bounds, block_w, block_h, cap)
+    f32 = check_inputs("rasterize_forward", binned, xys, conics, colors,
+                       opacity, tile_bounds, block_w, block_h, cap)
     i32 = [t.contiguous() for t in (binned.tile_bin_start, binned.tile_counts,
                                     binned.sorted_gauss_ids)]
     r_out = round8(3 * tb_x)
@@ -209,8 +212,8 @@ def _fwd_lib() -> ctypes.CDLL:
 # -- backward ---------------------------------------------------------------
 
 
-def _lane_slots(binned: BinnedSplats, ids: torch.Tensor, tiles: torch.Tensor,
-                tb_x: int, n: int) -> torch.Tensor:
+def lane_slots(binned: BinnedSplats, ids: torch.Tensor, tiles: torch.Tensor,
+               tb_x: int, n: int) -> torch.Tensor:
     """Expansion slot of each (tile, lane) whose gaussian id is < n; the
     others map to slot S, one past the buffer (dropped)."""
     s = binned.sorted_gauss_ids.shape[0]
@@ -223,9 +226,9 @@ def _lane_slots(binned: BinnedSplats, ids: torch.Tensor, tiles: torch.Tensor,
     return torch.where(real, slot, s)
 
 
-def _grad_tiles(v_out: torch.Tensor, layout: str, img_height: int,
-                img_width: int, tb_x: int, tb_y: int, block_w: int,
-                block_h: int) -> torch.Tensor:
+def grad_tiles(v_out: torch.Tensor, layout: str, img_height: int,
+               img_width: int, tb_x: int, tb_y: int, block_w: int,
+               block_h: int) -> torch.Tensor:
     """The image gradient in any layout -> [T, pix, 3] per tile, zero past
     the image edge (the forward writes constants there)."""
     if layout == "rows":
@@ -253,8 +256,8 @@ def rasterize_backward_torch(
     s = binned.sorted_gauss_ids.shape[0]
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
     num_tiles = tb_x * tb_y
-    vt = _grad_tiles(v_out.to(dtype), layout, img_height, img_width, tb_x,
-                     tb_y, block_w, block_h)
+    vt = grad_tiles(v_out.to(dtype), layout, img_height, img_width, tb_x,
+                    tb_y, block_w, block_h)
 
     ids = tile_lane_ids(binned, cap, n)  # [T, cap]
     splats = padded_splats(xys, conics, colors, opacity)
@@ -264,7 +267,7 @@ def rasterize_backward_torch(
         tids = torch.arange(t0, t1, device=dev)
         g = ids[t0:t1]  # [tc, cap]
         grads = lane_grads(g, tids, vt[t0:t1], splats, tb_x, block_w, block_h)
-        slots = _lane_slots(binned, g, tids, tb_x, n)
+        slots = lane_slots(binned, g, tids, tb_x, n)
         out[:, slots.reshape(-1)] = grads.reshape(GRAD_FIELDS, -1)
     return out[:, :s]
 
@@ -323,8 +326,8 @@ def backward_slots(binned, xys, conics, colors, opacity, v_out, img_height,
         )
     dev = xys.device
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
-    f32 = _check_inputs("rasterize_backward", binned, xys, conics, colors,
-                        opacity, tile_bounds, block_w, block_h, cap)
+    f32 = check_inputs("rasterize_backward", binned, xys, conics, colors,
+                       opacity, tile_bounds, block_w, block_h, cap)
     r_out = round8(3 * tb_x)
     want = {"image": (img_height, img_width, 3), "chw": (3, img_height, img_width),
             "rows": (tb_y * r_out, block_h * block_w)}[layout]

@@ -1,5 +1,6 @@
 """What the profiling harnesses share: the bench scene and its binning,
-the flags, the card check, the full-sum fold and the two timings.
+the slots' library reduction, the flags, the card check, the full-sum
+fold and the two timings.
 
 Every stage is reported twice: "events" ms, from CUDA events (around a
 chained loop: what the program pays, host enqueue included where the host
@@ -95,34 +96,20 @@ def render(sc: Scene, means, L, colors, layout: str = "image") -> torch.Tensor:
                                    max_intersects=sc.budget)
 
 
-def lanes(sc: Scene) -> int:
-    """Lanes the kernels render: sum over tiles of min(count, 256)."""
-    return int(torch.clamp(sc.binned.tile_counts, max=256).sum())
+def slot_owners(gauss_slot_start: torch.Tensor, s: int) -> torch.Tensor:
+    """[S] int64 splat owning each expansion slot (N past the kept total)."""
+    return torch.searchsorted(gauss_slot_start.to(torch.int64),
+                              torch.arange(s, device=gauss_slot_start.device),
+                              right=True) - 1
 
 
-def pairs(sc: Scene) -> int:
-    """(pixel, lane) pairs of the forward and backward kernels."""
-    return 256 * lanes(sc)
-
-
-def rows_bytes(sc: Scene) -> int:
-    """Bytes of one float32 buffer in K4's rows layout."""
-    return 4 * sc.tb[1] * ((3 * sc.tb[0] + 7) // 8 * 8) * 256
-
-
-def forward_bytes(sc: Scene, layout: str) -> int:
-    """Bytes a forward render must move, each input read once and the
-    output written once: the tile starts and counts, the used lane ids, 9
-    floats a splat, the image in `layout`."""
-    out = rows_bytes(sc) if layout == "rows" else 12 * sc.H * sc.W
-    return 8 * sc.tb[0] * sc.tb[1] + 4 * lanes(sc) + 36 * sc.n + out
-
-
-def backward_bytes(sc: Scene) -> int:
-    """Bytes K6's function must move: the forward's inputs, each splat's
-    slot start and bbox, the rows image gradient, the [9, S] slots."""
-    return (8 * sc.tb[0] * sc.tb[1] + 4 * lanes(sc) + 44 * sc.n + 4
-            + rows_bytes(sc) + 36 * sc.budget)
+def segsum_index_add(vslots: torch.Tensor, owners: torch.Tensor, n: int) -> torch.Tensor:
+    """[N, 9] per-splat sums of the [9, S] slots by `index_add_`: the one
+    library call for the reduction K3 and its gather serve (the
+    counterpart of jax.ops.segment_sum). Float atomics on the card, so
+    not deterministic: a yardstick only, used nowhere in the port."""
+    out = torch.zeros((n + 1, vslots.shape[0]), dtype=vslots.dtype, device=vslots.device)
+    return out.index_add_(0, owners, vslots.T)[:n]
 
 
 def parse(doc: str, argv, iters: int) -> argparse.Namespace:

@@ -35,7 +35,6 @@ from gsvc_tpu_torch.models.represent import _clip01
 from gsvc_tpu_torch.ops import rasterize_cuda
 from gsvc_tpu_torch.optim.adan import adan_init, adan_step
 from gsvc_tpu_torch.scripts import common
-from gsvc_tpu_torch.scripts.profile_micro_ops import segsum_index_add, slot_owners
 
 LR = 1e-3
 
@@ -110,14 +109,14 @@ def main(argv=None) -> int:
             return rasterize_cuda.backward_slots(*bargs[:5], vr, *bargs[5:])
 
         vslots0 = k6(vrows0)
-        owners = slot_owners(b.gauss_slot_start, sc.budget)
+        owners = common.slot_owners(b.gauss_slot_start, sc.budget)
         isolated = {
             "vrows": (lambda g: common.fold(g, rasterize_cuda.image_to_rows(g, tb[0], tb[1])),
                       g_img, ""),
             "bwdkern": (lambda vr: common.fold(vr, k6(vr)), vrows0, "K6 alone"),
             "segsum": (lambda vs: common.fold(vs, rasterize_cuda.reduce_slot_grads(
                 vs, b.gauss_slot_start)), vslots0, "flags + K3 + gather"),
-            "segsum index_add_": (lambda vs: common.fold(vs, segsum_index_add(
+            "segsum index_add_": (lambda vs: common.fold(vs, common.segsum_index_add(
                 vs, owners, sc.n)), vslots0, "jax.ops.segment_sum's counterpart"),
         }
         for name, (fn, x0, note) in isolated.items():

@@ -44,24 +44,19 @@ from gsvc_tpu_torch import _build
 from gsvc_tpu_torch.ops import rasterize_cuda
 from gsvc_tpu_torch.ops.rasterize_cuda import (
     GRAD_FIELDS,
-    _check_inputs,
-    _grad_tiles,
-    _lane_slots,
+    check_inputs,
+    grad_tiles,
     lane_grads,
+    lane_slots,
     padded_splats,
     round8,
 )
 from gsvc_tpu_torch.scripts import common
-from gsvc_tpu_torch.scripts.profile_micro_ops import K6_OPS
+from gsvc_tpu_torch.utils import work
 
 WINDOW = 32
 VARIANTS = ("A", "B", "C", "D", "E")
 JOB_CHUNK = 256  # jobs a step of the plain version: [256, 32, 256] floats
-# Operations a (pixel, lane) pair, read from the kernel: C and D do K6's
-# (16 for every pair, 36 more for each pair past the alpha gate, see
-# profile_micro_ops.K6_OPS); E does dx, dy, the quadratic form, negate,
-# exp and one add (14); A moves data only, B adds 3 a pixel a job.
-E_OPS_PER_PAIR = 14
 
 
 class Jobs(NamedTuple):
@@ -98,8 +93,8 @@ def backward_jobs_torch(variant, binned, xys, conics, colors, opacity, v_rows,
     s = binned.sorted_gauss_ids.shape[0]
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
     splats = padded_splats(xys, conics, colors, opacity)
-    vt = _grad_tiles(v_rows.to(torch.float32), "rows", img_height, img_width,
-                     tb_x, tb_y, 16, 16)  # [T, 256, 3]
+    vt = grad_tiles(v_rows.to(torch.float32), "rows", img_height, img_width,
+                    tb_x, tb_y, 16, 16)  # [T, 256, 3]
     k = torch.arange(jobs.window, device=dev)
     ids_all = binned.sorted_gauss_ids.to(torch.int64)
     out = torch.zeros((GRAD_FIELDS, s + 1), dtype=torch.float32, device=dev)
@@ -109,7 +104,7 @@ def backward_jobs_torch(variant, binned, xys, conics, colors, opacity, v_rows,
         used = k < jobs.count[j0:j0 + JOB_CHUNK].to(torch.int64)[:, None]
         g = torch.where(used, ids_all[lane.clamp(max=max(s - 1, 0))], n)
         g = torch.where((g >= 0) & (g < n), g, n)  # [jc, WINDOW]
-        slots = _lane_slots(binned, g, tids, tb_x, n).reshape(-1)
+        slots = lane_slots(binned, g, tids, tb_x, n).reshape(-1)
         if variant in ("C", "D"):
             vals = lane_grads(g, tids, vt[tids], splats, tb_x)
         elif variant == "E":
@@ -151,8 +146,8 @@ def _jobs_wrapper(variant: str):
                                        jobs, cap)
         dev = xys.device
         tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
-        f32 = _check_inputs("backward_jobs", binned, xys, conics, colors, opacity,
-                            tile_bounds, 16, 16, cap)
+        f32 = check_inputs("backward_jobs", binned, xys, conics, colors, opacity,
+                           tile_bounds, 16, 16, cap)
         if jobs.window > WINDOW:
             raise ValueError(f"backward_jobs: jobs of {jobs.window} lanes; the kernel "
                              f"takes at most {WINDOW}")
@@ -199,21 +194,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def jobs_work(variant: str, sc: common.Scene, num_jobs: int, valid: int):
-    """(bytes, operations) of one variant on the scene. C and D are K6's
-    function (`common.backward_bytes`, K6's operations); the others read
-    the splats, lane ids and job list and write the [9, S] slots."""
-    if variant in ("C", "D"):
-        every, gated = K6_OPS
-        return common.backward_bytes(sc), every * common.pairs(sc) + gated * valid
-    n_bytes = 4 * common.lanes(sc) + 44 * sc.n + 4 + 12 * num_jobs + 36 * sc.budget
-    if variant == "A":
-        return n_bytes, 0
-    if variant == "B":
-        return n_bytes + common.rows_bytes(sc), 3 * 256 * num_jobs
-    return n_bytes, E_OPS_PER_PAIR * common.pairs(sc)
-
-
 def main(argv=None) -> int:
     args = common.parse(__doc__, argv, iters=30)
     dev = common.cuda_device(args.device)
@@ -228,7 +208,7 @@ def main(argv=None) -> int:
         sc.tb[0], sc.tb[1])
     bargs = (*sc.rargs[:5], v_rows, sc.H, sc.W, sc.tb)
     print(f"P5 profile_bwd_variants [{common.card_line()}]: {sc.W}x{sc.H}, {sc.n} "
-          f"splats, {common.lanes(sc)} lanes in {jobs.tile.shape[0]} jobs of <= "
+          f"splats, {work.lanes(sc)} lanes in {jobs.tile.shape[0]} jobs of <= "
           f"{WINDOW} ({sc.tb[0] * sc.tb[1]} tiles)")
     with torch.no_grad():
         k6 = rasterize_cuda.backward_slots(*bargs, 16, 16, 256, "rows")

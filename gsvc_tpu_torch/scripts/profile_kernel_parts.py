@@ -32,64 +32,13 @@ import sys
 import torch
 
 from gsvc_tpu_torch import _build
-from gsvc_tpu_torch.ops.rasterize_binned import TILE_CHUNK, tile_lane_ids, zrow
-from gsvc_tpu_torch.ops.rasterize_cuda import _check_inputs, image_to_rows, round8
-from gsvc_tpu_torch.ops.rasterize_dense import ALPHA_CUTOFF
+from gsvc_tpu_torch.ops.rasterize_binned import zrow
+from gsvc_tpu_torch.ops.rasterize_cuda import check_inputs, image_to_rows, round8
 from gsvc_tpu_torch.scripts import common
+from gsvc_tpu_torch.utils.work import K4_OPS, lane_weights
 
-VARIANTS = ("full", "no_sigma", "no_exp", "no_acc", "fast_exp", "exp2")
+VARIANTS = tuple(K4_OPS)
 PRECISION = ("fast_exp", "exp2")
-LOG2E = 1.4426950408889634
-# Operations a (pixel, lane) pair, read from csrc/profile_kernel_parts.cu:
-# (every pair, each pair that passes the alpha gate). full: dx, dy 2, the
-# quadratic form 9, negate and exp 2, alpha's product and min 2, the gate's
-# two compares 2 (17), then 3 colour FMAs counted as 6. no_sigma: one
-# product for sigma (7 + 6). no_exp: no negate, no exp (15 + 6). no_acc:
-# one select-add a pair, no FMAs (18 + 0).
-OPS_PER_PAIR = {"full": (17, 6), "no_sigma": (7, 6), "no_exp": (15, 6),
-                "no_acc": (18, 0), "fast_exp": (17, 6), "exp2": (17, 6)}
-
-
-def _lane_weights(variant, binned, xys, conics, opacity, tile_bounds, block_w,
-                  block_h, cap):
-    """Yield (t0, t1, ids [tc, cap], w [tc, cap, pix]) over chunks of
-    TILE_CHUNK tiles: each lane's alpha weight at each pixel (0 where the
-    gate fails) under `variant`."""
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
-    dev, dtype = xys.device, torch.float32
-    n = xys.shape[0]
-    tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
-    ids = tile_lane_ids(binned, cap, n)
-    xys_p, opac_p = zrow(xys.to(dtype)), zrow(opacity.reshape(-1).to(dtype))
-    conics_p = zrow(conics.to(dtype))
-    if variant == "exp2":
-        conics_p = conics_p * LOG2E
-    local_y = torch.arange(block_h, dtype=dtype, device=dev).repeat_interleave(block_w)
-    local_x = torch.arange(block_w, dtype=dtype, device=dev).repeat(block_h)
-    for t0 in range(0, tb_x * tb_y, TILE_CHUNK):
-        t1 = min(t0 + TILE_CHUNK, tb_x * tb_y)
-        tids = torch.arange(t0, t1, device=dev)
-        g = ids[t0:t1]
-        ox = ((tids % tb_x) * block_w).to(dtype)[:, None, None]
-        oy = ((tids // tb_x) * block_h).to(dtype)[:, None, None]
-        c1, c2, c3 = (conics_p[g, i][:, :, None] for i in range(3))
-        if variant == "no_sigma":
-            gx, gy = xys_p[g, 0][:, :, None] - ox, xys_p[g, 1][:, :, None] - oy
-            sigma = 0.01 * (0.5 * (c1 * gx * gx + c3 * gy * gy) + c2 * gx * gy)
-            sigma = sigma.expand(-1, -1, block_w * block_h)
-        else:
-            dx = xys_p[g, 0][:, :, None] - (ox + local_x)
-            dy = xys_p[g, 1][:, :, None] - (oy + local_y)
-            sigma = 0.5 * (c1 * dx * dx + c3 * dy * dy) + c2 * dx * dy
-        if variant == "no_exp":
-            vis = sigma
-        elif variant == "exp2":
-            vis = torch.exp2(-sigma)
-        else:  # full, no_acc; fast_exp's __expf has no plain twin
-            vis = torch.exp(-sigma)
-        alpha = torch.clamp(opac_p[g][:, :, None] * vis, max=1.0)
-        yield t0, t1, g, torch.where((sigma >= 0.0) & (alpha >= ALPHA_CUTOFF), alpha, 0.0)
 
 
 def render_parts_torch(variant, binned, xys, conics, colors, opacity, img_height,
@@ -100,8 +49,8 @@ def render_parts_torch(variant, binned, xys, conics, colors, opacity, img_height
     colors_p = zrow(colors.to(torch.float32))
     out = torch.empty((tb_x * tb_y, block_h * block_w, 3), dtype=torch.float32,
                       device=xys.device)
-    for t0, t1, g, w in _lane_weights(variant, binned, xys, conics, opacity,
-                                      tile_bounds, block_w, block_h, cap):
+    for t0, t1, g, w in lane_weights(variant, binned, xys, conics, opacity,
+                                     tile_bounds, block_w, block_h, cap):
         if variant == "no_acc":
             out[t0:t1] = w.sum(1)[:, :, None] * colors_p[g].sum(1)[:, None, :] * 1e-6
         else:
@@ -109,13 +58,6 @@ def render_parts_torch(variant, binned, xys, conics, colors, opacity, img_height
     img = (out.reshape(tb_y, tb_x, block_h, block_w, 3).permute(0, 2, 1, 3, 4)
            .reshape(tb_y * block_h, tb_x * block_w, 3)[:img_height, :img_width])
     return image_to_rows(img, tb_x, tb_y, block_w, block_h)
-
-
-def valid_pairs(variant: str, sc: common.Scene) -> int:
-    """(pixel, lane) pairs of the scene that pass the alpha gate under
-    `variant`: the data-dependent part of a bound's operation count."""
-    return sum(int((w > 0).sum()) for _t0, _t1, _g, w in _lane_weights(
-        variant, sc.binned, sc.xys, sc.conics, sc.opacity, sc.tb, 16, 16, 256))
 
 
 def _parts_wrapper(variant: str):
@@ -129,8 +71,8 @@ def _parts_wrapper(variant: str):
                                       block_h, cap)
         dev = xys.device
         tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
-        f32 = _check_inputs("forward_parts", binned, xys, conics, colors, opacity,
-                            tile_bounds, block_w, block_h, cap)
+        f32 = check_inputs("forward_parts", binned, xys, conics, colors, opacity,
+                           tile_bounds, block_w, block_h, cap)
         i32 = [t.contiguous() for t in (binned.tile_bin_start, binned.tile_counts,
                                         binned.sorted_gauss_ids)]
         r_out = round8(3 * tb_x)
@@ -163,13 +105,6 @@ def _lib() -> ctypes.CDLL:
         lib.forward_parts.argtypes = [vp] * 7 + [i32] * 10 + [vp, vp]
         lib._gsvc_bound = True
     return lib
-
-
-def parts_work(variant: str, sc: common.Scene, valid: int):
-    """(bytes, operations) of one variant on the scene: K4 rows's traffic
-    and OPS_PER_PAIR over the pairs (`valid` of them pass the gate)."""
-    every, gated = OPS_PER_PAIR[variant]
-    return common.forward_bytes(sc, "rows"), every * common.pairs(sc) + gated * valid
 
 
 def main(argv=None) -> int:

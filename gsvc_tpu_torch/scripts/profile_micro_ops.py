@@ -11,9 +11,9 @@ kernels alone (`rp._forward_kernel`, K4, pallas_call :209;
 Each op runs alone, behind a spin kernel, between CUDA events
 (`utils.profiling.event_ms`: the call's device time, not the host's
 launch rate), and again under torch.profiler (`device_busy_ms`). The
-bound of a kernel (`kernel_work`, `utils.profiling.roofline_ms`) counts
-each input byte read once and each output byte written once, and the
-operations these inputs need: (pixel, lane) pairs are 256 x sum over
+bound of a kernel (`utils.work.kernel_work`, `utils.profiling.roofline_ms`)
+counts each input byte read once and each output byte written once, and
+the operations these inputs need: (pixel, lane) pairs are 256 x sum over
 tiles of min(count, 256), of which those past the alpha gate do the
 gated part of the work. `+pack` of the TPU harness has no counterpart:
 `_pack_lanes` is folded into K4's load (ops/rasterize_cuda.py:12-13).
@@ -29,21 +29,8 @@ from gsvc_tpu_torch.ops import fill_cuda, rasterize_cuda
 from gsvc_tpu_torch.ops.binning import bin_gaussians, key_inputs
 from gsvc_tpu_torch.ops.projection import _tile_bbox, project_gaussians_2d
 from gsvc_tpu_torch.scripts import common
-from gsvc_tpu_torch.scripts.profile_kernel_parts import OPS_PER_PAIR, valid_pairs
+from gsvc_tpu_torch.utils import work
 from gsvc_tpu_torch.utils.profiling import roofline_ms
-
-# Operations a (pixel, lane) pair, from the kernel sources, as (every pair,
-# each pair past the alpha gate). K4/K5 (csrc/rasterize_fwd.cu): see
-# profile_kernel_parts.OPS_PER_PAIR["full"]. K6 (csrc/rasterize_bwd.cu):
-# dx 1, the quadratic form 9, negate and exp 2, alpha's product and min 2,
-# the gate 2 (16); then v_alpha 5, v_sigma 2, the colour FMAs 6, opacity's
-# FMA 2, the three conic terms 4 + 3 + 4, x and y 5 + 5 (36).
-K4_OPS = OPS_PER_PAIR["full"]
-K6_OPS = (16, 36)
-# Integer operations a slot: K1 decodes a key (a divide, a remainder, a
-# multiply-add, a shift and an or: 6); K2 splits it, compares it with its
-# neighbour, ranks and caps it (6). K3 adds and selects each value (2).
-K1_OPS, K2_OPS, K3_OPS = 6, 6, 2
 
 # Launches of each kernel in one step of the main paths (from the code):
 # the eval render (`render_frame`, layout chw) and the represent step
@@ -59,38 +46,6 @@ LAUNCHES_PER_STEP = {
 }
 
 
-def kernel_work(sc: common.Scene, valid: int, k3_rows: int) -> dict:
-    """{kernel: (bytes, operations)} of K1-K6 on the scene; `valid` pairs
-    pass the alpha gate, K3 scans `k3_rows` rows of the budget's slots."""
-    n, s, pairs = sc.n, sc.budget, common.pairs(sc)
-    fwd_ops = K4_OPS[0] * pairs + K4_OPS[1] * valid
-    return {
-        "K1 fill_decode_keys": (21 * n + 4 + 8 * s, K1_OPS * s),
-        "K2 rank_cap_decode": (16 * s, K2_OPS * s),
-        "K3 segmented_cumsum": (8 * k3_rows * s + 4 * s, K3_OPS * k3_rows * s),
-        "K4 forward image": (common.forward_bytes(sc, "image"), fwd_ops),
-        "K4 forward rows": (common.forward_bytes(sc, "rows"), fwd_ops),
-        "K5 forward chw": (common.forward_bytes(sc, "chw"), fwd_ops),
-        "K6 backward": (common.backward_bytes(sc), K6_OPS[0] * pairs + K6_OPS[1] * valid),
-    }
-
-
-def slot_owners(gauss_slot_start: torch.Tensor, s: int) -> torch.Tensor:
-    """[S] int64 splat owning each expansion slot (N past the kept total)."""
-    return torch.searchsorted(gauss_slot_start.to(torch.int64),
-                              torch.arange(s, device=gauss_slot_start.device),
-                              right=True) - 1
-
-
-def segsum_index_add(vslots: torch.Tensor, owners: torch.Tensor, n: int) -> torch.Tensor:
-    """[N, 9] per-splat sums of the [9, S] slots by `index_add_`: the one
-    library call for the reduction K3 and its gather serve (the
-    counterpart of jax.ops.segment_sum). Float atomics on the card, so
-    not deterministic: a yardstick only, used nowhere in the port."""
-    out = torch.zeros((n + 1, vslots.shape[0]), dtype=vslots.dtype, device=vslots.device)
-    return out.index_add_(0, owners, vslots.T)[:n]
-
-
 def main(argv=None) -> int:
     args = common.parse(__doc__, argv, iters=100)
     dev = common.cuda_device(args.device)
@@ -101,7 +56,7 @@ def main(argv=None) -> int:
     it, busy_reps = args.iters, max(args.iters // 10, 3)
     b = sc.binned
     print(f"P3 profile_micro_ops [{common.card_line()}]: {W}x{H}, n={n} "
-          f"isect={int(b.num_intersects)} budget={s} lanes={common.lanes(sc)} "
+          f"isect={int(b.num_intersects)} budget={s} lanes={work.lanes(sc)} "
           f"tiles={tb[0] * tb[1]}")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, ms = [], {}
@@ -164,19 +119,18 @@ def main(argv=None) -> int:
           lambda: fill_cuda.segmented_cumsum(vslots, flags))
         t("K3 reduction (flags, K3, gather)",
           lambda: rasterize_cuda.reduce_slot_grads(vslots, b.gauss_slot_start))
-        owners = slot_owners(b.gauss_slot_start, s)
-        t("index_add_ slots->splats [9,S]", lambda: segsum_index_add(vslots, owners, n),
+        owners = common.slot_owners(b.gauss_slot_start, s)
+        t("index_add_ slots->splats [9,S]", lambda: common.segsum_index_add(vslots, owners, n),
           "the reduction K3 + gather serve; not K3's library call")
-        valid = valid_pairs("full", sc)
+        valid = work.gated_pairs(sc)
     common.print_rows("P3 ops (each alone):", rows)
 
-    work = kernel_work(sc, valid, k3_rows=16)
-    print(f"P3 kernels: pairs {common.pairs(sc)}, past the alpha gate {valid}; bounds "
+    print(f"P3 kernels: pairs {work.pairs(sc)}, past the alpha gate {valid}; bounds "
           "against an H100 SXM's 3.35 TB/s and 67 TFLOP/s f32 (a card below 700 W is "
           "slower)")
     print(f"  {'kernel':22s} {'ms':>9s} {'bound ms':>9s} {'by':>10s} {'% bound':>8s} "
           f"{'eval/step launches':>19s}  library")
-    for name, (n_bytes, ops) in work.items():
+    for name, (n_bytes, ops) in work.kernel_work(sc, valid, k3_rows=16).items():
         k_ms = ms[name]
         bound, by = roofline_ms(n_bytes, ops)
         launches = LAUNCHES_PER_STEP[name]

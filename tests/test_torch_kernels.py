@@ -12,7 +12,8 @@ grads, K3's scan and the autograd function's per-splat grads within 1e-4
 of each tensor's largest entry (f32 sums over up to 256 pixels, or a
 segment, in another order). The profiling harnesses' kernels
 (gsvc_tpu_torch/scripts), at a small size and at 1080p/10k: P1's K4
-variants max-abs 1e-4 against their plain versions, P5's job-based C and
+variants max-abs 1e-4 and within 1e-4 of the plain version's largest
+entry (no_acc's outputs are ~1e-5) against their plain versions, P5's job-based C and
 D within 1e-4 of K6's largest slot, P6's transposes exactly.
 """
 
@@ -197,8 +198,10 @@ def _bench(dev, size):
 
 @pytest.mark.parametrize("size", list(_SIZES))
 def test_parts_kernels_match_plain_versions(dev, size):
-    """P1: each K4 variant against its plain version, max-abs 1e-4 (f32
-    sums in another order; __expf against exp for fast_exp)."""
+    """P1: each K4 variant against its plain version, max-abs 1e-4 and
+    within 1e-4 of the plain version's largest entry, which is not 0 (f32
+    sums in another order; __expf against exp for fast_exp; no_acc's
+    outputs are ~1e-5, where max-abs alone would pass zeros)."""
     from gsvc_tpu_torch.scripts import profile_kernel_parts as p1
 
     sc = _bench(dev, size)
@@ -208,7 +211,8 @@ def test_parts_kernels_match_plain_versions(dev, size):
         torch.cuda.synchronize()
         assert wrapper.launches == before + 1
         want = p1.render_parts_torch(v, *sc.rargs)
-        assert float((got - want).abs().max()) <= 1e-4, v
+        err, largest = float((got - want).abs().max()), float(want.abs().max())
+        assert largest > 0 and err <= 1e-4 and err <= 1e-4 * largest, (v, err, largest)
 
 
 @pytest.mark.parametrize("size", list(_SIZES))
