@@ -9,7 +9,9 @@ the first fault:
 
 0. device: a CUDA card, its name and power limit from nvidia-smi;
 1. build: the kernels of gsvc_tpu_torch/csrc, one nvcc per source, in
-   parallel;
+   parallel; ptxas's register and shared-memory use, and the inner-loop
+   instruction mix of K4/K5 and K6 a (pixel, lane) pair from the built
+   libraries' SASS (`utils.sass`; "not measured" without cuobjdump);
 2. kernels: K1 (fill_decode_keys), K2 (rank_cap_decode), K4 (forward,
    [H,W,3] and the tile-row "rows" store), K5 (forward, [3,H,W]), K6
    (backward into the expansion slots) and K3 (segmented cumsum) on the
@@ -18,6 +20,7 @@ the first fault:
    max-abs 1e-4, the rows store exactly image_to_rows of the image store,
    K6 / K3 and the autograd function's per-splat gradients (against
    autograd through the plain renderer) within 1e-4 of the largest entry;
+   two launches of K5, K4 rows and K6 (rows) bitwise equal;
 3. serving slice: a K-frame stream of the scene written with `pack_frame`,
    then decoded by `python -m gsvc_tpu_torch.decode` (its `main`) and
    rendered once more as the planar eval render (`render_frame`, layout
@@ -45,9 +48,10 @@ the first fault:
 7. the profiling path (`gsvc_tpu_torch.scripts`): the harnesses' kernels
    against their plain versions (P1's K4 variants within max-abs 1e-4 and
    within 1e-4 of the plain render's largest entry, which must not be 0,
-   P5's job-based backward C and D within 1e-4 of K6's slots, P6's
-   transposes exactly), timed, then the six harnesses' mains (P3, P2, P4,
-   P1, P6, P5) at 1080p/10k with a few repetitions a stage.
+   P5's job-based backward C and D and K6's two pixel splits F and G
+   within 1e-4 of K6's slots, P6's transposes exactly), timed, then the
+   six harnesses' mains (P3, P2, P4, P1, P6, P5) at 1080p/10k with a few
+   repetitions a stage.
 
 Around each of phases 3 and 4, around each CLI of phase 6 and around the
 mains of phase 7, every launch counter is zeroed just before and read just
@@ -284,10 +288,10 @@ def profiling_phase(torch, dev, smi, sc, v_rows, counters) -> list:
     every launch counter zeroed just before and read just after. P1's
     variants must be within max-abs RENDER_TOL and within RENDER_TOL of the
     plain render's largest entry, which must not be 0 (no_acc's output is
-    ~1e-5, so max-abs alone would pass a kernel that writes zeros). P5's C
-    and D must be within GRAD_TOL of K6's slots, A exactly and B, E within
-    GRAD_TOL of their plain versions; P6's transposes exact. Returns the
-    new kernels' JSON entries."""
+    ~1e-5, so max-abs alone would pass a kernel that writes zeros). P5's C,
+    D, F and G must be within GRAD_TOL of K6's slots, A exactly and B, E
+    within GRAD_TOL of their plain versions; P6's transposes exact. Returns
+    the new kernels' JSON entries."""
     from gsvc_tpu_torch.ops import rasterize_cuda
     from gsvc_tpu_torch.scripts import probe_transpose as p6
     from gsvc_tpu_torch.scripts import profile_bwd_chain as p4
@@ -322,11 +326,11 @@ def profiling_phase(torch, dev, smi, sc, v_rows, counters) -> list:
         for v, wrapper in p5.BACKWARD_JOBS.items():
             got = wrapper(*bargs, jobs)
             plain = p5.backward_jobs_torch(v, *bargs, jobs)
-            err, rel = errors(got, k6 if v in ("C", "D") else plain)
+            err, rel = errors(got, k6 if v in p5.K6_FUNCTION else plain)
             ok = torch.equal(got, plain) if v == "A" else rel <= GRAD_TOL
             if not (torch.isfinite(got).all() and ok):
                 fail(f"P5 {v}: max-abs {err}, rel {rel} against "
-                     + ("K6's slots" if v in ("C", "D") else "its plain version"))
+                     + ("K6's slots" if v in p5.K6_FUNCTION else "its plain version"))
             kernels.append(timed_row(
                 smi, 7, f"P5 backward_jobs {v}", "gsvc_tpu_torch/csrc/profile_bwd_variants.cu",
                 "scripts/profile_bwd_variants.py:109", wrapper.__name__, err,
@@ -493,7 +497,7 @@ def main() -> int:
     from gsvc_tpu_torch.ops.projection import project_gaussians_2d
     from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum
     from gsvc_tpu_torch.scripts.common import bench_scene, scene
-    from gsvc_tpu_torch.utils import work
+    from gsvc_tpu_torch.utils import sass, work
     from gsvc_tpu_torch.utils.profiling import device_loop_time, event_ms
 
     # -- phase 1: build --------------------------------------------------
@@ -503,6 +507,12 @@ def main() -> int:
     ptxas = [ln.strip() for lib in LIBS
              for ln in _build.build_log(lib).splitlines() if "Used" in ln]
     print(f"phase 1 build: {build_s:.2f} s; " + " | ".join(ptxas))
+    for lib in ("rasterize_fwd", "rasterize_bwd"):
+        mixes = sass.library_mix(_build.library_path(lib))
+        if mixes is None:
+            print(f"phase 1 sass {lib}: not measured (no cuobjdump)")
+        for kernel, mix in sorted((mixes or {}).items()):
+            print(f"phase 1 sass {lib} {sass.describe(kernel, mix)}")
     if argv == ["--profile"]:
         profile_steps(np, torch, dev, smi)
         return 0
@@ -566,6 +576,13 @@ def main() -> int:
             fail(f"K6 {layout}: max-abs {k6[layout][0]}, rel {k6[layout][1]} "
                  f"> {GRAD_TOL}")
     errs["K6"] = max(e[0] for e in k6.values())
+    twice = {"K5": lambda: rasterize_cuda.forward_chw(*rargs),
+             "K4 rows": lambda: rasterize_cuda.forward_rows(*rargs),
+             "K6 rows": lambda: rasterize_cuda.backward_slots(
+                 *bargs, v_by_layout["rows"], *geom, layout="rows")}
+    for name, launch in twice.items():
+        if not torch.equal(launch(), launch()):
+            fail(f"{name}: two launches on the same inputs differ")
     flags = rasterize_cuda.segment_flags(binned.gauss_slot_start, budget)
     seg = fill_cuda.segmented_cumsum(slots_ref, flags)
     seg_ref = fill_cuda.segmented_cumsum_torch(slots_ref, flags)
@@ -598,7 +615,8 @@ def main() -> int:
         + f"; K3 ({errs['K3']:.3g}, {k3_rel:.3g}); per-splat grads of the "
         "autograd function vs plain autograd " + ", ".join(
             f"{k} ({a:.3g}, {r:.3g})" for k, (a, r) in grad_errs.items())
-        + f" (tol rel {GRAD_TOL}); peak {peak_gb:.1f} GiB")
+        + f" (tol rel {GRAD_TOL}); two launches of K5, K4 rows and K6 rows bitwise "
+        f"equal; peak {peak_gb:.1f} GiB")
 
     # -- phase 3: the slice, through the decoder CLI --------------------
     from gsvc_tpu_torch import decode as decode_cli

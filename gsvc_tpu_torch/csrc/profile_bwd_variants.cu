@@ -4,9 +4,9 @@
 // PyTorch version of each variant, is
 // gsvc_tpu_torch/scripts/profile_bwd_variants.py.
 //
-// K6 (csrc/rasterize_bwd.cu) runs one CTA per tile and one thread per
-// lane: a tile holds ~9.5 lanes on average at 1080p/10k, so most of each
-// 256-thread CTA idles while a few threads walk all 256 pixels. Here a job
+// K6's first port ran one CTA per tile and one thread per lane: a tile
+// holds ~9.5 lanes on average at 1080p/10k, so most of each 256-thread CTA
+// idled while a few threads walked all 256 pixels. Here a job
 // is one tile's window of up to kWindow = 32 lanes (one warp's worth: the
 // mean tile fits in one job, the 256 cap in 8), and a CTA of 256 threads
 // takes one pixel each, so every thread works on every lane of the window.
@@ -16,7 +16,7 @@
 // is deterministic, in another order than K6's (per-lane sums over
 // pixels), so it matches K6 to rounding, not bitwise.
 //
-// Variants (the TPU's A-E, translated):
+// Variants (the TPU's A-E, translated, then K6's two pixel splits):
 //   kA  load the job's lanes and write them to their expansion slots
 //   kB  kA plus the tile's image gradient fetched, its sum added to each
 //       value (so the fetch is used)
@@ -25,10 +25,16 @@
 //   kD  full gradients, one CTA per job, each writing its lanes' slots
 //   kE  sigma and exp only: sum over pixels of exp(-sigma) a lane, in
 //       slot row 0
-// kC and kD compute K6's function: [9, S] per-slot gradients, zero where
-// no lane below the cap writes. Bound by the same per-pair FP32/SFU work as
-// K6 plus 45 shuffles a lane a warp for the reduction.
-#include "common.cuh"
+//   kF  K6 itself with a warp per lane, 8 pixels a thread
+//       (rasterize_bwd.cuh's backward_kernel<kRows, 32>), one CTA per tile
+//   kG  the same with 16 threads a lane (two lanes a warp), 16 pixels a
+//       thread (backward_kernel<kRows, 16>)
+// kC, kD, kF and kG compute K6's function: [9, S] per-slot gradients, zero
+// where no lane below the cap writes. C and D are bound by the same
+// per-pair FP32/SFU work as K6 plus 45 shuffles a lane a warp for the
+// reduction; F and G (K6's two pixel splits, measured against each other
+// here) sum 8 or 16 pixels in a thread before a 5- or 4-level tree.
+#include "rasterize_bwd.cuh"
 
 namespace {
 
@@ -38,7 +44,7 @@ constexpr int kThreads = kBlock * kBlock;
 constexpr int kWarps = kThreads / 32;
 constexpr int kWindow = 32;
 constexpr int kFields = 9;  // x y c1 c2 c3 opac r g b
-enum Variant { kA = 0, kB = 1, kC = 2, kD = 3, kE = 4 };
+enum Variant { kA = 0, kB = 1, kC = 2, kD = 3, kE = 4, kF = 5, kG = 6 };
 
 struct Args {
   const int* tile_bin_start;
@@ -252,6 +258,13 @@ GSVC_EXPORT int backward_jobs(
          static_cast<const int*>(job_tile), static_cast<const int*>(job_first),
          static_cast<const int*>(job_count), n, img_h, img_w, tb_x, cap, r_out,
          num_slots, static_cast<float*>(out)};
+  if (variant == kF || variant == kG) {
+    const gsvc_bwd::Args k6{a.tile_bin_start, a.tile_counts, a.gauss_ids, a.gauss_slot_start,
+                            a.bbox_pack, a.xys, a.conics, a.colors, a.opacity, a.v_rows,
+                            n, img_h, img_w, tb_x, cap, r_out, num_slots, a.out};
+    return variant == kF ? gsvc_bwd::launch_backward<gsvc_bwd::kRows, 32>(k6, tb_y, s)
+                         : gsvc_bwd::launch_backward<gsvc_bwd::kRows, 16>(k6, tb_y, s);
+  }
   const int grid = variant == kC ? tb_x * tb_y : num_jobs;
   if (grid <= 0 || num_slots <= 0) return static_cast<int>(cudaGetLastError());
   switch (variant) {

@@ -19,10 +19,14 @@ and the 8 warps in order: no float atomics.
   C  full gradients, one CTA per tile walking its windows in order
   D  full gradients, one CTA per job
   E  sigma and exp only: sum over pixels of exp(-sigma), slot row 0
+  F  K6's kernel with a warp per lane, 8 pixels a thread (one CTA a tile;
+     csrc/rasterize_bwd.cuh, the rows layout)
+  G  the same with 16 threads a lane, 16 pixels a thread
 
-C and D compute K6's function, the [9, S] per-slot gradients, in another
-summation order (rel 1e-4 of the largest entry). K6 on the main path is
-not replaced here.
+F and G are K6's two pixel splits, timed against each other here; K6
+(csrc/rasterize_bwd.cu) runs the faster. The jobs list is unused by both.
+C, D, F and G compute K6's function, the [9, S] per-slot gradients, C and
+D in another summation order (rel 1e-4 of the largest entry).
 
     python -m gsvc_tpu_torch.scripts.profile_bwd_variants [--iters 30]
 
@@ -55,7 +59,8 @@ from gsvc_tpu_torch.scripts import common
 from gsvc_tpu_torch.utils import work
 
 WINDOW = 32
-VARIANTS = ("A", "B", "C", "D", "E")
+VARIANTS = ("A", "B", "C", "D", "E", "F", "G")
+K6_FUNCTION = ("C", "D", "F", "G")  # the variants that compute K6's slots
 JOB_CHUNK = 256  # jobs a step of the plain version: [256, 32, 256] floats
 
 
@@ -105,7 +110,7 @@ def backward_jobs_torch(variant, binned, xys, conics, colors, opacity, v_rows,
         g = torch.where(used, ids_all[lane.clamp(max=max(s - 1, 0))], n)
         g = torch.where((g >= 0) & (g < n), g, n)  # [jc, WINDOW]
         slots = lane_slots(binned, g, tids, tb_x, n).reshape(-1)
-        if variant in ("C", "D"):
+        if variant in K6_FUNCTION:
             vals = lane_grads(g, tids, vt[tids], splats, tb_x)
         elif variant == "E":
             vals = torch.zeros((GRAD_FIELDS,) + g.shape, device=dev)
@@ -212,7 +217,7 @@ def main(argv=None) -> int:
           f"{WINDOW} ({sc.tb[0] * sc.tb[1]} tiles)")
     with torch.no_grad():
         k6 = rasterize_cuda.backward_slots(*bargs, 16, 16, 256, "rows")
-        rows = [("K6 backward (thread per lane)", *common.alone(
+        rows = [("K6 backward", *common.alone(
             lambda: rasterize_cuda.backward_slots(*bargs, 16, 16, 256, "rows"),
             args.iters, busy_reps))]
         for v in VARIANTS:
@@ -220,7 +225,7 @@ def main(argv=None) -> int:
                 return BACKWARD_JOBS[v](*bargs, jobs)
 
             note = ""
-            if v in ("C", "D"):
+            if v in K6_FUNCTION:
                 err = float((call() - k6).abs().max()) / float(k6.abs().max())
                 note = f"rel err vs K6 {err:.3e}"
             rows.append((f"{v}", *common.alone(call, args.iters, busy_reps), note))

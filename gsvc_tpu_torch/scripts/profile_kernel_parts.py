@@ -3,8 +3,10 @@
 The port of scripts/profile_kernel_parts.py, whose variants of the TPU's
 row-streaming forward kernel (`make_kernel` :52, pallas_call :174) ablated
 the sigma and colour matmuls and re-typed them as bf16 x3 splits. K4 on
-the card (csrc/rasterize_fwd.cu) has no matmul, so the variants are
-translated (csrc/profile_kernel_parts.cu, the rows store of K4):
+the card has no matmul, so the variants are translated: each is K4's own
+kernel (csrc/rasterize_fwd.cuh, the rows store) with its inner loop
+switched at compile time (csrc/profile_kernel_parts.cu), so `full` is K4
+and the ablations describe the loop that runs:
 
   full      the real K4 loop
   no_sigma  sigma = 0.01 x the lane's sigma at its tile's origin (:86-87)
@@ -33,7 +35,13 @@ import torch
 
 from gsvc_tpu_torch import _build
 from gsvc_tpu_torch.ops.rasterize_binned import zrow
-from gsvc_tpu_torch.ops.rasterize_cuda import check_inputs, image_to_rows, round8
+from gsvc_tpu_torch.ops.rasterize_cuda import (
+    check_inputs,
+    image_to_rows,
+    persistent_grid,
+    round8,
+    sm_count,
+)
 from gsvc_tpu_torch.scripts import common
 from gsvc_tpu_torch.utils.work import K4_OPS, lane_weights
 
@@ -78,12 +86,13 @@ def _parts_wrapper(variant: str):
         r_out = round8(3 * tb_x)
         alloc = torch.empty if r_out == 3 * tb_x else torch.zeros
         out = alloc((tb_y * r_out, block_h * block_w), dtype=torch.float32, device=dev)
+        grid = persistent_grid(tb_x * tb_y, sm_count(dev))
         lib = _lib()
         with torch.cuda.device(dev):
             rc = lib.forward_parts(
                 *(_build.ptr(t) for t in i32 + f32), xys.shape[0], img_height,
-                img_width, tb_x, tb_y, block_w, block_h, cap, vid, r_out,
-                _build.ptr(out), _build.stream_ptr(dev))
+                img_width, tb_x, tb_y, cap, vid, r_out, grid, _build.ptr(out),
+                _build.stream_ptr(dev))
         _build.check(lib, rc, f"forward_parts[{variant}]")
         wrapper.launches += 1
         return out
@@ -102,7 +111,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_gsvc_bound", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.forward_parts.restype = i32
-        lib.forward_parts.argtypes = [vp] * 7 + [i32] * 10 + [vp, vp]
+        lib.forward_parts.argtypes = [vp] * 7 + [i32] * 9 + [vp, vp]
         lib._gsvc_bound = True
     return lib
 

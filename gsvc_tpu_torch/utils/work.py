@@ -18,16 +18,16 @@ from gsvc_tpu_torch.ops.rasterize_binned import TILE_CHUNK, tile_lane_ids, zrow
 from gsvc_tpu_torch.ops.rasterize_dense import ALPHA_CUTOFF
 
 LOG2E = 1.4426950408889634
-# Operations a (pixel, lane) pair of K4/K5 (csrc/rasterize_fwd.cu) and of
-# its P1 variants (csrc/profile_kernel_parts.cu). full: dx, dy 2, the
+# Operations a (pixel, lane) pair of K4/K5 and of its P1 variants (the
+# loop of csrc/rasterize_fwd.cuh). full: dx, dy 2, the
 # quadratic form 9, negate and exp 2, alpha's product and min 2, the
 # gate's two compares 2 (17), then 3 colour FMAs counted as 6. no_sigma:
 # one product for sigma (7 + 6). no_exp: no negate, no exp (15 + 6).
 # no_acc: one select-add a pair, no FMAs (18 + 0).
 K4_OPS = {"full": (17, 6), "no_sigma": (7, 6), "no_exp": (15, 6),
           "no_acc": (18, 0), "fast_exp": (17, 6), "exp2": (17, 6)}
-# K6 (csrc/rasterize_bwd.cu) and P5's C and D: dx 1, the quadratic form 9,
-# negate and exp 2, alpha's product and min 2, the gate 2 (16); then
+# K6 (csrc/rasterize_bwd.cuh) and P5's C, D, F and G: dx 1, the quadratic
+# form 9, negate and exp 2, alpha's product and min 2, the gate 2 (16); then
 # v_alpha 5, v_sigma 2, the colour FMAs 6, opacity's FMA 2, the three
 # conic terms 4 + 3 + 4, x and y 5 + 5 (36).
 K6_OPS = (16, 36)
@@ -142,12 +142,12 @@ def parts_work(variant: str, sc, valid: int):
 
 
 def jobs_work(variant: str, sc, num_jobs: int, valid: int):
-    """(bytes, operations) of one P5 variant. C and D are K6's function
-    (K6's bytes and operations, `valid` pairs past the gate); the others
-    read the splats, lane ids and job list and write the [9, S] slots: A
-    moves data only, B adds the tile's 3 x 256 gradients a job, E does
-    E_OPS a pair."""
-    if variant in ("C", "D"):
+    """(bytes, operations) of one P5 variant. C, D, F and G are K6's
+    function (K6's bytes and operations, `valid` pairs past the gate); the
+    others read the splats, lane ids and job list and write the [9, S]
+    slots: A moves data only, B adds the tile's 3 x 256 gradients a job, E
+    does E_OPS a pair."""
+    if variant in ("C", "D", "F", "G"):
         every, gated = K6_OPS
         return backward_bytes(sc), every * pairs(sc) + gated * valid
     n_bytes = 4 * lanes(sc) + 44 * sc.n + 4 + 12 * num_jobs + 36 * sc.budget

@@ -7,14 +7,21 @@ machine; `python3 chip_smoke.py` does the same at 1080p/10k.
 
 Tolerances: K1/K2 exact (integer index work); the forward kernel atol
 1e-5 against the plain render (f32 sums in another order); the rows store
-exactly `image_to_rows` of the image store (the same sums); K6's per-slot
+exactly `image_to_rows` of the image store (the same sums); two launches
+of a kernel on the same inputs bitwise equal (a fixed order, no float
+atomics); K6's per-slot
 grads, K3's scan and the autograd function's per-splat grads within 1e-4
 of each tensor's largest entry (f32 sums over up to 256 pixels, or a
 segment, in another order). The profiling harnesses' kernels
 (gsvc_tpu_torch/scripts), at a small size and at 1080p/10k: P1's K4
 variants max-abs 1e-4 and within 1e-4 of the plain version's largest
-entry (no_acc's outputs are ~1e-5) against their plain versions, P5's job-based C and
-D within 1e-4 of K6's largest slot, P6's transposes exactly.
+entry (no_acc's outputs are ~1e-5) against their plain versions, P5's
+job-based C and D and K6's pixel splits F and G within 1e-4 of K6's
+largest slot, P6's transposes exactly.
+
+The scene "capped" (1,500 big splats on 64x64) puts more than the cap of
+256 lanes on every tile, where the kernels' staged lanes fill their
+shared buffers and K6 must leave the capped lanes' slots exactly 0.
 """
 
 import numpy as np
@@ -50,9 +57,13 @@ def _scene(dev, n, H, W, seed, big=False):
     return tb, t, project_gaussians_2d(t[0], t[1], H, W, tb)
 
 
+_CAPPED = (1500, (64, 64), 6, 32768, 256, True)
+
+
 @pytest.mark.parametrize("n,hw,seed,budget,cap,big", [
     (500, (37, 83), 0, 16384, 256, False), (100, (48, 64), 3, 64, 256, False),
     (400, (40, 56), 2, 8192, 256, True), (120, (32, 32), 4, 4096, 4, False),
+    _CAPPED,
 ])
 def test_kernels_match_plain_versions(dev, n, hw, seed, budget, cap, big):
     H, W = hw
@@ -72,13 +83,19 @@ def test_kernels_match_plain_versions(dev, n, hw, seed, budget, cap, big):
     plain = bin_gaussians(xys, radii, nth, tb, 16, 16, budget, cap=cap, kernels=False)
     for name in binned._fields:
         assert torch.equal(getattr(binned, name), getattr(plain, name)), name
+    if (n, hw) == _CAPPED[:2]:
+        assert int(binned.tile_counts.min()) > cap and int(binned.overflow) == 0
     args = (binned, xys, conics, colors, opacity, H, W, tb, 16, 16, cap)
     ref = rasterize_cuda.rasterize_forward_torch(*args)
     img = rasterize_cuda.forward_image(*args)
     chw = rasterize_cuda.forward_chw(*args)
+    rows = rasterize_cuda.forward_rows(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(img, ref, rtol=0, atol=1e-5)
     torch.testing.assert_close(chw, ref.permute(2, 0, 1), rtol=0, atol=1e-5)
+    assert torch.equal(rows, image_to_rows(img, H, W))
+    for store, out in (("image", img), ("chw", chw), ("rows", rows)):
+        assert torch.equal(rasterize_cuda.FORWARD[store](*args), out), store
 
 
 def test_dispatch_and_refusals(dev):
@@ -109,6 +126,7 @@ def _close(got, want, rel=1e-4):
 @pytest.mark.parametrize("n,hw,seed,budget,cap,big", [
     (500, (37, 83), 0, 16384, 256, False), (400, (40, 56), 2, 8192, 256, True),
     (120, (32, 32), 4, 4096, 4, False), (300, (64, 48), 5, 64, 256, False),
+    _CAPPED,
 ])
 def test_train_kernels_match_plain_versions(dev, n, hw, seed, budget, cap, big):
     H, W = hw
@@ -128,6 +146,8 @@ def test_train_kernels_match_plain_versions(dev, n, hw, seed, budget, cap, big):
         torch.cuda.synchronize()
         assert ((got != 0) <= (want != 0)).all()  # capped lanes' slots stay 0
         _close(got, want)
+        again = rasterize_cuda.backward_slots(*args[:5], vv, *args[5:], layout=layout)
+        assert torch.equal(again, got), layout
     flags = (torch.rand(want.shape[1], device=dev, generator=gen) < 0.1).int()
     _close(fill_cuda.segmented_cumsum(want, flags),
            fill_cuda.segmented_cumsum_torch(want, flags))
@@ -217,8 +237,9 @@ def test_parts_kernels_match_plain_versions(dev, size):
 
 @pytest.mark.parametrize("size", list(_SIZES))
 def test_job_kernels_match_k6_and_plain_versions(dev, size):
-    """P5: C and D within 1e-4 of K6's largest slot (another summation
-    order), A exactly its plain copy, B and E within 1e-4 of theirs."""
+    """P5: C, D, F and G within 1e-4 of K6's largest slot (another
+    summation order; one of F and G is K6's own split), A exactly its
+    plain copy, B and E within 1e-4 of theirs."""
     from gsvc_tpu_torch.scripts import profile_bwd_variants as p5
 
     sc = _bench(dev, size)
@@ -235,8 +256,8 @@ def test_job_kernels_match_k6_and_plain_versions(dev, size):
         if name == "A":
             assert torch.equal(got, plain)
         else:
-            _close(got, k6 if name in "CD" else plain)
-        if name in "CD":
+            _close(got, k6 if name in p5.K6_FUNCTION else plain)
+        if name in p5.K6_FUNCTION:
             assert torch.equal(got != 0, k6 != 0)
 
 

@@ -181,3 +181,41 @@ def test_unported_options_raise():
         _torch_render(scene, "auto", tile_rows=(0, 1))
     with pytest.raises(ValueError):
         _torch_render(scene, "pallas")
+
+
+# -- the kernels' launch geometry (host side: the kernels run on a card) -----
+
+
+@pytest.mark.parametrize("cap", [4, 24, 256])
+def test_shared_bytes_are_the_kernels_staging(cap):
+    # rasterize_fwd.cuh stages Lane [2][cap], three float4 a lane;
+    # rasterize_bwd.cuh the gradient float [3][256], then Lane [cap] of 48 bytes
+    assert rasterize_cuda.forward_smem_bytes(cap) == 2 * 3 * 16 * cap
+    assert rasterize_cuda.backward_smem_bytes(cap) == 4 * 3 * 256 + 48 * cap
+    assert max(rasterize_cuda.forward_smem_bytes(cap),
+               rasterize_cuda.backward_smem_bytes(cap)) <= rasterize_cuda.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("num_tiles,sms,want", [
+    (8160, 132, 1056), (12, 132, 12), (0, 132, 0), (2000, 1, 8)])
+def test_persistent_grid_covers_every_tile_once(num_tiles, sms, want):
+    grid = rasterize_cuda.persistent_grid(num_tiles, sms)
+    assert grid == want
+    # CTA b takes tiles b, b + grid, b + 2 * grid, ...
+    taken = [t for b in range(grid) for t in range(b, num_tiles, grid)]
+    assert sorted(taken) == list(range(num_tiles))
+
+
+def test_check_inputs_refuses_what_the_kernels_cannot_take():
+    means, L, colors, opacity, _ = (torch.from_numpy(a) for a in _scene(60, seed=4))
+    tb = ((W + 15) // 16, (H + 15) // 16, 1)
+    xys, _d, radii, conics, nth = project_gaussians_2d(means, L, H, W, tb)
+    binned = bin_gaussians(xys, radii, nth, tb, 16, 16, 4096)
+    args = ("t", binned, xys, conics, colors, opacity, tb)
+    assert len(rasterize_cuda.check_inputs(*args, 16, 16, 512)) == 4  # 48 KiB: fits
+    with pytest.raises(ValueError, match="16x16 tiles"):
+        rasterize_cuda.check_inputs(*args, 8, 8, 256)
+    with pytest.raises(ValueError, match="shared bytes"):
+        rasterize_cuda.check_inputs(*args, 16, 16, 513)
+    with pytest.raises(ValueError, match="shared bytes"):
+        rasterize_cuda.check_inputs(*args, 16, 16, 0)
