@@ -49,7 +49,8 @@ the first fault:
    against their plain versions (P1's K4 variants within max-abs 1e-4 and
    within 1e-4 of the plain render's largest entry, which must not be 0,
    P5's job-based backward C and D and K6's two pixel splits F and G
-   within 1e-4 of K6's slots, P6's transposes exactly), timed, then the
+   within 1e-4 of K6's slots, F, which is K6's kernel, bitwise equal to
+   K6, P6's transposes exactly), timed, then the
    six harnesses' mains (P3, P2, P4, P1, P6, P5) at 1080p/10k with a few
    repetitions a stage.
 
@@ -328,6 +329,8 @@ def profiling_phase(torch, dev, smi, sc, v_rows, counters) -> list:
             plain = p5.backward_jobs_torch(v, *bargs, jobs)
             err, rel = errors(got, k6 if v in p5.K6_FUNCTION else plain)
             ok = torch.equal(got, plain) if v == "A" else rel <= GRAD_TOL
+            if v == "F" and not torch.equal(got, k6):
+                fail("P5 F, K6's own kernel and split, differs from K6")
             if not (torch.isfinite(got).all() and ok):
                 fail(f"P5 {v}: max-abs {err}, rel {rel} against "
                      + ("K6's slots" if v in p5.K6_FUNCTION else "its plain version"))

@@ -7,9 +7,10 @@
 // tile's 256 pixels: ~9.5 lanes a tile at 1080p/10k, so ~10 busy threads
 // in each 256-thread CTA and a latency-bound serial loop (3.3 % of its
 // bound). P5's thread per pixel (C, D) fills the CTA but pays a 9 x 5
-// shuffle tree on every lane in every warp. Here a lane goes to a group of
-// kSplit threads of one warp (32: a warp a lane; 16: two lanes a warp), and
-// each thread owns 256 / kSplit fixed pixels of the tile:
+// shuffle tree on every lane in every warp. Here a CTA of 4 warps takes a
+// tile, a lane goes to a group of kSplit threads of one warp (32: a warp a
+// lane; 16: two lanes a warp), and each thread owns 256 / kSplit fixed
+// pixels of the tile:
 //  - the tile's image gradient is read once, in the layout the forward
 //    wrote (zero past the image edge, where the forward writes constants),
 //    through shared memory into registers, 3 x 256 / kSplit values a
@@ -18,9 +19,12 @@
 //    (one thread a lane: the splat's 9 fields and its expansion slot), and
 //    read back by each group at one address (a broadcast);
 //  - warp w takes lanes w * 32 / kSplit + (its group), stepping by
-//    8 * 32 / kSplit; each thread sums its pixels in a fixed order into 9
+//    4 * 32 / kSplit; each thread sums its pixels in a fixed order into 9
 //    registers, one fixed __shfl_xor_sync tree reduces the group, and the
-//    group's first thread writes the lane's 9 gradients to its slot.
+//    group's first thread writes the lane's 9 gradients to its slot;
+//  - 4 warps a CTA (not 8) and at most 64 registers a thread: 8 CTAs an
+//    SM, each over ~2.4 lanes a warp at 1080p/10k rather than ~1.2, so a
+//    tile's last warp holds its CTA's slot for less time.
 // Shared bytes: 3 x 256 x 4 + 48 x cap (15 KiB at cap 256;
 // rasterize_cuda.backward_smem_bytes). Deterministic: a fixed order
 // everywhere, no atomics. The per-pair arithmetic is the first port's,
@@ -36,7 +40,8 @@ namespace gsvc_bwd {
 constexpr float kAlphaCutoff = 1.0f / 255.0f;
 constexpr int kTile = 16;                 // 16x16-pixel tiles
 constexpr int kPixels = kTile * kTile;    // 256
-constexpr int kThreads = 256;             // 8 warps
+constexpr int kThreads = 128;             // 4 warps
+constexpr int kMinBlocks = 8;             // CTAs an SM: at most 64 registers a thread
 constexpr int kWarps = kThreads / 32;
 enum Layout { kImage = 0, kChw = 1, kRows = 2 };
 
@@ -67,7 +72,7 @@ struct Args {
 };
 
 template <int kLayout, int kSplit>
-__global__ void __launch_bounds__(kThreads) backward_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks) backward_kernel(Args a) {
   static_assert(kSplit == 16 || kSplit == 32, "a lane takes half a warp or a warp");
   constexpr int kPer = kPixels / kSplit;              // pixels a thread
   constexpr int kGroups = 32 / kSplit;                // lanes a warp at once
@@ -81,8 +86,7 @@ __global__ void __launch_bounds__(kThreads) backward_kernel(Args a) {
   const int start = a.tile_bin_start[tile];
   const int count = min(a.tile_counts[tile], a.cap);
 
-  {
-    const int p = threadIdx.x;
+  for (int p = threadIdx.x; p < kPixels; p += kThreads) {
     const int px = tx * kTile + p % kTile;
     const int py = ty * kTile + p / kTile;
     float v0 = 0.0f, v1 = 0.0f, v2 = 0.0f;

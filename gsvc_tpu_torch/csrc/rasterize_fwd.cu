@@ -2,9 +2,9 @@
 // the tile-row blocks of image_to_rows) and K5 (layout "chw", [3, H, W]):
 // one kernel, rasterize_fwd.cuh's forward_kernel<layout, kFull>, templated
 // on the store. Replaces `_forward_kernel` and `_forward_kernel_chw` of
-// gsvc_tpu/ops/rasterize_pallas.py. The design (vector lane loads, two
-// pixels a thread, a persistent grid that prefetches the next tile's lanes
-// with cp.async) and what bounds it are at the head of rasterize_fwd.cuh;
+// gsvc_tpu/ops/rasterize_pallas.py. The design (vector lane loads, four
+// pixels a thread, CTAs that prefetch their next chunk of lanes with
+// cp.async) and what bounds it are at the head of rasterize_fwd.cuh;
 // the Python side, with the plain PyTorch version, is
 // gsvc_tpu_torch/ops/rasterize_cuda.py.
 #include "rasterize_fwd.cuh"

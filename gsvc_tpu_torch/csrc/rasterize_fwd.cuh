@@ -12,13 +12,22 @@
 //  - a lane is staged as three 16-byte words (x y c1 c2 | c3 opac r g |
 //    b), read back with two 16-byte loads and one 4-byte load, all threads
 //    at one address (a broadcast);
-//  - a thread computes kPix = 2 pixels, (lx, ly) and (lx, ly + 8) of the
-//    16x16 tile, so each lane load serves two pairs (128 threads a CTA);
-//  - the grid is persistent: CTA b takes tiles b, b + G, b + 2G, ... in
-//    that static order (no atomic tile counter), and gathers the next
-//    tile's lanes with cp.async into the second of two shared buffers
-//    while the current tile computes. Shared bytes: 2 x cap x 48
-//    (24 KiB at cap 256; rasterize_cuda.forward_smem_bytes).
+//  - a thread computes kPix = 4 pixels of one column of the 16x16 tile,
+//    rows ly, ly + 4, ly + 8 and ly + 12, so each lane load serves four
+//    pairs and the column's terms of sigma are shared (64 threads a CTA;
+//    4 pixels measured ~5 % faster than 2 on the bench scene);
+//  - CTA b of a grid of G takes tiles b, b + G, b + 2G, ... in that static
+//    order (no atomic tile counter), a tile's lanes in chunks of kChunk =
+//    32, and gathers the next chunk (of this tile or of the next) with
+//    cp.async into the second of two shared buffers while the current one
+//    computes. Shared bytes: 2 x 32 x 48 = 3 KiB whatever the cap
+//    (rasterize_cuda.FWD_SMEM_BYTES), so registers (48 a thread: 21 CTAs
+//    an SM), not shared memory, bound the CTAs an SM holds. G is 32 CTAs
+//    an SM (rasterize_cuda.persistent_grid), more than stay resident: the
+//    block scheduler hands the queued ones to the SMs that finish first,
+//    which balances the tiles' uneven lane counts. On the bench scene a
+//    grid of 8 CTAs an SM, all resident, took 10 % longer; 64 (a tile a
+//    CTA, nothing to prefetch) took as long as 32.
 // Each pixel sums rgb * alpha over the tile's first min(count, cap) lanes
 // in lane order, in f32 registers: deterministic, no atomics. The per-pair
 // arithmetic is the first port's, expression for expression (the alpha
@@ -32,9 +41,10 @@ namespace gsvc_fwd {
 constexpr float kAlphaCutoff = 1.0f / 255.0f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kTile = 16;                        // 16x16-pixel tiles
-constexpr int kPix = 2;                          // pixels a thread
-constexpr int kRowStep = kTile / kPix;           // the thread's rows ly, ly + 8
-constexpr int kThreads = kTile * kTile / kPix;   // 128
+constexpr int kPix = 4;                          // pixels a thread
+constexpr int kRowStep = kTile / kPix;           // its rows ly, ly + 4, ly + 8, ly + 12
+constexpr int kThreads = kTile * kTile / kPix;   // 64
+constexpr int kChunk = 32;                       // lanes staged at a time
 enum Layout { kImage = 0, kChw = 1, kRows = 2 };
 // P1's variants of the inner loop (profile_kernel_parts.cu); K4/K5 run kFull.
 enum Variant { kFull = 0, kNoSigma = 1, kNoExp = 2, kNoAcc = 3, kFastExp = 4, kExp2 = 5 };
@@ -65,12 +75,12 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_
                "r"(src_bytes));
 }
 
-// Stage lanes [start, start + count) of the binning into buf: the TPU
+// Stage lanes [first, first + count) of the binning into buf: the TPU
 // path's _pack_lanes gather, as cp.async copies.
-__device__ __forceinline__ void gather_lanes(const Args& a, Lane* buf, int start,
+__device__ __forceinline__ void gather_lanes(const Args& a, Lane* buf, int first,
                                              int count) {
   for (int k = threadIdx.x; k < count; k += kThreads) {
-    const int g = a.gauss_ids[start + k];
+    const int g = a.gauss_ids[first + k];
     const bool real = g >= 0 && g < a.n;
     const int gs = real ? g : 0;
     float* d = reinterpret_cast<float*>(buf + k);
@@ -87,77 +97,102 @@ __device__ __forceinline__ void gather_lanes(const Args& a, Lane* buf, int start
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// A chunk of a tile's lanes: lanes [k0, min(k0 + kChunk, count)) of the
+// tile's run, which starts at lane `start` and holds `count` (capped).
+struct Chunk {
+  int tile, start, count, k0;
+  __device__ int lanes() const { return min(kChunk, count - k0); }
+  __device__ bool last() const { return k0 + kChunk >= count; }
+};
+
+// The tile's run; a tile past the grid is {tile, 0, 0, 0}.
+__device__ __forceinline__ Chunk first_chunk(const Args& a, int tile) {
+  Chunk c{tile, 0, 0, 0};
+  if (tile < a.num_tiles) {
+    c.start = a.tile_bin_start[tile];
+    c.count = min(a.tile_counts[tile], a.cap);
+  }
+  return c;
+}
+
 template <int kLayout, int kVariant>
 __global__ void __launch_bounds__(kThreads) forward_kernel(Args a) {
-  extern __shared__ float4 smem[];  // Lane [2][cap]
-  __shared__ float s_sum[3];        // kNoAcc: the tile's colour sums
-  Lane* const bufs = reinterpret_cast<Lane*>(smem);
+  __shared__ Lane bufs[2][kChunk];
+  __shared__ float s_sum[3];  // kNoAcc: the tile's colour sums
   const int lx = threadIdx.x % kTile;
   const int ly = threadIdx.x / kTile;
+  const int stride = gridDim.x;
 
-  int tile = blockIdx.x;
-  if (tile >= a.num_tiles) return;
-  int count = min(a.tile_counts[tile], a.cap);
-  gather_lanes(a, bufs, a.tile_bin_start[tile], count);
-  int next = tile + gridDim.x;
-  int next_start = 0, next_count = 0;
-  if (next < a.num_tiles) {
-    next_start = a.tile_bin_start[next];
-    next_count = min(a.tile_counts[next], a.cap);
+  // cur is computed from its staged lanes while nxt's are gathered; the
+  // tile after nxt's tile has its run loaded a chunk ahead (after)
+  Chunk cur = first_chunk(a, blockIdx.x);
+  if (cur.tile >= a.num_tiles) return;
+  gather_lanes(a, bufs[0], cur.start, cur.lanes());
+  Chunk after = first_chunk(a, cur.tile + stride);
+  Chunk nxt = cur;
+  nxt.k0 += kChunk;
+  if (cur.last()) {
+    nxt = after;
+    after = first_chunk(a, nxt.tile + stride);
   }
 
+  float acc[kPix][3];
+  float wsum[kPix];
+  float csum[3] = {0.0f, 0.0f, 0.0f};  // kNoAcc: warp 0's colour sums
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) acc[j][0] = acc[j][1] = acc[j][2] = wsum[j] = 0.0f;
   for (int it = 0;; ++it) {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
-    // this tile's lanes are in place; every thread is done with the other
-    // buffer (the previous tile), so the next tile's gather may fill it
+    // this chunk's lanes are in place; every thread is done with the other
+    // buffer (the previous chunk), so the next chunk's gather may fill it
     __syncthreads();
-    const Lane* cur = bufs + (it & 1) * a.cap;
-    if (next < a.num_tiles) gather_lanes(a, bufs + ((it + 1) & 1) * a.cap, next_start, next_count);
-    const int after = next + gridDim.x;
-    int after_start = 0, after_count = 0;
-    if (after < a.num_tiles) {
-      after_start = a.tile_bin_start[after];
-      after_count = min(a.tile_counts[after], a.cap);
+    const Lane* lanes = bufs[it & 1];
+    if (nxt.tile < a.num_tiles) gather_lanes(a, bufs[(it + 1) & 1], nxt.start + nxt.k0, nxt.lanes());
+    Chunk nxt2 = nxt, after2 = after;  // the chunk after nxt, and the tile after its tile
+    nxt2.k0 += kChunk;
+    if (nxt.last()) {
+      nxt2 = after;
+      after2 = first_chunk(a, nxt2.tile + stride);
     }
+    const int count = cur.lanes();
     if (kVariant == kNoAcc) {
-      // the tile's colour sums, by warp 0 in a fixed order
+      // the tile's colour sums, by warp 0 in a fixed order: thread t adds
+      // lanes t, t + 32, ... of the tile, then one shuffle tree
       if (threadIdx.x < 32) {
-        float r = 0.0f, g = 0.0f, b = 0.0f;
         for (int k = threadIdx.x; k < count; k += 32) {
-          r += cur[k].b.z;
-          g += cur[k].b.w;
-          b += cur[k].c.x;
+          csum[0] += lanes[k].b.z;
+          csum[1] += lanes[k].b.w;
+          csum[2] += lanes[k].c.x;
         }
-        for (int off = 16; off > 0; off >>= 1) {
-          r += __shfl_down_sync(0xffffffffu, r, off);
-          g += __shfl_down_sync(0xffffffffu, g, off);
-          b += __shfl_down_sync(0xffffffffu, b, off);
-        }
-        if (threadIdx.x == 0) {
-          s_sum[0] = r;
-          s_sum[1] = g;
-          s_sum[2] = b;
+        if (cur.last()) {
+          float r = csum[0], g = csum[1], b = csum[2];
+          for (int off = 16; off > 0; off >>= 1) {
+            r += __shfl_down_sync(0xffffffffu, r, off);
+            g += __shfl_down_sync(0xffffffffu, g, off);
+            b += __shfl_down_sync(0xffffffffu, b, off);
+          }
+          if (threadIdx.x == 0) {
+            s_sum[0] = r;
+            s_sum[1] = g;
+            s_sum[2] = b;
+          }
+          csum[0] = csum[1] = csum[2] = 0.0f;
         }
       }
-      __syncthreads();
+      if (cur.last()) __syncthreads();
     }
 
-    const int tx = tile % a.tb_x, ty = tile / a.tb_x;
+    const int tx = cur.tile % a.tb_x, ty = cur.tile / a.tb_x;
     const float ox = static_cast<float>(tx * kTile);
     const float oy = static_cast<float>(ty * kTile);
     const float fx = static_cast<float>(tx * kTile + lx);
     float fy[kPix];
-    float acc[kPix][3];
-    float wsum[kPix];
 #pragma unroll
-    for (int j = 0; j < kPix; ++j) {
-      fy[j] = static_cast<float>(ty * kTile + ly + j * kRowStep);
-      acc[j][0] = acc[j][1] = acc[j][2] = wsum[j] = 0.0f;
-    }
+    for (int j = 0; j < kPix; ++j) fy[j] = static_cast<float>(ty * kTile + ly + j * kRowStep);
     for (int k = 0; k < count; ++k) {
-      const float4 l0 = cur[k].a;  // x y c1 c2
-      const float4 l1 = cur[k].b;  // c3 opac r g
-      const float cb = cur[k].c.x;
+      const float4 l0 = lanes[k].a;  // x y c1 c2
+      const float4 l1 = lanes[k].b;  // c3 opac r g
+      const float cb = lanes[k].c.x;
       float c1 = l0.z, c2 = l0.w, c3 = l1.x;
       if (kVariant == kExp2) {  // conics pre-scaled by log2(e)
         c1 *= kLog2e;
@@ -201,58 +236,58 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(Args a) {
       }
     }
 
+    if (cur.last()) {
 #pragma unroll
-    for (int j = 0; j < kPix; ++j) {
-      if (kVariant == kNoAcc) {
-        acc[j][0] = wsum[j] * s_sum[0] * 1e-6f;
-        acc[j][1] = wsum[j] * s_sum[1] * 1e-6f;
-        acc[j][2] = wsum[j] * s_sum[2] * 1e-6f;
-      }
-      const int row = ly + j * kRowStep;
-      const int px = tx * kTile + lx;
-      const int py = ty * kTile + row;
-      const bool inside = px < a.img_w && py < a.img_h;
-      if (kLayout == kRows) {
-        // row ty*r_out + 3*tx + c, column row*16 + lx; zero past the image
-        // edge, as image_to_rows pads
-        constexpr long long kNpix = kTile * kTile;
-        const long long base =
-            (static_cast<long long>(ty) * a.r_out + 3 * tx) * kNpix + row * kTile + lx;
-        a.out[base] = inside ? acc[j][0] : 0.0f;
-        a.out[base + kNpix] = inside ? acc[j][1] : 0.0f;
-        a.out[base + 2 * kNpix] = inside ? acc[j][2] : 0.0f;
-      } else if (inside) {
-        const long long pix = static_cast<long long>(py) * a.img_w + px;
-        if (kLayout == kChw) {
-          const long long plane = static_cast<long long>(a.img_h) * a.img_w;
-          a.out[pix] = acc[j][0];
-          a.out[plane + pix] = acc[j][1];
-          a.out[2 * plane + pix] = acc[j][2];
-        } else {
-          a.out[3 * pix] = acc[j][0];
-          a.out[3 * pix + 1] = acc[j][1];
-          a.out[3 * pix + 2] = acc[j][2];
+      for (int j = 0; j < kPix; ++j) {
+        if (kVariant == kNoAcc) {
+          acc[j][0] = wsum[j] * s_sum[0] * 1e-6f;
+          acc[j][1] = wsum[j] * s_sum[1] * 1e-6f;
+          acc[j][2] = wsum[j] * s_sum[2] * 1e-6f;
         }
+        const int row = ly + j * kRowStep;
+        const int px = tx * kTile + lx;
+        const int py = ty * kTile + row;
+        const bool inside = px < a.img_w && py < a.img_h;
+        if (kLayout == kRows) {
+          // row ty*r_out + 3*tx + c, column row*16 + lx; zero past the
+          // image edge, as image_to_rows pads
+          constexpr long long kNpix = kTile * kTile;
+          const long long base =
+              (static_cast<long long>(ty) * a.r_out + 3 * tx) * kNpix + row * kTile + lx;
+          a.out[base] = inside ? acc[j][0] : 0.0f;
+          a.out[base + kNpix] = inside ? acc[j][1] : 0.0f;
+          a.out[base + 2 * kNpix] = inside ? acc[j][2] : 0.0f;
+        } else if (inside) {
+          const long long pix = static_cast<long long>(py) * a.img_w + px;
+          if (kLayout == kChw) {
+            const long long plane = static_cast<long long>(a.img_h) * a.img_w;
+            a.out[pix] = acc[j][0];
+            a.out[plane + pix] = acc[j][1];
+            a.out[2 * plane + pix] = acc[j][2];
+          } else {
+            a.out[3 * pix] = acc[j][0];
+            a.out[3 * pix + 1] = acc[j][1];
+            a.out[3 * pix + 2] = acc[j][2];
+          }
+        }
+        acc[j][0] = acc[j][1] = acc[j][2] = wsum[j] = 0.0f;
       }
     }
 
-    if (next >= a.num_tiles) break;
-    tile = next;
-    count = next_count;
-    next = after;
-    next_start = after_start;
-    next_count = after_count;
+    if (nxt.tile >= a.num_tiles) break;
+    cur = nxt;
+    nxt = nxt2;
+    after = after2;
   }
 }
 
-// Launch forward_kernel<kLayout, kVariant> on a persistent grid of `grid`
-// CTAs; returns cudaGetLastError().
+// Launch forward_kernel<kLayout, kVariant> on a grid of `grid` CTAs;
+// returns cudaGetLastError().
 template <int kLayout, int kVariant>
 int launch_forward(const Args& a, int grid, cudaStream_t stream) {
   if (a.num_tiles <= 0) return static_cast<int>(cudaGetLastError());
   if (grid <= 0 || grid > a.num_tiles) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * sizeof(Lane) * static_cast<size_t>(a.cap);
-  forward_kernel<kLayout, kVariant><<<grid, kThreads, smem, stream>>>(a);
+  forward_kernel<kLayout, kVariant><<<grid, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

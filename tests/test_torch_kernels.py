@@ -259,6 +259,8 @@ def test_job_kernels_match_k6_and_plain_versions(dev, size):
             _close(got, k6 if name in p5.K6_FUNCTION else plain)
         if name in p5.K6_FUNCTION:
             assert torch.equal(got != 0, k6 != 0)
+        if name == "F":  # K6's own split: the same kernel
+            assert torch.equal(got, k6)
 
 
 @pytest.mark.parametrize("size", list(_SIZES))

@@ -188,16 +188,22 @@ def test_unported_options_raise():
 
 @pytest.mark.parametrize("cap", [4, 24, 256])
 def test_shared_bytes_are_the_kernels_staging(cap):
-    # rasterize_fwd.cuh stages Lane [2][cap], three float4 a lane;
-    # rasterize_bwd.cuh the gradient float [3][256], then Lane [cap] of 48 bytes
-    assert rasterize_cuda.forward_smem_bytes(cap) == 2 * 3 * 16 * cap
+    # rasterize_fwd.cuh stages Lane [2][kChunk = 32], three float4 a lane,
+    # whatever the cap; rasterize_bwd.cuh the gradient float [3][256], then
+    # Lane [cap] of 48 bytes (two float4, the third colour, the slot)
+    assert rasterize_cuda.FWD_SMEM_BYTES == 2 * 3 * 16 * 32
     assert rasterize_cuda.backward_smem_bytes(cap) == 4 * 3 * 256 + 48 * cap
-    assert max(rasterize_cuda.forward_smem_bytes(cap),
-               rasterize_cuda.backward_smem_bytes(cap)) <= rasterize_cuda.SMEM_LIMIT
+    assert rasterize_cuda.backward_smem_bytes(cap) <= rasterize_cuda.SMEM_LIMIT
+    # an H100 SM holds 21 of the forward's CTAs (64 threads at 48 registers
+    # a thread: 64 Ki registers); the grid asks for more, so that the block
+    # scheduler balances the tiles, and shared memory never limits them
+    resident = 65536 // (64 * 48)
+    assert resident == 21 < rasterize_cuda.FWD_CTAS_PER_SM
+    assert resident * (rasterize_cuda.FWD_SMEM_BYTES + 1024) <= 227 * 1024
 
 
 @pytest.mark.parametrize("num_tiles,sms,want", [
-    (8160, 132, 1056), (12, 132, 12), (0, 132, 0), (2000, 1, 8)])
+    (8160, 132, 4224), (12, 132, 12), (0, 132, 0), (2000, 1, 32)])
 def test_persistent_grid_covers_every_tile_once(num_tiles, sms, want):
     grid = rasterize_cuda.persistent_grid(num_tiles, sms)
     assert grid == want
@@ -212,10 +218,11 @@ def test_check_inputs_refuses_what_the_kernels_cannot_take():
     xys, _d, radii, conics, nth = project_gaussians_2d(means, L, H, W, tb)
     binned = bin_gaussians(xys, radii, nth, tb, 16, 16, 4096)
     args = ("t", binned, xys, conics, colors, opacity, tb)
-    assert len(rasterize_cuda.check_inputs(*args, 16, 16, 512)) == 4  # 48 KiB: fits
+    most = (rasterize_cuda.SMEM_LIMIT - 3072) // 48  # K6's: 960 lanes
+    assert len(rasterize_cuda.check_inputs(*args, 16, 16, most)) == 4
     with pytest.raises(ValueError, match="16x16 tiles"):
         rasterize_cuda.check_inputs(*args, 8, 8, 256)
     with pytest.raises(ValueError, match="shared bytes"):
-        rasterize_cuda.check_inputs(*args, 16, 16, 513)
+        rasterize_cuda.check_inputs(*args, 16, 16, most + 1)
     with pytest.raises(ValueError, match="shared bytes"):
         rasterize_cuda.check_inputs(*args, 16, 16, 0)
