@@ -3,12 +3,12 @@
 // kFull and five variants of the inner loop, the rows store), so that P1's
 // `full` is K4 by construction.
 //
-// Design, for the H100. What bounded the first port (a CTA per tile, a
-// thread per pixel, 9 scalar shared-memory loads a (pixel, lane) pair
-// against ~17 FP32 operations) was the shared-memory load pipe and the
-// per-tile set-up: a dependent chain tile_bin_start -> gauss_ids -> 9
-// scattered splat fields, then a barrier, repeated over 8,160 tiles of
-// ~9.5 lanes at 1080p/10k. Here:
+// Design, for the H100. The work is ~17 FP32 operations and one expf a
+// (pixel, lane) pair, ~2e7 pairs at 1080p/10k, and the kernel is bound by
+// issuing them (its bound by bytes is 29 % of its time). The first port (a
+// CTA per tile, a thread per pixel) issued 39 instructions a pair, 9 of
+// them scalar shared-memory loads, and its 9 KiB of lanes a CTA and
+// tiles of ~9.5 lanes left the SMs short of warps. Here:
 //  - a lane is staged as three 16-byte words (x y c1 c2 | c3 opac r g |
 //    b), read back with two 16-byte loads and one 4-byte load, all threads
 //    at one address (a broadcast);
@@ -20,14 +20,14 @@
 //    order (no atomic tile counter), a tile's lanes in chunks of kChunk =
 //    32, and gathers the next chunk (of this tile or of the next) with
 //    cp.async into the second of two shared buffers while the current one
-//    computes. Shared bytes: 2 x 32 x 48 = 3 KiB whatever the cap
-//    (rasterize_cuda.FWD_SMEM_BYTES), so registers (48 a thread: 21 CTAs
-//    an SM), not shared memory, bound the CTAs an SM holds. G is 32 CTAs
-//    an SM (rasterize_cuda.persistent_grid), more than stay resident: the
-//    block scheduler hands the queued ones to the SMs that finish first,
-//    which balances the tiles' uneven lane counts. On the bench scene a
-//    grid of 8 CTAs an SM, all resident, took 10 % longer; 64 (a tile a
-//    CTA, nothing to prefetch) took as long as 32.
+//    computes. Shared bytes: 2 x 32 x 48 = 3 KiB whatever the cap, so
+//    registers (48 a thread: 21 CTAs an SM), not shared memory, bound the
+//    CTAs an SM holds. G is 32 CTAs an SM (rasterize_cuda.forward_grid),
+//    more than stay resident: the block scheduler hands the queued ones
+//    to the SMs that finish first, which balances the tiles' uneven lane
+//    counts. On the bench scene a grid of 12 CTAs an SM, all resident,
+//    took 7 % longer than 32; 64 (a tile a CTA, nothing to prefetch) took
+//    as long as 32.
 // Each pixel sums rgb * alpha over the tile's first min(count, cap) lanes
 // in lane order, in f32 registers: deterministic, no atomics. The per-pair
 // arithmetic is the first port's, expression for expression (the alpha
@@ -147,7 +147,9 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(Args a) {
     // buffer (the previous chunk), so the next chunk's gather may fill it
     __syncthreads();
     const Lane* lanes = bufs[it & 1];
-    if (nxt.tile < a.num_tiles) gather_lanes(a, bufs[(it + 1) & 1], nxt.start + nxt.k0, nxt.lanes());
+    if (nxt.tile < a.num_tiles) {
+      gather_lanes(a, bufs[(it + 1) & 1], nxt.start + nxt.k0, nxt.lanes());
+    }
     Chunk nxt2 = nxt, after2 = after;  // the chunk after nxt, and the tile after its tile
     nxt2.k0 += kChunk;
     if (nxt.last()) {

@@ -37,8 +37,8 @@ from gsvc_tpu_torch import _build
 from gsvc_tpu_torch.ops.rasterize_binned import zrow
 from gsvc_tpu_torch.ops.rasterize_cuda import (
     check_inputs,
+    forward_grid,
     image_to_rows,
-    persistent_grid,
     round8,
     sm_count,
 )
@@ -86,7 +86,7 @@ def _parts_wrapper(variant: str):
         r_out = round8(3 * tb_x)
         alloc = torch.empty if r_out == 3 * tb_x else torch.zeros
         out = alloc((tb_y * r_out, block_h * block_w), dtype=torch.float32, device=dev)
-        grid = persistent_grid(tb_x * tb_y, sm_count(dev))
+        grid = forward_grid(tb_x * tb_y, sm_count(dev))
         lib = _lib()
         with torch.cuda.device(dev):
             rc = lib.forward_parts(

@@ -188,24 +188,16 @@ def test_unported_options_raise():
 
 @pytest.mark.parametrize("cap", [4, 24, 256])
 def test_shared_bytes_are_the_kernels_staging(cap):
-    # rasterize_fwd.cuh stages Lane [2][kChunk = 32], three float4 a lane,
-    # whatever the cap; rasterize_bwd.cuh the gradient float [3][256], then
-    # Lane [cap] of 48 bytes (two float4, the third colour, the slot)
-    assert rasterize_cuda.FWD_SMEM_BYTES == 2 * 3 * 16 * 32
+    # rasterize_bwd.cuh stages the gradient float [3][256], then Lane [cap]
+    # of 48 bytes (two float4, the third colour, the slot)
     assert rasterize_cuda.backward_smem_bytes(cap) == 4 * 3 * 256 + 48 * cap
     assert rasterize_cuda.backward_smem_bytes(cap) <= rasterize_cuda.SMEM_LIMIT
-    # an H100 SM holds 21 of the forward's CTAs (64 threads at 48 registers
-    # a thread: 64 Ki registers); the grid asks for more, so that the block
-    # scheduler balances the tiles, and shared memory never limits them
-    resident = 65536 // (64 * 48)
-    assert resident == 21 < rasterize_cuda.FWD_CTAS_PER_SM
-    assert resident * (rasterize_cuda.FWD_SMEM_BYTES + 1024) <= 227 * 1024
 
 
 @pytest.mark.parametrize("num_tiles,sms,want", [
     (8160, 132, 4224), (12, 132, 12), (0, 132, 0), (2000, 1, 32)])
-def test_persistent_grid_covers_every_tile_once(num_tiles, sms, want):
-    grid = rasterize_cuda.persistent_grid(num_tiles, sms)
+def test_forward_grid_covers_every_tile_once(num_tiles, sms, want):
+    grid = rasterize_cuda.forward_grid(num_tiles, sms)
     assert grid == want
     # CTA b takes tiles b, b + grid, b + 2 * grid, ...
     taken = [t for b in range(grid) for t in range(b, num_tiles, grid)]
