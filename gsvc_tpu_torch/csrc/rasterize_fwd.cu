@@ -2,11 +2,12 @@
 // the tile-row blocks of image_to_rows) and K5 (layout "chw", [3, H, W]):
 // one kernel, rasterize_fwd.cuh's forward_kernel<layout, kFull>, templated
 // on the store. Replaces `_forward_kernel` and `_forward_kernel_chw` of
-// gsvc_tpu/ops/rasterize_pallas.py. The design (vector lane loads, four
-// pixels a thread, CTAs that prefetch their next chunk of lanes with
-// cp.async) and what bounds it are at the head of rasterize_fwd.cuh;
-// the Python side, with the plain PyTorch version, is
-// gsvc_tpu_torch/ops/rasterize_cuda.py.
+// gsvc_tpu/ops/rasterize_pallas.py. What bounds it on the H100: issuing
+// the per-pair arithmetic, ~25 instructions a (pixel, lane) pair (its bound
+// by bytes is under a third of its time). The design (vector lane loads,
+// four pixels a thread, CTAs that prefetch their next chunk of lanes with
+// cp.async) is at the head of rasterize_fwd.cuh; the Python side, with the
+// plain PyTorch version, is gsvc_tpu_torch/ops/rasterize_cuda.py.
 #include "rasterize_fwd.cuh"
 
 GSVC_EXPORT int rasterize_forward(const void* tile_bin_start,
