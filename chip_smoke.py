@@ -9,9 +9,10 @@ the first fault:
 
 0. device: a CUDA card, its name and power limit from nvidia-smi;
 1. build: the kernels of gsvc_tpu_torch/csrc, one nvcc per source, in
-   parallel; ptxas's register and shared-memory use, and the inner-loop
-   instruction mix of K4/K5 and K6 a (pixel, lane) pair from the built
-   libraries' SASS (`utils.sass`; "not measured" without cuobjdump);
+   parallel; ptxas's register and shared-memory use of every kernel, K3's
+   cluster size, and the inner-loop instruction mix of K4/K5 and K6 a
+   (pixel, lane) pair from the built libraries' SASS (`utils.sass`; "not
+   measured" without cuobjdump);
 2. kernels: K1 (fill_decode_keys), K2 (rank_cap_decode), K4 (forward,
    [H,W,3] and the tile-row "rows" store), K5 (forward, [3,H,W]), K6
    (backward into the expansion slots) and K3 (segmented cumsum) on the
@@ -20,7 +21,9 @@ the first fault:
    max-abs 1e-4, the rows store exactly image_to_rows of the image store,
    K6 / K3 and the autograd function's per-splat gradients (against
    autograd through the plain renderer) within 1e-4 of the largest entry;
-   two launches of K5, K4 rows and K6 (rows) bitwise equal;
+   K3 also at the full budget with sparse flags, whose segments run over
+   several CTAs' spans; two launches of K5, K4 rows, K6 (rows) and K3 (both
+   cases) bitwise equal;
 3. serving slice: a K-frame stream of the scene written with `pack_frame`,
    then decoded by `python -m gsvc_tpu_torch.decode` (its `main`) and
    rendered once more as the planar eval render (`render_frame`, layout
@@ -85,10 +88,6 @@ H, W, N = 1080, 1920, 10000
 RENDER_TOL = 1e-4
 GRAD_TOL = 1e-4  # max-abs error over the largest entry of the plain result
 TRAIN_ITERS = 300
-# phase 6: the represent fits run to the splat-control threshold (4000 with
-# --is_rm), where K- and P-frames reach the same splat count, which the
-# compress stage's delta model needs
-ENC_ITERS, KDETECT_ITERS, QAT_ITERS = 4000, 100, 300
 PROFILE_ITERS = 10  # phase 7: timed repetitions of each harness stage
 LIBS = ("fill", "segsum", "rasterize_fwd", "rasterize_bwd", "profile_kernel_parts",
         "profile_bwd_variants", "probe_transpose")
@@ -105,50 +104,11 @@ def errors(got, want):
     return err, err / max(float(want.abs().max()), 1e-30)
 
 
-def rgb_to_i420(np, rgb):
-    """uint8 [H, W, 3] -> one I420 frame: the exact inverse of the port's
-    BT.601 `io.yuv.yuv420_to_rgb` matrix, chroma averaged over 2x2."""
-    m = np.array([[1.164, 0.0, 1.596], [1.164, -0.392, -0.813], [1.164, 2.017, 0.0]])
-    ycc = rgb.astype(np.float64) @ np.linalg.inv(m).T + np.array([16.0, 128.0, 128.0])
-    h, w = rgb.shape[:2]
-    chroma = ycc[..., 1:].reshape(h // 2, 2, w // 2, 2, 2).mean(axis=(1, 3))
-    planes = (ycc[..., 0], chroma[..., 0], chroma[..., 1])
-    return b"".join(np.clip(np.round(p), 0, 255).astype(np.uint8).tobytes()
-                    for p in planes)
-
-
-def train_lines(path):
-    """{frame: {field: value}} of a driver's train.txt Frame_N lines."""
-    import re
-
-    out = {}
-    for ln in Path(path).read_text().splitlines():
-        m = re.match(r"Frame_(\d+): \d+x\d+, (.*)$", ln)
-        if m:
-            out[int(m.group(1))] = {
-                k: float(v) for k, v in re.findall(r"([\w-]+):(-?[\d.]+)s?", m.group(2))}
-    return out
-
-
-def render_scene(torch, means, L, colors, opacity, tb):
-    """[H, W, 3] render of a scene through K1, K2 and K4, clipped to [0, 1]."""
-    from gsvc_tpu_torch.ops import rasterize_cuda
-    from gsvc_tpu_torch.ops.binning import bin_gaussians
-    from gsvc_tpu_torch.ops.projection import project_gaussians_2d
-
-    with torch.no_grad():
-        xys, _d, radii, conics, nth = project_gaussians_2d(means, L, H, W, tb)
-        budget = (int(nth.sum()) * 21 // 20 // 8192 + 1) * 8192
-        binned = bin_gaussians(xys, radii, nth, tb, 16, 16, budget, kernels=True)
-        img = rasterize_cuda.forward_image(binned, xys, conics, colors, opacity,
-                                           H, W, tb, 16, 16, 256)
-        return torch.clamp(img, 0.0, 1.0)
-
-
-def encoder_phase(np, torch, dev, smi, counters, clip, tmp: Path) -> dict:
+def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
     """Phase 6: the 4-frame clip through `drivers.represent`,
-    `drivers.compress` and `decode` (each CLI's `main`), checked; returns
-    the launch counts summed over the three CLIs."""
+    `drivers.compress` and `decode` (each CLI's `main`, with the arguments
+    of `scripts.encoder_drift.Run`), checked; returns the launch counts
+    summed over the three CLIs."""
     import contextlib
     import io
 
@@ -158,34 +118,28 @@ def encoder_phase(np, torch, dev, smi, counters, clip, tmp: Path) -> dict:
     from gsvc_tpu_torch.drivers import represent as represent_cli
     from gsvc_tpu_torch.io import process_yuv_video
     from gsvc_tpu_torch.models.represent import render_frame
+    from gsvc_tpu_torch.scripts.encoder_drift import (
+        ENC_ITERS,
+        QAT_ITERS,
+        Run,
+        train_lines,
+        write_yuv,
+    )
 
     yuv = tmp / "clip.yuv"
-    yuv.write_bytes(b"".join(
-        rgb_to_i420(np, (img.cpu().numpy() * 255.0).round().astype(np.uint8))
-        for img in clip))
+    write_yuv(clip, yuv)
     n_frames = len(clip)
-    ck, cq = tmp / "ck", tmp / "cq"
-    common = ["-d", str(yuv), "--data_name", "smoke", "--width", str(W), "--height",
-              str(H), "--image_length", str(n_frames), "--num_points", str(N)]
-    rep_argv = common + ["--iterations", str(ENC_ITERS), "--kdetect_iterations",
-                         str(KDETECT_ITERS), "--is_rm", "--is_ad",
-                         "--checkpoint_dir", str(ck)]
-    run = f"GaussianVideo_{ENC_ITERS}_{N}"
-    npz = ck / "models" / "smoke" / run / "gmodels_state_dict.npz"
-    kfile = ck / "result" / "smoke" / "K_frames.txt"
-    bs = cq / "models" / "smoke" / f"GaussianVideo_{QAT_ITERS}_{N}" / "bitstream"
+    run = Run(yuv, tmp, H, W, N, n_frames)
     clis = [
-        ("represent", represent_cli.main, rep_argv,
+        ("represent", represent_cli.main, run.represent,
          ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
           "segmented_cumsum", "forward_chw")),
-        ("compress", compress_cli.main, common + [
-            "--iterations", str(QAT_ITERS), "--model_path", str(npz),
-            "--k_frames_dir", str(ck), "--checkpoint_dir", str(cq)],
+        ("compress", compress_cli.main, run.compress,
          ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
           "segmented_cumsum", "forward_chw")),
         ("decode", decode_cli.main, [
-            "--bitstream", str(bs), "--height", str(H), "--width", str(W),
-            "--model_path", str(npz), "--k_frames", str(kfile), "-d", str(yuv),
+            "--bitstream", str(run.bitstream), "--height", str(H), "--width", str(W),
+            "--model_path", str(run.npz), "--k_frames", str(run.k_frames), "-d", str(yuv),
             "--no_png", "--out", str(tmp / "decoded")],
          ("fill_decode_keys", "rank_cap_decode", "forward_image")),
     ]
@@ -212,17 +166,15 @@ def encoder_phase(np, torch, dev, smi, counters, clip, tmp: Path) -> dict:
             total[k] += v
         print(f"phase 6 {name}: {secs:.2f} s; launches {launches}")
 
-    k_frames = [int(x) for x in kfile.read_text().split()]
+    k_frames = [int(x) for x in run.k_frames.read_text().split()]
     if k_frames[0] != 1 or len(k_frames) >= n_frames:
         fail(f"K_frames.txt {k_frames}: want frame 1 first and a P-frame")
     for f in range(1, n_frames + 1):
         want = "K" if f in k_frames else "P"
-        got = frame_type((bs / f"frame_{f}.gsvc").read_bytes())
+        got = frame_type((run.bitstream / f"frame_{f}.gsvc").read_bytes())
         if got != want:
             fail(f"frame {f}: bitstream trailer {got}, K_frames.txt says {want}")
-    rep = train_lines(ck / "result" / "smoke" / run / "train.txt")
-    enc = train_lines(cq / "result" / "smoke" / f"GaussianVideo_{QAT_ITERS}_{N}"
-                      / "train.txt")
+    rep, enc = train_lines(run.rep_log), train_lines(run.qat_log)
     dec = train_lines(tmp / "decoded" / "decode.txt")
     if not (sorted(rep) == sorted(enc) == sorted(dec) == list(range(1, n_frames + 1))):
         fail(f"frames logged: represent {sorted(rep)}, compress {sorted(enc)}, "
@@ -230,12 +182,11 @@ def encoder_phase(np, torch, dev, smi, counters, clip, tmp: Path) -> dict:
 
     # each frame's fit must beat the render it started from: the trainer the
     # driver built (same seed; a P-frame warm-starts from the checkpoint)
-    args = represent_cli.parse_args(rep_argv)
+    args = represent_cli.parse_args(run.represent)
     frames = process_yuv_video(str(yuv), W, H)
-    gmodels = compress_cli.load_gmodels(str(npz))
+    gmodels = compress_cli.load_gmodels(str(run.npz))
     counts = {int(a.split("_")[1]): int(b) for a, b in (
-        ln.split(":") for ln in (ck / "result" / "smoke" / run /
-                                 "num_gaussian_points.txt").read_text().splitlines())}
+        ln.split(":") for ln in run.counts.read_text().splitlines())}
     init_psnr = {}
     for f in range(1, n_frames + 1):
         is_k = f in k_frames
@@ -403,11 +354,12 @@ def profile_steps(np, torch, dev, smi) -> None:
     )
     from gsvc_tpu_torch.ops.binning import default_max_intersects
     from gsvc_tpu_torch.scripts.common import bench_scene
+    from gsvc_tpu_torch.scripts.encoder_drift import render_scene
     from gsvc_tpu_torch.utils.profiling import device_events, launches, profile_device
 
     tb = ((W + 15) // 16, (H + 15) // 16, 1)
     means, L, colors, opacity = bench_scene(N, dev)
-    gt = render_scene(torch, means, L, colors, opacity, tb)
+    gt = render_scene(means, L, colors, opacity, H, W, tb)
     rcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=10**6,
                        isremoval=True)
     qcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=1,
@@ -499,7 +451,7 @@ def main() -> int:
     from gsvc_tpu_torch.ops.binning import bin_gaussians, key_inputs
     from gsvc_tpu_torch.ops.projection import project_gaussians_2d
     from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum
-    from gsvc_tpu_torch.scripts.common import bench_scene, scene
+    from gsvc_tpu_torch.scripts.common import scene
     from gsvc_tpu_torch.utils import sass, work
     from gsvc_tpu_torch.utils.profiling import device_loop_time, event_ms
 
@@ -507,9 +459,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all(LIBS)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for lib in LIBS
-             for ln in _build.build_log(lib).splitlines() if "Used" in ln]
-    print(f"phase 1 build: {build_s:.2f} s; " + " | ".join(ptxas))
+    print(f"phase 1 build: {build_s:.2f} s")
+    for lib in LIBS:
+        for kernel, used in _build.resources(_build.build_log(lib)):
+            print(f"phase 1 ptxas {lib} {sass.pretty(kernel)}: {used}")
+    print(f"phase 1 K3 cluster: {fill_cuda.SEG_CLUSTER} CTAs a row")
     for lib in ("rasterize_fwd", "rasterize_bwd"):
         mixes = sass.library_mix(_build.library_path(lib))
         if mixes is None:
@@ -527,8 +481,8 @@ def main() -> int:
     xys, radii, conics, nth, budget = sc.xys, sc.radii, sc.conics, sc.nth, sc.budget
     n_isect = int(nth.sum())
     ki = key_inputs(xys, radii, nth, tb, 16, 16, budget)
-    keys = fill_cuda.fill_decode_keys(*ki)
-    keys_plain = fill_cuda.fill_decode_keys_torch(*ki)
+    keys = fill_cuda.fill_decode_keys(*ki.k1)
+    keys_plain = fill_cuda.fill_decode_keys_torch(*ki.k1)
     errs = {"K1": float((keys - keys_plain).abs().max())}
     if not torch.equal(keys, keys_plain):
         fail(f"K1 keys differ at {int((keys != keys_plain).sum())} slots")
@@ -587,11 +541,31 @@ def main() -> int:
         if not torch.equal(launch(), launch()):
             fail(f"{name}: two launches on the same inputs differ")
     flags = rasterize_cuda.segment_flags(binned.gauss_slot_start, budget)
+    slots_ref = slots_ref.contiguous()  # a slice of [9, S + 1]: K3 would copy it each call
     seg = fill_cuda.segmented_cumsum(slots_ref, flags)
     seg_ref = fill_cuda.segmented_cumsum_torch(slots_ref, flags)
     errs["K3"], k3_rel = errors(seg, seg_ref)
     if not (torch.isfinite(seg).all() and k3_rel <= GRAD_TOL):
         fail(f"K3: max-abs {errs['K3']}, rel {k3_rel} > {GRAD_TOL}")
+    # K3 at the full budget with sparse flags: segments of thousands of
+    # lanes, carried across several CTAs of the cluster
+    sp_vals = torch.randn((9, budget), device=dev, generator=gen)
+    sp_flags = (torch.rand(budget, device=dev, generator=gen) < 5e-5).to(torch.int32)
+    sp_flags[0] = 0
+    edges = torch.cat([torch.nonzero(sp_flags)[:, 0].cpu(), torch.tensor([budget])])
+    steps = -(-budget // 128)  # K3's 128-lane steps, split among a cluster's CTAs
+    span = -(-steps // fill_cuda.SEG_CLUSTER) * 128
+    longest = int(torch.diff(edges, prepend=torch.tensor([0])).max())
+    if longest <= 2 * span:
+        fail(f"K3 sparse case: the longest segment, {longest} lanes, spans < 3 CTAs")
+    sp_seg = fill_cuda.segmented_cumsum(sp_vals, sp_flags)
+    k3_sparse = errors(sp_seg, fill_cuda.segmented_cumsum_torch(sp_vals, sp_flags))
+    if not (torch.isfinite(sp_seg).all() and k3_sparse[1] <= GRAD_TOL):
+        fail(f"K3 sparse: max-abs {k3_sparse[0]}, rel {k3_sparse[1]} > {GRAD_TOL}")
+    for name, launch in (("K3", lambda: fill_cuda.segmented_cumsum(slots_ref, flags)),
+                         ("K3 sparse", lambda: fill_cuda.segmented_cumsum(sp_vals, sp_flags))):
+        if not torch.equal(launch(), launch()):
+            fail(f"{name}: two launches on the same inputs differ")
 
     # per-splat gradients of the autograd function against autograd through
     # the plain renderer, on one loss
@@ -615,11 +589,13 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     print("phase 2 kernels: K6 (max-abs, rel) " + ", ".join(
         f"{k} ({a:.3g}, {r:.3g})" for k, (a, r) in k6.items())
-        + f"; K3 ({errs['K3']:.3g}, {k3_rel:.3g}); per-splat grads of the "
+        + f"; K3 ({errs['K3']:.3g}, {k3_rel:.3g}), K3 sparse ({k3_sparse[0]:.3g}, "
+        f"{k3_sparse[1]:.3g}; {int(sp_flags.sum())} flags, longest segment {longest} "
+        f"lanes, a CTA's span {span}); per-splat grads of the "
         "autograd function vs plain autograd " + ", ".join(
             f"{k} ({a:.3g}, {r:.3g})" for k, (a, r) in grad_errs.items())
-        + f" (tol rel {GRAD_TOL}); two launches of K5, K4 rows and K6 rows bitwise "
-        f"equal; peak {peak_gb:.1f} GiB")
+        + f" (tol rel {GRAD_TOL}); two launches of K5, K4 rows, K6 rows and K3 (both "
+        f"cases) bitwise equal; keys {str(keys.dtype)[6:]}; peak {peak_gb:.1f} GiB")
 
     # -- phase 3: the slice, through the decoder CLI --------------------
     from gsvc_tpu_torch import decode as decode_cli
@@ -764,8 +740,8 @@ def main() -> int:
     timed = [
         ("K1 fill_decode_keys", "gsvc_tpu_torch/csrc/fill.cu",
          "gsvc_tpu/ops/fill_pallas.py:57", "fill_decode_keys", errs["K1"],
-         lambda: fill_cuda.fill_decode_keys(*ki),
-         lambda: fill_cuda.fill_decode_keys_torch(*ki)),
+         lambda: fill_cuda.fill_decode_keys(*ki.k1),
+         lambda: fill_cuda.fill_decode_keys_torch(*ki.k1)),
         ("K2 rank_cap_decode", "gsvc_tpu_torch/csrc/fill.cu",
          "gsvc_tpu/ops/fill_pallas.py:242", "rank_cap_decode", errs["K2"],
          lambda: fill_cuda.rank_cap_decode(skeys, 256, N, ki.num_tiles),
@@ -835,14 +811,11 @@ def main() -> int:
 
     # -- phase 6: the encoder, YUV -> .gsvc -> decoded frames --------------
     torch.set_grad_enabled(True)
-    clip = [gt]  # frames 1-2: the bench scene, then moved by (3, 2) pixels
-    shift = torch.tensor([3 * 2.0 / W, 2 * 2.0 / H], device=dev)
-    clip.append(render_scene(torch, means + shift, L, colors, opacity, tb))
-    means_b, L_b, colors_b, opacity_b = bench_scene(N, dev, seed=1)
-    clip.append(render_scene(torch, means_b, L_b, colors_b, opacity_b, tb))  # a cut
-    clip.append(render_scene(torch, means_b + shift, L_b, colors_b, opacity_b, tb))
+    from gsvc_tpu_torch.scripts.encoder_drift import encoder_clip
+
+    clip = encoder_clip(sc)  # the bench scene (gt), moved; a cut, moved
     with tempfile.TemporaryDirectory() as tmp:
-        enc_launches = encoder_phase(np, torch, dev, smi, counters, clip, Path(tmp))
+        enc_launches = encoder_phase(torch, smi, counters, clip, Path(tmp))
     for k in kernels:
         k["launches"] = enc_launches[k["launches"]]
 

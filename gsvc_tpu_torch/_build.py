@@ -19,6 +19,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -95,6 +96,8 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_compile(name)))
             lib.gsvc_error_string.restype = ctypes.c_char_p
             lib.gsvc_error_string.argtypes = [ctypes.c_int]
+            lib.gsvc_empty_launch.restype = ctypes.c_int
+            lib.gsvc_empty_launch.argtypes = [ctypes.c_void_p]
             _libs[name] = lib
         return lib
 
@@ -112,6 +115,31 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas register and shared-memory use) of a build."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def resources(log: str) -> list:
+    """[(kernel, ptxas's "Used ..." line)] of a build log, in its order."""
+    out, kernel = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            kernel = m.group(1)
+        elif "Used" in ln and kernel is not None:
+            out.append((kernel, ln.split("Used", 1)[1].strip()))
+            kernel = None
+    return out
+
+
+def empty_launch(device) -> None:
+    """Launch one empty kernel (csrc/common.cuh) on the device's current
+    stream: the floor under every kernel's time. On the CPU there is no
+    kernel, and nothing is done."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return
+    lib = load("fill")
+    check(lib, lib.gsvc_empty_launch(stream_ptr(device)), "gsvc_empty_launch")
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -14,3 +14,12 @@
 GSVC_EXPORT const char* gsvc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// A kernel that does nothing: one launch of it is the floor under any
+// kernel's time, timed by the same harness as the kernels.
+__global__ void gsvc_empty_kernel() {}
+
+GSVC_EXPORT int gsvc_empty_launch(void* stream) {
+  gsvc_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}

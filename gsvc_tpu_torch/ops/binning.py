@@ -1,8 +1,9 @@
 """Tile binning: per-tile splat lists (CSR) sorted by (tile, gaussian).
 
 PyTorch port of gsvc_tpu/ops/binning.py. Each gaussian/tile intersection
-becomes one int64 key (tile << 16 | gauss) written by K1
-(ops/fill_cuda.fill_decode_keys); one `torch.sort` orders them; K2
+becomes one key (tile << 16 | gauss) written by K1
+(ops/fill_cuda.fill_decode_keys), int32 on grids of up to 32,767 tiles
+and int64 above; one `torch.sort` orders them; K2
 (`rank_cap_decode`) splits the sorted keys into tile and gaussian ids and
 applies the per-tile cap (forward.cu:613). No host sync: the intersection
 budget `max_intersects` is static and the kept total stays on the device.
@@ -36,7 +37,9 @@ class BinnedSplats(NamedTuple):
     tile_counts: [T] int32 intersections of each tile (before the cap).
     num_intersects: [] int32 kept intersections.
     overflow: [] int32 intersections dropped by the budget.
-    sorted_keys: [I] int64 sorted (tile << 16 | gauss) keys, before the cap.
+    sorted_keys: [I] sorted (tile << 16 | gauss) keys, before the cap:
+      int32 on grids of up to 32,767 tiles, int64 above
+      (`fill_cuda.key_dtype`).
     gauss_slot_start: [N+1] int32 exclusive prefix of kept per-gaussian
       counts (gaussian g owns slots [start[g], start[g+1]) in gauss order).
     bbox_pack: [N] int32 (bbox_w << 16 | tmin_y << 8 | tmin_x).
@@ -62,7 +65,8 @@ def _kept(nth: torch.Tensor, max_intersects: int):
 
 
 class KeyInputs(NamedTuple):
-    """The arguments of K1 (`fill_cuda.fill_decode_keys`), in order."""
+    """Per-gaussian start slots, tile counts and bboxes; `k1` holds the
+    arguments of K1 (`fill_cuda.fill_decode_keys`), in order."""
 
     starts: torch.Tensor  # [N] int32 exclusive start slot per gaussian
     nth: torch.Tensor  # [N] int32 tiles hit
@@ -75,6 +79,11 @@ class KeyInputs(NamedTuple):
     tb_x: int
     num_tiles: int
 
+    @property
+    def k1(self) -> tuple:
+        return (self.starts, self.tmin_x, self.tmin_y, self.bbox_w, self.total_kept,
+                self.num_slots, self.tb_x, self.num_tiles)
+
 
 def key_inputs(
     xys: torch.Tensor,
@@ -86,7 +95,16 @@ def key_inputs(
     max_intersects: int,
 ) -> KeyInputs:
     """Per-gaussian tile bboxes and budget slots for K1, with the packing
-    limits of gsvc_tpu's binning."""
+    limits of gsvc_tpu's binning.
+
+    starts is the exclusive prefix of the tile counts, so a splat that hits
+    no tile shares its successor's start, and the budget drops whole splats
+    from the tail, each starting at or after total_kept: the owner of a slot
+    below total_kept is the last splat whose start is at or below it, all
+    that K1 needs. The keys K1 makes are int32 where num_tiles = tb_x * tb_y
+    is at most 32,767 (every grid up to 3840x2160 at 16-pixel tiles) and
+    int64 above: the key type follows from num_tiles alone
+    (`fill_cuda.key_dtype`)."""
     n = xys.shape[0]
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
     if tb_x > 255 or tb_y > 255:
@@ -148,9 +166,9 @@ def bin_gaussians(
         xys, radii, num_tiles_hit, tile_bounds, block_w, block_h, max_intersects
     )
     if kernels:
-        keys = fill_cuda.fill_decode_keys(*ki)
+        keys = fill_cuda.fill_decode_keys(*ki.k1)
     else:
-        keys = fill_cuda.fill_decode_keys_torch(*ki)
+        keys = fill_cuda.fill_decode_keys_torch(*ki.k1)
     skeys = torch.sort(keys).values
     if kernels:
         tile_ids, gauss_ids = fill_cuda.rank_cap_decode(skeys, cap, n, ki.num_tiles)

@@ -1,6 +1,6 @@
 """What the profiling harnesses share: the bench scene and its binning,
-the slots' library reduction, the flags, the card check, the full-sum
-fold and the two timings.
+K1's hard synthetic inputs (for the tests), the slots' library reduction,
+the flags, the card check, the full-sum fold and the two timings.
 
 Every stage is reported twice: "events" ms, from CUDA events (around a
 chained loop: what the program pays, host enqueue included where the host
@@ -18,7 +18,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from gsvc_tpu_torch.ops.binning import BinnedSplats, bin_gaussians
+from gsvc_tpu_torch.ops.binning import BinnedSplats, KeyInputs, _kept, bin_gaussians
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
 from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
 from gsvc_tpu_torch.utils.profiling import (
@@ -85,6 +85,29 @@ def scene(n: int, H: int, W: int, device) -> Scene:
         binned = bin_gaussians(xys, radii, nth, tb, 16, 16, budget)
     return Scene(H, W, n, tb, means, L, colors, opacity, xys, depths, radii,
                  conics, nth, budget, binned)
+
+
+def synthetic_key_inputs(n: int, tb, budget: int, seed: int, device="cpu") -> KeyInputs:
+    """K1's inputs as `binning.key_inputs` makes them, drawn to reach every
+    case: runs of splats that hit no tile (more than K1 stages at once),
+    splats of thousands of tiles, and a budget that drops the tail. Needs
+    a grid of at least 64 x 50 tiles."""
+    rng = np.random.default_rng(seed)
+    bw = rng.integers(1, 9, n)
+    rows = rng.integers(1, 6, n)
+    big = rng.random(n) < 0.01
+    bw[big], rows[big] = 64, 50
+    nth = np.where(rng.random(n) < 0.5, 0, bw * rows)
+    nth[n // 5: n // 5 + min(n // 2, 2500)] = 0
+    tmin_x = rng.integers(0, tb[0] - 64, n)
+    tmin_y = rng.integers(0, tb[1] - 50, n)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    cum, kept, kept_nth = _kept(t(nth), budget)
+    return KeyInputs(cum - t(nth), t(nth), kept, t(tmin_x), t(tmin_y), t(bw),
+                     kept_nth.sum(dtype=torch.int32), budget, tb[0], tb[0] * tb[1])
 
 
 def render(sc: Scene, means, L, colors, layout: str = "image") -> torch.Tensor:

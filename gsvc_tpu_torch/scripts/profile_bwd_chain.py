@@ -15,6 +15,8 @@ gradient):
 
   vrows     `image_to_rows` of the image gradient
   bwdkern   K6 alone on the rows gradient
+  K3        K3 by itself on [16, S] values with a segment every 8 lanes
+            (the TPU harness's input), and on K6's [9, S] slots
   segsum    the port's reduction of K6's slots to splats (segment flags,
             K3, gather), with `index_add_` beside it as the counterpart of
             the TPU harness's jax.ops.segment_sum (:186-191)
@@ -32,7 +34,7 @@ import sys
 import torch
 
 from gsvc_tpu_torch.models.represent import _clip01
-from gsvc_tpu_torch.ops import rasterize_cuda
+from gsvc_tpu_torch.ops import fill_cuda, rasterize_cuda
 from gsvc_tpu_torch.optim.adan import adan_init, adan_step
 from gsvc_tpu_torch.scripts import common
 
@@ -110,10 +112,18 @@ def main(argv=None) -> int:
 
         vslots0 = k6(vrows0)
         owners = common.slot_owners(b.gauss_slot_start, sc.budget)
+        flags = rasterize_cuda.segment_flags(b.gauss_slot_start, sc.budget)
+        vals16 = torch.randn((16, sc.budget), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(0))
+        flags8 = (torch.arange(sc.budget, device=dev) % 8 == 0).to(torch.int32)
         isolated = {
             "vrows": (lambda g: common.fold(g, rasterize_cuda.image_to_rows(g, tb[0], tb[1])),
                       g_img, ""),
             "bwdkern": (lambda vr: common.fold(vr, k6(vr)), vrows0, "K6 alone"),
+            "K3 [16,S]": (lambda v: common.fold(v, fill_cuda.segmented_cumsum(v, flags8)),
+                          vals16, "K3 alone, a segment every 8 lanes"),
+            "K3 slots": (lambda vs: common.fold(vs, fill_cuda.segmented_cumsum(vs, flags)),
+                         vslots0, "K3 alone on K6's [9,S] slots"),
             "segsum": (lambda vs: common.fold(vs, rasterize_cuda.reduce_slot_grads(
                 vs, b.gauss_slot_start)), vslots0, "flags + K3 + gather"),
             "segsum index_add_": (lambda vs: common.fold(vs, common.segsum_index_add(

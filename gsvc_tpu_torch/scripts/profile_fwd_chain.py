@@ -6,7 +6,7 @@ kernel (pallas_call :136) inside cumulative prefixes of the forward
 (so no output goes unread) and is timed chained through the means:
 
   proj     projection
-  +bin     + binning (K1, the int64 sort, K2, the tile starts)
+  +bin     + binning (K1, the sort of its int32 keys, K2, the tile starts)
   +kernel  + K4, rows store
   +image   projection, binning and the full API render in the eval
            path's planar layout (K5) with the background select

@@ -17,6 +17,15 @@ the operations these inputs need: (pixel, lane) pairs are 256 x sum over
 tiles of min(count, 256), of which those past the alpha gate do the
 gated part of the work. `+pack` of the TPU harness has no counterpart:
 `_pack_lanes` is folded into K4's load (ops/rasterize_cuda.py:12-13).
+
+Beside the ops: the sort of the port's keys (int32 below 32,768 tiles)
+and of the same keys as int64; an empty kernel, the floor under every
+kernel's time; K3 by itself, on K6's slots, over rows and lanes, and as
+the whole reduction (segment flags, K3, gather) beside `index_add_`; and
+the device kernels each of K1, K2 and K3 launches, with their busy ms a
+call (`--split-only` prints only these; run as a file with another tree's
+package first on PYTHONPATH, it splits that tree's kernels, where its
+wrappers take the same arguments).
 """
 
 from __future__ import annotations
@@ -25,12 +34,13 @@ import sys
 
 import torch
 
+from gsvc_tpu_torch import _build
 from gsvc_tpu_torch.ops import fill_cuda, rasterize_cuda
 from gsvc_tpu_torch.ops.binning import bin_gaussians, key_inputs
 from gsvc_tpu_torch.ops.projection import _tile_bbox, project_gaussians_2d
 from gsvc_tpu_torch.scripts import common
 from gsvc_tpu_torch.utils import work
-from gsvc_tpu_torch.utils.profiling import roofline_ms
+from gsvc_tpu_torch.utils.profiling import device_events, profile_device, roofline_ms
 
 # Launches of each kernel in one step of the main paths (from the code):
 # the eval render (`render_frame`, layout chw) and the represent step
@@ -46,12 +56,48 @@ LAUNCHES_PER_STEP = {
 }
 
 
+def kernel_split(sc, dev, reps: int) -> None:
+    """Print the device kernels of one call of K1, K2 and K3 (on K6's
+    slots) with their busy ms a call (`utils.profiling.profile_device`)."""
+    with torch.no_grad():
+        ki = key_inputs(sc.xys, sc.radii, sc.nth, sc.tb, 16, 16, sc.budget)
+        skeys = torch.sort(fill_cuda.fill_decode_keys(*ki.k1)).values
+        v_rows = rasterize_cuda.image_to_rows(torch.randn(
+            (sc.H, sc.W, 3), device=dev, generator=torch.Generator(device=dev).manual_seed(0)),
+            sc.tb[0], sc.tb[1])
+        vslots = rasterize_cuda.backward_slots(*sc.rargs[:5], v_rows, *sc.rargs[5:], "rows")
+        flags = rasterize_cuda.segment_flags(sc.binned.gauss_slot_start, sc.budget)
+        calls = {
+            "K1 fill_decode_keys": lambda: fill_cuda.fill_decode_keys(*ki.k1),
+            "K2 rank_cap_decode": lambda: fill_cuda.rank_cap_decode(skeys, 256, sc.n,
+                                                                    ki.num_tiles),
+            "K3 segmented_cumsum [9,S] (K6 slots)":
+                lambda: fill_cuda.segmented_cumsum(vslots, flags),
+        }
+        print("P3 device kernels of each call (busy ms a call):")
+        for name, fn in calls.items():
+            busy, events = profile_device(fn, reps)
+            kernels = sorted(device_events(events), key=lambda e: -e.self_device_time_total)
+            print(f"  {name}: {busy:.4f} ms busy; " + "; ".join(
+                f"{e.key[:60]} x{e.count / reps:g} {e.self_device_time_total / reps / 1e3:.4f} ms"
+                for e in kernels))
+
+
 def main(argv=None) -> int:
-    args = common.parse(__doc__, argv, iters=100)
+    # --split-only is taken here, not by common.parse, so that this file
+    # runs against an older tree's package as well
+    argv = list(sys.argv[1:] if argv is None else argv)
+    split_only = "--split-only" in argv
+    args = common.parse(__doc__, [a for a in argv if a != "--split-only"], iters=100)
     dev = common.cuda_device(args.device)
     if dev is None:
         return 1
     sc = common.scene(args.num_points, args.height, args.width, dev)
+    if split_only:
+        print(f"P3 profile_micro_ops [{common.card_line()}]: {sc.W}x{sc.H}, n={sc.n} "
+              f"budget={sc.budget}")
+        kernel_split(sc, dev, max(args.iters // 10, 3))
+        return 0
     H, W, n, tb, s = sc.H, sc.W, sc.n, sc.tb, sc.budget
     it, busy_reps = args.iters, max(args.iters // 10, 3)
     b = sc.binned
@@ -67,31 +113,35 @@ def main(argv=None) -> int:
 
     with torch.no_grad():
         ki = key_inputs(sc.xys, sc.radii, sc.nth, tb, 16, 16, s)
-        keys = fill_cuda.fill_decode_keys(*ki)
+        keys = fill_cuda.fill_decode_keys(*ki.k1)
         skeys = torch.sort(keys).values
-        t("sort int64 [S] (the port's)", lambda: torch.sort(keys))
-        fits = (ki.num_tiles << 16 | 0xFFFF) < 2**31
-        if fits:
-            keys32 = keys.to(torch.int32)
-            t("sort int32 [S] (same keys)", lambda: torch.sort(keys32),
-              "keys < 2^31: the order is the int64 sort's")
+        t(f"sort {str(keys.dtype)[6:]} [S] (the port's)", lambda: torch.sort(keys))
+        if keys.dtype == torch.int32:
+            keys64 = keys.to(torch.int64)
+            t("sort int64 [S] (same keys)", lambda: torch.sort(keys64),
+              "the earlier port's key width; the same order")
+        t("empty kernel (the floor)", lambda: _build.empty_launch(dev),
+          "one launch of a kernel that does nothing")
         idx = torch.cumsum(sc.nth, 0) - sc.nth
         keep = idx < s
         idx, payload = idx[keep].to(torch.int64), torch.arange(n, device=dev)[keep]
         seeds = torch.zeros(s, dtype=torch.int64, device=dev)
         t("seed scatter [N->S] (amax)",
           lambda: seeds.clone().scatter_reduce_(0, idx, payload, "amax"))
-        t("K1 fill_decode_keys", lambda: fill_cuda.fill_decode_keys(*ki))
+        t("K1 fill_decode_keys", lambda: fill_cuda.fill_decode_keys(*ki.k1))
         t("K2 rank_cap_decode", lambda: fill_cuda.rank_cap_decode(skeys, 256, n, ki.num_tiles))
         vals16 = torch.randn((16, s), device=dev, generator=gen)
         flags8 = (torch.arange(s, device=dev) % 8 == 0).to(torch.int32)
         t("K3 segmented_cumsum", lambda: fill_cuda.segmented_cumsum(vals16, flags8),
           "[16,S], a segment every 8 lanes (the TPU harness's input)")
+        sparse = (torch.rand(s, device=dev, generator=gen) < 5e-5).to(torch.int32)
+        t("K3 [16,S] sparse flags", lambda: fill_cuda.segmented_cumsum(vals16, sparse),
+          "p = 5e-5: segments longer than a CTA's span")
         table = torch.cat([sc.xys, sc.conics, sc.opacity, sc.colors,
                            b.bbox_pack[:, None].float(), b.gauss_slot_start[:-1, None].float()],
                           1)
         table = torch.cat([table, torch.zeros((1, 11), device=dev)])
-        gidx = torch.clamp(b.sorted_keys & 0xFFFF, max=n)
+        gidx = torch.clamp(b.sorted_keys & 0xFFFF, max=n).long()
         t("lane gather [S,11]", lambda: table[gidx])
         t("bin_gaussians", lambda: bin_gaussians(sc.xys, sc.radii, sc.nth, tb, 16, 16, s))
         tmin_x, tmin_y, tmax_x, tmax_y = _tile_bbox(sc.xys, sc.radii.float(), tb, 16, 16)
@@ -117,6 +167,13 @@ def main(argv=None) -> int:
         flags = rasterize_cuda.segment_flags(b.gauss_slot_start, s)
         t("K3 segmented_cumsum [9,S] (K6 slots)",
           lambda: fill_cuda.segmented_cumsum(vslots, flags))
+        # what bounds K3: its time against the rows and the lanes it scans
+        for rows_, lanes_ in ((1, s), (4, s), (16, s), (32, s), (9, s // 8), (9, s // 2),
+                              (9, 2 * s), (9, 8 * s)):
+            v_ = torch.randn((rows_, lanes_), device=dev, generator=gen)
+            f_ = (torch.arange(lanes_, device=dev) % 8 == 0).to(torch.int32)
+            t(f"K3 [{rows_},{lanes_}]", lambda v_=v_, f_=f_: fill_cuda.segmented_cumsum(v_, f_),
+              "sweep, a segment every 8 lanes")
         t("K3 reduction (flags, K3, gather)",
           lambda: rasterize_cuda.reduce_slot_grads(vslots, b.gauss_slot_start))
         owners = common.slot_owners(b.gauss_slot_start, s)
@@ -137,7 +194,9 @@ def main(argv=None) -> int:
         print(f"  {name:22s} {k_ms:9.4f} {bound:9.4f} {by:>10s} {100 * bound / k_ms:7.1f} "
               f"{launches['eval render']:>9d}/{launches['represent step']:<9d}  none")
     print(f"  beside K3: index_add_ of the slots {ms['index_add_ slots->splats [9,S]']:.4f} ms, "
-          f"the port's reduction {ms['K3 reduction (flags, K3, gather)']:.4f} ms")
+          f"the port's reduction {ms['K3 reduction (flags, K3, gather)']:.4f} ms; the empty "
+          f"kernel's floor {ms['empty kernel (the floor)']:.4f} ms")
+    kernel_split(sc, dev, busy_reps)
     return 0
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from gsvc_tpu_torch.ops.fill_cuda import key_dtype
 from gsvc_tpu_torch.ops.rasterize_binned import TILE_CHUNK, tile_lane_ids, zrow
 from gsvc_tpu_torch.ops.rasterize_dense import ALPHA_CUTOFF
 
@@ -118,14 +119,22 @@ def backward_bytes(sc) -> int:
             + rows_bytes(sc) + 36 * sc.budget)
 
 
+def key_bytes(sc) -> int:
+    """Bytes of one of the scene's sort keys (`fill_cuda.key_dtype`)."""
+    return key_dtype(sc.tb[0] * sc.tb[1]).itemsize
+
+
 def kernel_work(sc, valid: int, k3_rows: int) -> dict:
     """{kernel: (bytes, operations)} of K1-K6 on the scene; `valid` pairs
-    pass the alpha gate, K3 scans `k3_rows` rows of the budget's slots."""
+    pass the alpha gate, K3 scans `k3_rows` rows of the budget's slots. K1
+    reads 16 bytes a splat (start slot and tile bbox) and the kept total and
+    writes a key a slot; K2 reads a key and writes two int32 ids a slot."""
     n, s, every = sc.n, sc.budget, pairs(sc)
+    kb = key_bytes(sc)
     fwd_ops = K4_OPS["full"][0] * every + K4_OPS["full"][1] * valid
     return {
-        "K1 fill_decode_keys": (21 * n + 4 + 8 * s, K1_OPS * s),
-        "K2 rank_cap_decode": (16 * s, K2_OPS * s),
+        "K1 fill_decode_keys": (16 * n + 4 + kb * s, K1_OPS * s),
+        "K2 rank_cap_decode": ((kb + 8) * s, K2_OPS * s),
         "K3 segmented_cumsum": (8 * k3_rows * s + 4 * s, K3_OPS * k3_rows * s),
         "K4 forward image": (forward_bytes(sc, "image"), fwd_ops),
         "K4 forward rows": (forward_bytes(sc, "rows"), fwd_ops),

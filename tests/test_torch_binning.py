@@ -2,7 +2,9 @@
 
 K1/K2's plain PyTorch versions are held exactly against the JAX Pallas
 kernels `fill_decode_keys` and `rank_cap_decode`, run in interpret mode
-(as tests/test_fill_pallas.py runs them). `bin_gaussians` is held exactly
+(as tests/test_fill_pallas.py runs them): the port's keys are int32 on
+grids of up to 32,767 tiles and int64 above, and both hold the JAX
+package's uint32 values. `bin_gaussians` is held exactly
 against gsvc_tpu's on the contract fields: per-tile member lists in
 (tile, gauss) order with the cap, tile counts, num_intersects, overflow,
 gauss_slot_start and bbox_pack. The TPU-only row padding is not part of
@@ -20,6 +22,7 @@ from gsvc_tpu.ops import binning as jbin
 from gsvc_tpu.ops.projection import project_gaussians_2d as jproject
 from gsvc_tpu_torch.ops import binning, fill_cuda
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
+from gsvc_tpu_torch.scripts.common import synthetic_key_inputs
 
 
 @pytest.fixture
@@ -56,7 +59,8 @@ def _jax_seeds(ki):
 
 SCENES = [(50, (48, 64), 0, None, 256), (200, (64, 96), 1, None, 256),
           (500, (32, 128), 2, None, 256), (100, (48, 64), 3, 64, 256),
-          (120, (32, 32), 4, None, 4)]
+          (120, (32, 32), 4, None, 4),
+          (300, (2080, 4080), 5, 4096, 256)]  # 33,150 tiles: int64 keys
 
 
 @pytest.mark.parametrize("n,hw,seed,budget,cap", SCENES)
@@ -65,11 +69,10 @@ def test_plain_k1_k2_match_pallas_kernels(_pallas_interpret, n, hw, seed, budget
     if budget is None:
         budget = binning.default_max_intersects(n, tb[0] * tb[1])
     ki = binning.key_inputs(xys, radii, nth, tb, 16, 16, budget)
-    keys = fill_cuda.fill_decode_keys_torch(*ki)
-    jkeys = fp.fill_decode_keys(_jax_seeds(ki), jnp.int32(int(ki.total_kept)),
-                                ki.tb_x, ki.num_tiles, n)
-    np.testing.assert_array_equal(keys.numpy(), np.asarray(jkeys).astype(np.int64))
-    assert torch.equal(fill_cuda.fill_decode_keys(*ki), keys)  # CPU wrapper
+    keys = fill_cuda.fill_decode_keys_torch(*ki.k1)
+    assert keys.dtype == (torch.int32 if ki.num_tiles <= 32767 else torch.int64)
+    _assert_keys_equal_jax(ki, keys)
+    assert torch.equal(fill_cuda.fill_decode_keys(*ki.k1), keys)  # CPU wrapper
 
     skeys = torch.sort(keys).values
     tiles, gauss = fill_cuda.rank_cap_decode_torch(skeys, cap, n)
@@ -78,6 +81,35 @@ def test_plain_k1_k2_match_pallas_kernels(_pallas_interpret, n, hw, seed, budget
     np.testing.assert_array_equal(gauss.numpy(), np.asarray(jg))
     wt, wg = fill_cuda.rank_cap_decode(skeys, cap, n, ki.num_tiles)
     assert torch.equal(wt, tiles) and torch.equal(wg, gauss)
+
+
+def _assert_keys_equal_jax(ki, keys):
+    jkeys = fp.fill_decode_keys(_jax_seeds(ki), jnp.int32(int(ki.total_kept)),
+                                ki.tb_x, ki.num_tiles, ki.starts.shape[0])
+    np.testing.assert_array_equal(keys.numpy().astype(np.int64),
+                                  np.asarray(jkeys).astype(np.int64))
+
+
+@pytest.mark.parametrize("n,tb,budget", [
+    (6000, (120, 68), 20480), (6000, (120, 68), 4096), (0, (120, 68), 1024),
+    (6000, (255, 200), 20480), (6000, (255, 200), 4096)])
+def test_plain_k1_matches_pallas_kernel_on_hard_inputs(_pallas_interpret, n, tb, budget):
+    ki = synthetic_key_inputs(n, tb, budget, seed=n + budget)
+    if n:
+        assert (ki.nth == 0).any() and int(ki.nth.max()) == 64 * 50
+    if budget == 4096:
+        assert int(ki.nth.sum()) > int(ki.total_kept)
+    keys = fill_cuda.fill_decode_keys_torch(*ki.k1)
+    assert keys.dtype == fill_cuda.key_dtype(ki.num_tiles)
+    _assert_keys_equal_jax(ki, keys)
+
+
+def test_key_dtype_follows_the_tile_count():
+    assert fill_cuda.key_dtype(8160) == torch.int32  # 1080p
+    assert fill_cuda.key_dtype(32767) == torch.int32
+    assert fill_cuda.key_dtype(32768) == torch.int64
+    assert fill_cuda.key_dtype(255 * 255) == torch.int64
+    assert fill_cuda._sentinel(32767) == 2**31 - 1
 
 
 def _members(gauss_ids, starts, counts, cap):

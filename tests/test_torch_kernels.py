@@ -5,14 +5,17 @@ CPU mode). On the card they build csrc/ with nvcc on first use. Run them
 with `python -m pytest tests/test_torch_kernels.py -m cuda` on a GPU
 machine; `python3 chip_smoke.py` does the same at 1080p/10k.
 
-Tolerances: K1/K2 exact (integer index work); the forward kernel atol
+Tolerances: K1/K2 exact (integer index work), at int32 keys (grids of up
+to 32,767 tiles) and int64 keys (above); the forward kernel atol
 1e-5 against the plain render (f32 sums in another order); the rows store
 exactly `image_to_rows` of the image store (the same sums); two launches
 of a kernel on the same inputs bitwise equal (a fixed order, no float
 atomics); K6's per-slot
 grads, K3's scan and the autograd function's per-splat grads within 1e-4
 of each tensor's largest entry (f32 sums over up to 256 pixels, or a
-segment, in another order). The profiling harnesses' kernels
+segment, in another order); K3 at S from 1 to ~800,000 with 1 to 32 rows,
+with dense flags, sparse ones whose segments cross several CTAs' spans,
+and none on lane 0, on both load paths. The profiling harnesses' kernels
 (gsvc_tpu_torch/scripts), at a small size and at 1080p/10k: P1's K4
 variants max-abs 1e-4 and within 1e-4 of the plain version's largest
 entry (no_acc's outputs are ~1e-5) against their plain versions, P5's
@@ -29,9 +32,10 @@ import pytest
 import torch
 
 from gsvc_tpu_torch.ops import fill_cuda, rasterize_cuda
-from gsvc_tpu_torch.ops.binning import bin_gaussians, key_inputs
+from gsvc_tpu_torch.ops.binning import bin_gaussians, default_max_intersects, key_inputs
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
 from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum
+from gsvc_tpu_torch.scripts.common import synthetic_key_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -71,9 +75,9 @@ def test_kernels_match_plain_versions(dev, n, hw, seed, budget, cap, big):
         dev, n, H, W, seed, big)
     ki = key_inputs(xys, radii, nth, tb, 16, 16, budget)
     launches = fill_cuda.fill_decode_keys.launches
-    keys = fill_cuda.fill_decode_keys(*ki)
+    keys = fill_cuda.fill_decode_keys(*ki.k1)
     assert fill_cuda.fill_decode_keys.launches == launches + 1
-    assert torch.equal(keys, fill_cuda.fill_decode_keys_torch(*ki))
+    assert torch.equal(keys, fill_cuda.fill_decode_keys_torch(*ki.k1))
     skeys = torch.sort(keys).values
     got = fill_cuda.rank_cap_decode(skeys, cap, n, ki.num_tiles)
     want = fill_cuda.rank_cap_decode_torch(skeys, cap, n)
@@ -98,6 +102,84 @@ def test_kernels_match_plain_versions(dev, n, hw, seed, budget, cap, big):
         assert torch.equal(rasterize_cuda.FORWARD[store](*args), out), store
 
 
+def _check_k1_k2(ki, cap=256):
+    """K1 and K2 against their plain versions, exactly, on K1's inputs."""
+    keys = fill_cuda.fill_decode_keys(*ki.k1)
+    torch.cuda.synchronize()
+    assert keys.dtype == fill_cuda.key_dtype(ki.num_tiles)
+    assert torch.equal(keys, fill_cuda.fill_decode_keys_torch(*ki.k1))
+    n = ki.starts.shape[0]
+    skeys = torch.sort(keys).values
+    want = fill_cuda.rank_cap_decode_torch(skeys, cap, n)
+    for k in (skeys, skeys.to(torch.int64)):  # K2 reads keys of either width
+        got = fill_cuda.rank_cap_decode(k, cap, n, ki.num_tiles)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,hw,budget", [
+    (300, (64, 96), None), (300, (64, 96), 64), (0, (48, 64), 1024),
+    (400, (2080, 4080), None), (400, (2080, 4080), 512)])
+def test_key_kernels_at_both_key_widths(dev, n, hw, budget):
+    """A grid of <= 32,767 tiles (int32 keys) and 4080x2080's 33,150 (int64
+    keys); budget overflow, no splats, and splats that hit no tile."""
+    H, W = hw
+    tb, _t, (xys, _d, radii, _c, nth) = _scene(dev, n, H, W, 8)
+    nth = torch.where(torch.arange(n, device=dev) % 7 == 3, 0, nth)  # hit no tile
+    if budget is None:
+        budget = default_max_intersects(n, tb[0] * tb[1])
+    ki = key_inputs(xys, radii, nth, tb, 16, 16, budget)
+    if n:
+        assert (ki.nth == 0).any()
+    if budget < 1000:
+        assert int(ki.nth.sum()) > int(ki.total_kept)
+    _check_k1_k2(ki)
+    binned = bin_gaussians(xys, radii, nth, tb, 16, 16, budget)
+    plain = bin_gaussians(xys, radii, nth, tb, 16, 16, budget, kernels=False)
+    for name in binned._fields:
+        assert torch.equal(getattr(binned, name), getattr(plain, name)), name
+
+
+@pytest.mark.parametrize("tb", [(120, 68), (255, 200)])
+@pytest.mark.parametrize("budget", [20480, 4096, 20000])
+def test_key_kernels_on_hard_inputs(dev, tb, budget):
+    """`synthetic_key_inputs`, on which tests/test_torch_binning.py holds
+    the plain version to gsvc_tpu."""
+    ki = synthetic_key_inputs(6000, tb, budget, seed=budget, device=dev)
+    _check_k1_k2(ki)
+
+
+def _segsum_flags(rng, s, mode):
+    p = {"dense": 0.3, "sparse": 0.0005, "none_first": 0.01}[mode]
+    flags = (rng.random(s) < p).astype(np.int32)
+    flags[0] = mode != "none_first"
+    return flags
+
+
+@pytest.mark.parametrize("s", [1, 63, 4097, 81920, 800000])
+@pytest.mark.parametrize("mode", ["dense", "sparse", "none_first"])
+def test_segmented_cumsum_kernel(dev, s, mode):
+    """K3 within 1e-4 of the plain version's largest entry; two launches
+    bitwise equal; S % 4 == 0 takes the 16-byte loads, the rest (and an
+    unaligned view) the 4-byte ones."""
+    rng = np.random.default_rng(s)
+    flags = torch.as_tensor(_segsum_flags(rng, s, mode), device=dev)
+    for rows in (1, 9, 16, 32):
+        vals = torch.as_tensor(rng.normal(size=(rows, s)).astype(np.float32), device=dev)
+        want = fill_cuda.segmented_cumsum_torch(vals, flags)
+        before = fill_cuda.segmented_cumsum.launches
+        got = fill_cuda.segmented_cumsum(vals, flags)
+        torch.cuda.synchronize()
+        assert fill_cuda.segmented_cumsum.launches == before + 1
+        _close(got, want)
+        assert torch.equal(fill_cuda.segmented_cumsum(vals, flags), got)
+    buf = torch.zeros(rows * s + 1, device=dev)
+    view = buf[1:].view(rows, s)
+    view.copy_(vals)
+    _close(fill_cuda.segmented_cumsum(view, flags), want)
+    with pytest.raises(ValueError):
+        fill_cuda.segmented_cumsum(vals.double(), flags)
+
+
 def test_dispatch_and_refusals(dev):
     H, W = 40, 56
     tb, (_m, _l, colors, opacity), (xys, d, radii, conics, nth) = _scene(dev, 150, H, W, 5)
@@ -114,7 +196,7 @@ def test_dispatch_and_refusals(dev):
         rasterize_cuda.forward_image(binned, xys.double(), *args[2:])
     ki = key_inputs(xys, radii, nth, tb, 16, 16, 4096)
     with pytest.raises(ValueError):
-        fill_cuda.fill_decode_keys(ki.starts.long(), *ki[1:])
+        fill_cuda.fill_decode_keys(ki.starts.long(), *ki.k1[1:])
 
 
 def _close(got, want, rel=1e-4):

@@ -17,6 +17,7 @@ gradients that differ at round-off move parameters apart elementwise.
 
 import dataclasses
 from functools import lru_cache
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -476,6 +477,13 @@ def test_plain_k3_matches_pallas_segmented_cumsum(_pallas_interpret, s, rows, p_
     before = fill_cuda.segmented_cumsum.launches
     wrapped = fill_cuda.segmented_cumsum(torch.from_numpy(vals), torch.from_numpy(flags))
     assert torch.equal(wrapped, got) and fill_cuda.segmented_cumsum.launches == before
+
+
+def test_k3_cluster_constant_is_the_kernels():
+    """`SEG_CLUSTER`, by which chip_smoke.py sizes K3's CTA spans, is the
+    cluster size segsum.cu launches."""
+    src = Path(fill_cuda.__file__).parents[1] / "csrc" / "segsum.cu"
+    assert f"constexpr int kCluster = {fill_cuda.SEG_CLUSTER};" in src.read_text()
 
 
 def test_train_state_from_numpy_round_trip():
