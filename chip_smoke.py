@@ -17,13 +17,14 @@ the first fault:
    [H,W,3] and the tile-row "rows" store), K5 (forward, [3,H,W]), K6
    (backward into the expansion slots) and K3 (segmented cumsum) on the
    bench scene (bench.py's scene, seed 0, unit opacity), each against its
-   plain PyTorch version on the card: keys and ids exactly, renders within
-   max-abs 1e-4, the rows store exactly image_to_rows of the image store,
+   plain PyTorch version on the card: keys, ids and K2's tile edges
+   exactly, renders within max-abs 1e-4, the rows store exactly
+   image_to_rows of the image store,
    K6 / K3 and the autograd function's per-splat gradients (against
    autograd through the plain renderer) within 1e-4 of the largest entry;
    K3 also at the full budget with sparse flags, whose segments run over
-   several CTAs' spans; two launches of K5, K4 rows, K6 (rows) and K3 (both
-   cases) bitwise equal;
+   several CTAs' spans; two launches of K2, K5, K4 rows, K6 (rows) and K3
+   (both cases) bitwise equal;
 3. serving slice: a K-frame stream of the scene written with `pack_frame`,
    then decoded by `python -m gsvc_tpu_torch.decode` (its `main`) and
    rendered once more as the planar eval render (`render_frame`, layout
@@ -63,7 +64,8 @@ after; each kernel of that path must have launched. The kernels' JSON
 reports phase 6's counts for K1-K6 and phase 7's for the harnesses'
 kernels, and each kernel's bound (`utils.work`, `utils.profiling.roofline_ms`)
 and library call (null where no single
-PyTorch call computes the same function).
+PyTorch call computes the same function; for K2, the `searchsorted` of its
+tile edges).
 
 Prints a JSON line of the kernels, then, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -487,12 +489,13 @@ def main() -> int:
     if not torch.equal(keys, keys_plain):
         fail(f"K1 keys differ at {int((keys != keys_plain).sum())} slots")
     skeys = torch.sort(keys).values
-    tiles, gauss = fill_cuda.rank_cap_decode(skeys, 256, N, ki.num_tiles)
-    tiles_p, gauss_p = fill_cuda.rank_cap_decode_torch(skeys, 256, N)
-    errs["K2"] = float(max((tiles - tiles_p).abs().max(),
-                           (gauss - gauss_p).abs().max()))
-    if not (torch.equal(tiles, tiles_p) and torch.equal(gauss, gauss_p)):
-        fail("K2 tile / gauss ids differ from the plain version")
+    k2 = fill_cuda.rank_cap_decode(skeys, 256, N, ki.num_tiles)
+    k2_plain = fill_cuda.rank_cap_decode_torch(skeys, 256, N, ki.num_tiles)
+    errs["K2"] = float(max((a - b).abs().max() for a, b in zip(k2, k2_plain)))
+    for name, a, b in zip(("tile ids", "gauss ids", "tile edges"), k2, k2_plain):
+        if not torch.equal(a, b):
+            fail(f"K2 {name} differ from the plain version at {int((a != b).sum())} entries")
+    tiles = k2[0]
     binned = sc.binned
     binned_p = bin_gaussians(xys, radii, nth, tb, 16, 16, budget, kernels=False)
     for name in binned._fields:
@@ -513,9 +516,9 @@ def main() -> int:
     errs["rows"] = float((rows - rows_ref).abs().max())
     if not torch.equal(rows, rows_ref):
         fail(f"forward rows differs from image_to_rows(K4 image): {errs['rows']}")
-    print(f"phase 2 kernels: intersections {n_isect}, budget {budget}; K1, K2 "
-          f"exact; forward max-abs image {errs['image']:.3g} chw "
-          f"{errs['chw']:.3g} (tol {RENDER_TOL}); rows exact")
+    print(f"phase 2 kernels: intersections {n_isect}, budget {budget}; K1 keys, K2 "
+          f"ids and {ki.num_tiles + 1} tile edges exact; forward max-abs image "
+          f"{errs['image']:.3g} chw {errs['chw']:.3g} (tol {RENDER_TOL}); rows exact")
 
     # K6 in each layout and K3 on its slots, against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -533,7 +536,9 @@ def main() -> int:
             fail(f"K6 {layout}: max-abs {k6[layout][0]}, rel {k6[layout][1]} "
                  f"> {GRAD_TOL}")
     errs["K6"] = max(e[0] for e in k6.values())
-    twice = {"K5": lambda: rasterize_cuda.forward_chw(*rargs),
+    twice = {"K2": lambda: torch.cat(fill_cuda.rank_cap_decode(skeys, 256, N,
+                                                               ki.num_tiles)),
+             "K5": lambda: rasterize_cuda.forward_chw(*rargs),
              "K4 rows": lambda: rasterize_cuda.forward_rows(*rargs),
              "K6 rows": lambda: rasterize_cuda.backward_slots(
                  *bargs, v_by_layout["rows"], *geom, layout="rows")}
@@ -594,7 +599,7 @@ def main() -> int:
         f"lanes, a CTA's span {span}); per-splat grads of the "
         "autograd function vs plain autograd " + ", ".join(
             f"{k} ({a:.3g}, {r:.3g})" for k, (a, r) in grad_errs.items())
-        + f" (tol rel {GRAD_TOL}); two launches of K5, K4 rows, K6 rows and K3 (both "
+        + f" (tol rel {GRAD_TOL}); two launches of K2, K5, K4 rows, K6 rows and K3 (both "
         f"cases) bitwise equal; keys {str(keys.dtype)[6:]}; peak {peak_gb:.1f} GiB")
 
     # -- phase 3: the slice, through the decoder CLI --------------------
@@ -745,7 +750,7 @@ def main() -> int:
         ("K2 rank_cap_decode", "gsvc_tpu_torch/csrc/fill.cu",
          "gsvc_tpu/ops/fill_pallas.py:242", "rank_cap_decode", errs["K2"],
          lambda: fill_cuda.rank_cap_decode(skeys, 256, N, ki.num_tiles),
-         lambda: fill_cuda.rank_cap_decode_torch(skeys, 256, N)),
+         lambda: fill_cuda.rank_cap_decode_torch(skeys, 256, N, ki.num_tiles)),
         ("K4 forward image", "gsvc_tpu_torch/csrc/rasterize_fwd.cu",
          "gsvc_tpu/ops/rasterize_pallas.py:428", "forward_image",
          errs["image"], lambda: rasterize_cuda.forward_image(*rargs),
@@ -772,7 +777,10 @@ def main() -> int:
          lambda: fill_cuda.segmented_cumsum_torch(slots_ref, flags)),
     ]
     bounds = work.kernel_work(sc, work.gated_pairs(sc), k3_rows=slots_ref.shape[0])
-    kernels = [timed_row(smi, 5, *row, bounds[row[0]]) for row in timed]
+    tile_range = torch.arange(ki.num_tiles + 1, dtype=torch.int32, device=dev)
+    library = {"K2 rank_cap_decode": lambda: torch.searchsorted(tiles, tile_range)}
+    kernels = [timed_row(smi, 5, *row, bounds[row[0]], library.get(row[0]))
+               for row in timed]
     print(f"phase 5 time [{smi}]: eval render 1080p/10k chw fps: kernel path "
           f"{fps['cuda']}, plain path {fps['torch']} (order plain, kernel, "
           f"kernel, plain)")

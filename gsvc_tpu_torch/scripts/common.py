@@ -87,11 +87,14 @@ def scene(n: int, H: int, W: int, device) -> Scene:
                  conics, nth, budget, binned)
 
 
-def synthetic_key_inputs(n: int, tb, budget: int, seed: int, device="cpu") -> KeyInputs:
+def synthetic_key_inputs(n: int, tb, budget: int, seed: int, device="cpu",
+                         y_range=None) -> KeyInputs:
     """K1's inputs as `binning.key_inputs` makes them, drawn to reach every
     case: runs of splats that hit no tile (more than K1 stages at once),
     splats of thousands of tiles, and a budget that drops the tail. Needs
-    a grid of at least 64 x 50 tiles."""
+    a grid of at least 64 x 50 tiles. `y_range` (lo, hi) draws each bbox's
+    top tile row from [lo, hi) instead of [0, tb[1] - 50): rows above lo
+    and below hi + 49 stay empty, long runs of tiles with no splat."""
     rng = np.random.default_rng(seed)
     bw = rng.integers(1, 9, n)
     rows = rng.integers(1, 6, n)
@@ -100,7 +103,7 @@ def synthetic_key_inputs(n: int, tb, budget: int, seed: int, device="cpu") -> Ke
     nth = np.where(rng.random(n) < 0.5, 0, bw * rows)
     nth[n // 5: n // 5 + min(n // 2, 2500)] = 0
     tmin_x = rng.integers(0, tb[0] - 64, n)
-    tmin_y = rng.integers(0, tb[1] - 50, n)
+    tmin_y = rng.integers(*(y_range or (0, tb[1] - 50)), n)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)

@@ -5,11 +5,12 @@ represent and compress CLIs, with K3 as its kernel or as its plain version
 
     python -m gsvc_tpu_torch.scripts.encoder_drift [--seed 1] [--k3 kernel]
 
-Prints each frame's represent and QAT PSNR and its bpp, then one JSON line
-of them. Run as a file with another tree's package first on PYTHONPATH, it
-encodes with that tree's kernels (its imports are the encoder's CLIs,
-`fill_cuda`'s two K3 functions and `scripts.common`'s scene). Card only:
-exits 1 without one.
+Prints each frame's represent and QAT PSNR, its bpp and the sha256 of its
+coded `frame_N.gsvc` (two encodes that agree to the bit agree there), then
+one JSON line of them. Run as a file with another tree's package first on
+PYTHONPATH, it encodes with that tree's kernels (its imports are the
+encoder's CLIs, `fill_cuda`'s two K3 functions and `scripts.common`'s
+scene). Card only: exits 1 without one.
 
 Also the clip and the CLI arguments that `chip_smoke.py` phase 6 runs.
 """
@@ -17,6 +18,7 @@ Also the clip and the CLI arguments that `chip_smoke.py` phase 6 runs.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import sys
@@ -151,12 +153,15 @@ def main(argv=None) -> int:
                 return 1
         rep, enc = train_lines(run.rep_log), train_lines(run.qat_log)
         k_frames = [int(x) for x in run.k_frames.read_text().split()]
+        sha = {f: hashlib.sha256((run.bitstream / f"frame_{f}.gsvc").read_bytes())
+               .hexdigest()[:16] for f in enc}
     frames = {f: {"type": "K" if f in k_frames else "P", "represent_psnr": rep[f]["PSNR"],
-                  "qat_psnr": enc[f]["PSNR"], "bpp": enc[f]["bpp"]} for f in sorted(enc)}
+                  "qat_psnr": enc[f]["PSNR"], "bpp": enc[f]["bpp"], "gsvc_sha256": sha[f]}
+              for f in sorted(enc)}
     for f, r in frames.items():
         print(f"encoder_drift [{common.card_line()}] seed {args.seed} K3 {args.k3} frame {f} "
               f"{r['type']}: represent PSNR {r['represent_psnr']:.4f} dB, QAT PSNR "
-              f"{r['qat_psnr']:.4f} dB, bpp {r['bpp']:.4f}")
+              f"{r['qat_psnr']:.4f} dB, bpp {r['bpp']:.4f}, gsvc sha256 {r['gsvc_sha256']}")
     print(json.dumps({"seed": args.seed, "k3": args.k3, "frames": frames}))
     return 0
 

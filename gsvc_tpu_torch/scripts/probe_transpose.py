@@ -7,7 +7,9 @@ for identity-matmul transposes of one tile-row block, [R, C] = [360, 256]
 K5's CHW epilogue. On the card a transpose is a copy through shared
 memory (csrc/probe_transpose.cu), exact:
 
-- `transpose_last2`: [..., R, C] -> [..., C, R], a 32x33 shared tile;
+- `transpose_last2`: [..., R, C] -> [..., C, R] through a shared tile of
+  1024 floats, 16 x 64 for a short R (<= 16), else 32 x 32, in 16-byte
+  vectors both ways where rows allow;
 - `rows_to_chw`: K4's rows blocks [tb_y * r_out, 256] -> planar [3, H, W].
 
     python -m gsvc_tpu_torch.scripts.probe_transpose [--iters 100]

@@ -21,11 +21,12 @@ gated part of the work. `+pack` of the TPU harness has no counterpart:
 Beside the ops: the sort of the port's keys (int32 below 32,768 tiles)
 and of the same keys as int64; an empty kernel, the floor under every
 kernel's time; K3 by itself, on K6's slots, over rows and lanes, and as
-the whole reduction (segment flags, K3, gather) beside `index_add_`; and
-the device kernels each of K1, K2 and K3 launches, with their busy ms a
-call (`--split-only` prints only these; run as a file with another tree's
-package first on PYTHONPATH, it splits that tree's kernels, where its
-wrappers take the same arguments).
+the whole reduction (segment flags, K3, gather) beside `index_add_`;
+`searchsorted` of the tile edges, K2's library call; and the device
+kernels each of K1, K2, K3 and `bin_gaussians` launches, with their busy
+ms a call (`--split-only` prints only these; run as a file with another
+tree's package first on PYTHONPATH, it splits that tree's kernels, where
+its wrappers take the same arguments).
 """
 
 from __future__ import annotations
@@ -55,10 +56,15 @@ LAUNCHES_PER_STEP = {
     "K6 backward": {"eval render": 0, "represent step": 1},
 }
 
+# The one PyTorch call computing the same function, where there is one (a
+# row of the ops table).
+LIBRARY = {"K2 rank_cap_decode": "searchsorted tile edges [T+1]"}
+
 
 def kernel_split(sc, dev, reps: int) -> None:
-    """Print the device kernels of one call of K1, K2 and K3 (on K6's
-    slots) with their busy ms a call (`utils.profiling.profile_device`)."""
+    """Print the device kernels of one call of K1, K2, K3 (on K6's slots)
+    and `bin_gaussians` with their busy ms a call
+    (`utils.profiling.profile_device`)."""
     with torch.no_grad():
         ki = key_inputs(sc.xys, sc.radii, sc.nth, sc.tb, 16, 16, sc.budget)
         skeys = torch.sort(fill_cuda.fill_decode_keys(*ki.k1)).values
@@ -73,6 +79,8 @@ def kernel_split(sc, dev, reps: int) -> None:
                                                                     ki.num_tiles),
             "K3 segmented_cumsum [9,S] (K6 slots)":
                 lambda: fill_cuda.segmented_cumsum(vslots, flags),
+            "bin_gaussians": lambda: bin_gaussians(sc.xys, sc.radii, sc.nth, sc.tb, 16, 16,
+                                                   sc.budget),
         }
         print("P3 device kernels of each call (busy ms a call):")
         for name, fn in calls.items():
@@ -130,6 +138,10 @@ def main(argv=None) -> int:
           lambda: seeds.clone().scatter_reduce_(0, idx, payload, "amax"))
         t("K1 fill_decode_keys", lambda: fill_cuda.fill_decode_keys(*ki.k1))
         t("K2 rank_cap_decode", lambda: fill_cuda.rank_cap_decode(skeys, 256, n, ki.num_tiles))
+        tile_ids = fill_cuda.rank_cap_decode(skeys, 256, n, ki.num_tiles)[0]
+        tile_range = torch.arange(ki.num_tiles + 1, dtype=torch.int32, device=dev)
+        t("searchsorted tile edges [T+1]", lambda: torch.searchsorted(tile_ids, tile_range),
+          "K2's library call: its tile edges alone")
         vals16 = torch.randn((16, s), device=dev, generator=gen)
         flags8 = (torch.arange(s, device=dev) % 8 == 0).to(torch.int32)
         t("K3 segmented_cumsum", lambda: fill_cuda.segmented_cumsum(vals16, flags8),
@@ -191,8 +203,10 @@ def main(argv=None) -> int:
         k_ms = ms[name]
         bound, by = roofline_ms(n_bytes, ops)
         launches = LAUNCHES_PER_STEP[name]
+        lib = LIBRARY.get(name)
         print(f"  {name:22s} {k_ms:9.4f} {bound:9.4f} {by:>10s} {100 * bound / k_ms:7.1f} "
-              f"{launches['eval render']:>9d}/{launches['represent step']:<9d}  none")
+              f"{launches['eval render']:>9d}/{launches['represent step']:<9d}  "
+              + ("none" if lib is None else f"{ms[lib]:.4f} ms ({lib})"))
     print(f"  beside K3: index_add_ of the slots {ms['index_add_ slots->splats [9,S]']:.4f} ms, "
           f"the port's reduction {ms['K3 reduction (flags, K3, gather)']:.4f} ms; the empty "
           f"kernel's floor {ms['empty kernel (the floor)']:.4f} ms")

@@ -36,8 +36,9 @@ K6_OPS = (16, 36)
 # negate, exp and one add, every pair.
 E_OPS = 14
 # Integer operations a slot: K1 decodes a key (a divide, a remainder, a
-# multiply-add, a shift and an or: 6); K2 splits it, compares it with its
-# neighbour, ranks and caps it (6). K3 adds and selects each value (2).
+# multiply-add, a shift and an or: 6); K2 splits it, compares its tile with
+# its neighbour's and with that of the key `cap` lanes back, and caps it
+# (6). K3 adds and selects each value (2).
 K1_OPS, K2_OPS, K3_OPS = 6, 6, 2
 
 
@@ -128,13 +129,14 @@ def kernel_work(sc, valid: int, k3_rows: int) -> dict:
     """{kernel: (bytes, operations)} of K1-K6 on the scene; `valid` pairs
     pass the alpha gate, K3 scans `k3_rows` rows of the budget's slots. K1
     reads 16 bytes a splat (start slot and tile bbox) and the kept total and
-    writes a key a slot; K2 reads a key and writes two int32 ids a slot."""
+    writes a key a slot; K2 reads a key and writes two int32 ids a slot,
+    and writes the T + 1 int32 tile edges: (kb + 8) S + 4 (T + 1)."""
     n, s, every = sc.n, sc.budget, pairs(sc)
-    kb = key_bytes(sc)
+    kb, num_tiles = key_bytes(sc), sc.tb[0] * sc.tb[1]
     fwd_ops = K4_OPS["full"][0] * every + K4_OPS["full"][1] * valid
     return {
         "K1 fill_decode_keys": (16 * n + 4 + kb * s, K1_OPS * s),
-        "K2 rank_cap_decode": ((kb + 8) * s, K2_OPS * s),
+        "K2 rank_cap_decode": ((kb + 8) * s + 4 * (num_tiles + 1), K2_OPS * s),
         "K3 segmented_cumsum": (8 * k3_rows * s + 4 * s, K3_OPS * k3_rows * s),
         "K4 forward image": (forward_bytes(sc, "image"), fwd_ops),
         "K4 forward rows": (forward_bytes(sc, "rows"), fwd_ops),

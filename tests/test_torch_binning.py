@@ -4,7 +4,11 @@ K1/K2's plain PyTorch versions are held exactly against the JAX Pallas
 kernels `fill_decode_keys` and `rank_cap_decode`, run in interpret mode
 (as tests/test_fill_pallas.py runs them): the port's keys are int32 on
 grids of up to 32,767 tiles and int64 above, and both hold the JAX
-package's uint32 values. `bin_gaussians` is held exactly
+package's uint32 values. K2's third output, the tile edges, is held to
+gsvc_tpu's `bin_gaussians` tile counts and kept total on the scenes, and
+to the counts of K1's keys on the synthetic inputs (no splats, a budget
+filled exactly, empty tiles at both ends of the grid, caps 1 and 4, runs
+past the cap across 1024-lane blocks). `bin_gaussians` is held exactly
 against gsvc_tpu's on the contract fields: per-tile member lists in
 (tile, gauss) order with the cap, tile counts, num_intersects, overflow,
 gauss_slot_start and bbox_pack. The TPU-only row padding is not part of
@@ -75,12 +79,22 @@ def test_plain_k1_k2_match_pallas_kernels(_pallas_interpret, n, hw, seed, budget
     assert torch.equal(fill_cuda.fill_decode_keys(*ki.k1), keys)  # CPU wrapper
 
     skeys = torch.sort(keys).values
-    tiles, gauss = fill_cuda.rank_cap_decode_torch(skeys, cap, n)
+    tiles, gauss, edges = _assert_k2_equal_jax(skeys, cap, n, ki.num_tiles)
+    assert int(edges[-1]) == int(ki.total_kept)
+    got = fill_cuda.rank_cap_decode(skeys, cap, n, ki.num_tiles)  # CPU wrapper
+    assert all(torch.equal(a, b) for a, b in zip(got, (tiles, gauss, edges)))
+
+
+def _assert_k2_equal_jax(skeys, cap, n, num_tiles):
+    """The plain K2's ids exactly the Pallas kernel's (interpret mode); its
+    edges [num_tiles + 1] int32, from 0 to the first sentinel lane."""
+    tiles, gauss, edges = fill_cuda.rank_cap_decode_torch(skeys, cap, n, num_tiles)
     jt, jg = fp.rank_cap_decode(jnp.asarray(skeys.numpy().astype(np.uint32)), cap, n)
     np.testing.assert_array_equal(tiles.numpy(), np.asarray(jt))
     np.testing.assert_array_equal(gauss.numpy(), np.asarray(jg))
-    wt, wg = fill_cuda.rank_cap_decode(skeys, cap, n, ki.num_tiles)
-    assert torch.equal(wt, tiles) and torch.equal(wg, gauss)
+    assert edges.dtype == torch.int32 and edges.shape == (num_tiles + 1,)
+    assert int(edges[0]) == 0 and int(edges[-1]) == int((tiles < num_tiles).sum())
+    return tiles, gauss, edges
 
 
 def _assert_keys_equal_jax(ki, keys):
@@ -90,11 +104,38 @@ def _assert_keys_equal_jax(ki, keys):
                                   np.asarray(jkeys).astype(np.int64))
 
 
-@pytest.mark.parametrize("n,tb,budget", [
-    (6000, (120, 68), 20480), (6000, (120, 68), 4096), (0, (120, 68), 1024),
-    (6000, (255, 200), 20480), (6000, (255, 200), 4096)])
-def test_plain_k1_matches_pallas_kernel_on_hard_inputs(_pallas_interpret, n, tb, budget):
-    ki = synthetic_key_inputs(n, tb, budget, seed=n + budget)
+# (n, tile grid, budget or "exact" (filled to the last slot), K2's cap,
+# y_range of synthetic_key_inputs)
+HARD_KEYS = [
+    (6000, (120, 68), 20480, 256, None), (6000, (120, 68), 4096, 256, None),
+    (0, (120, 68), 1024, 256, None),  # no splats: every lane a sentinel
+    (6000, (255, 200), 20480, 256, None), (6000, (255, 200), 4096, 256, None),
+    (6000, (120, 68), "exact", 256, None),  # no sentinel lane
+    (6000, (120, 68), 20480, 1, (10, 12)),  # empty tile rows at both ends
+    (6000, (255, 200), 20480, 4, (100, 104)),  # int64 keys, gaps, runs past cap
+]
+
+
+def runs_past_cap_across_blocks(tiles: np.ndarray, cap: int, num_tiles: int) -> bool:
+    """A tile's run of more than `cap` lanes holds the last lane of a
+    1024-lane block and the first of the next."""
+    edges = np.searchsorted(tiles, np.arange(num_tiles + 1))
+    lo, hi = edges[:-1], edges[1:]
+    blocks = np.arange(1024, len(tiles), 1024)
+    return any(((lo < b) & (b < hi) & (hi - lo > cap)).any() for b in blocks)
+
+
+@pytest.mark.parametrize("n,tb,budget,cap,y_range", HARD_KEYS)
+def test_plain_k1_matches_pallas_kernel_on_hard_inputs(_pallas_interpret, n, tb, budget,
+                                                       cap, y_range):
+    """K1 and K2 on `synthetic_key_inputs`; K2's edges give the tile counts
+    of K1's keys."""
+    exact = budget == "exact"
+    seed = n if exact else n + budget
+    if exact:  # the budget ends where a kept splat's tiles end
+        nth = synthetic_key_inputs(n, tb, 1 << 22, seed, y_range=y_range).nth
+        budget = int(torch.cumsum(nth, 0)[n // 2])
+    ki = synthetic_key_inputs(n, tb, budget, seed, y_range=y_range)
     if n:
         assert (ki.nth == 0).any() and int(ki.nth.max()) == 64 * 50
     if budget == 4096:
@@ -102,6 +143,21 @@ def test_plain_k1_matches_pallas_kernel_on_hard_inputs(_pallas_interpret, n, tb,
     keys = fill_cuda.fill_decode_keys_torch(*ki.k1)
     assert keys.dtype == fill_cuda.key_dtype(ki.num_tiles)
     _assert_keys_equal_jax(ki, keys)
+
+    skeys = torch.sort(keys).values
+    tiles, _gauss, edges = _assert_k2_equal_jax(skeys, cap, n, ki.num_tiles)
+    counts = np.bincount((keys.numpy() >> 16).astype(np.int64), minlength=ki.num_tiles + 1)
+    np.testing.assert_array_equal(torch.diff(edges).numpy(), counts[:ki.num_tiles])
+    assert int(edges[-1]) == int(ki.total_kept)
+    gaps = np.diff(edges.numpy(), prepend=0) == 0  # tiles with no lane
+    if n == 0:
+        assert not edges.any()
+    if exact:  # the last lane is kept: edge T is S
+        assert int(ki.total_kept) == budget == len(tiles) == int(edges[-1])
+    if y_range is not None:  # long runs of empty tiles at both ends of the grid
+        row = tb[0]
+        assert gaps[:y_range[0] * row].all() and gaps[(y_range[1] + 49) * row:-1].all()
+        assert runs_past_cap_across_blocks(tiles.numpy(), cap, ki.num_tiles)
 
 
 def test_key_dtype_follows_the_tile_count():
@@ -145,6 +201,10 @@ def test_bin_gaussians_contract_matches_jax(n, hw, seed, budget, cap):
             assert (ids[s + min(c, cap):s + c] == n).all()
         assert tb_.sorted_gauss_ids.shape == (budget,)
         assert (ids[int(tb_.num_intersects):] == n).all()
+    # K2's edges: the JAX package's tile counts and kept total
+    _t, _g, edges = fill_cuda.rank_cap_decode_torch(tb_.sorted_keys, cap, n, tb[0] * tb[1])
+    np.testing.assert_array_equal(torch.diff(edges).numpy(), np.asarray(jb.tile_counts))
+    assert int(edges[-1]) == int(jb.num_intersects)
     if budget == 64:
         assert int(jb.overflow) > 0
     if cap == 4:

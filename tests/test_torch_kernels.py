@@ -6,7 +6,9 @@ with `python -m pytest tests/test_torch_kernels.py -m cuda` on a GPU
 machine; `python3 chip_smoke.py` does the same at 1080p/10k.
 
 Tolerances: K1/K2 exact (integer index work), at int32 keys (grids of up
-to 32,767 tiles) and int64 keys (above); the forward kernel atol
+to 32,767 tiles) and int64 keys (above), K2's three outputs (tile ids,
+gauss ids, tile edges) also bitwise across two launches and one device
+kernel a call; the forward kernel atol
 1e-5 against the plain render (f32 sums in another order); the rows store
 exactly `image_to_rows` of the image store (the same sums); two launches
 of a kernel on the same inputs bitwise equal (a fixed order, no float
@@ -20,7 +22,8 @@ and none on lane 0, on both load paths. The profiling harnesses' kernels
 variants max-abs 1e-4 and within 1e-4 of the plain version's largest
 entry (no_acc's outputs are ~1e-5) against their plain versions, P5's
 job-based C and D and K6's pixel splits F and G within 1e-4 of K6's
-largest slot, P6's transposes exactly.
+largest slot, P6's transposes exactly (each of its tile shapes, rows not
+a multiple of 4 and an input that is not 16-byte aligned).
 
 The scene "capped" (1,500 big splats on 64x64) puts more than the cap of
 256 lanes on every tile, where the kernels' staged lanes fill their
@@ -80,8 +83,8 @@ def test_kernels_match_plain_versions(dev, n, hw, seed, budget, cap, big):
     assert torch.equal(keys, fill_cuda.fill_decode_keys_torch(*ki.k1))
     skeys = torch.sort(keys).values
     got = fill_cuda.rank_cap_decode(skeys, cap, n, ki.num_tiles)
-    want = fill_cuda.rank_cap_decode_torch(skeys, cap, n)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    want = fill_cuda.rank_cap_decode_torch(skeys, cap, n, ki.num_tiles)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
     binned = bin_gaussians(xys, radii, nth, tb, 16, 16, budget, cap=cap)
     plain = bin_gaussians(xys, radii, nth, tb, 16, 16, budget, cap=cap, kernels=False)
@@ -103,17 +106,24 @@ def test_kernels_match_plain_versions(dev, n, hw, seed, budget, cap, big):
 
 
 def _check_k1_k2(ki, cap=256):
-    """K1 and K2 against their plain versions, exactly, on K1's inputs."""
+    """K1 and K2 against their plain versions, exactly, on K1's inputs; K2
+    at both key widths, one launch a call, two launches bitwise equal."""
     keys = fill_cuda.fill_decode_keys(*ki.k1)
     torch.cuda.synchronize()
     assert keys.dtype == fill_cuda.key_dtype(ki.num_tiles)
     assert torch.equal(keys, fill_cuda.fill_decode_keys_torch(*ki.k1))
     n = ki.starts.shape[0]
     skeys = torch.sort(keys).values
-    want = fill_cuda.rank_cap_decode_torch(skeys, cap, n)
+    want = fill_cuda.rank_cap_decode_torch(skeys, cap, n, ki.num_tiles)
     for k in (skeys, skeys.to(torch.int64)):  # K2 reads keys of either width
+        before = fill_cuda.rank_cap_decode.launches
         got = fill_cuda.rank_cap_decode(k, cap, n, ki.num_tiles)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        again = fill_cuda.rank_cap_decode(k, cap, n, ki.num_tiles)
+        torch.cuda.synchronize()
+        assert fill_cuda.rank_cap_decode.launches == before + 2
+        for a, b, c in zip(got, want, again):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    return skeys
 
 
 @pytest.mark.parametrize("n,hw,budget", [
@@ -121,7 +131,10 @@ def _check_k1_k2(ki, cap=256):
     (400, (2080, 4080), None), (400, (2080, 4080), 512)])
 def test_key_kernels_at_both_key_widths(dev, n, hw, budget):
     """A grid of <= 32,767 tiles (int32 keys) and 4080x2080's 33,150 (int64
-    keys); budget overflow, no splats, and splats that hit no tile."""
+    keys); budget overflow, no splats, and splats that hit no tile. K2 is
+    one device kernel a call."""
+    from gsvc_tpu_torch.utils.profiling import device_events, profile_device
+
     H, W = hw
     tb, _t, (xys, _d, radii, _c, nth) = _scene(dev, n, H, W, 8)
     nth = torch.where(torch.arange(n, device=dev) % 7 == 3, 0, nth)  # hit no tile
@@ -132,20 +145,36 @@ def test_key_kernels_at_both_key_widths(dev, n, hw, budget):
         assert (ki.nth == 0).any()
     if budget < 1000:
         assert int(ki.nth.sum()) > int(ki.total_kept)
-    _check_k1_k2(ki)
+    skeys = _check_k1_k2(ki)
+    _busy, events = profile_device(
+        lambda: fill_cuda.rank_cap_decode(skeys, 256, n, ki.num_tiles), 3)
+    assert sum(e.count for e in device_events(events)) == 3
     binned = bin_gaussians(xys, radii, nth, tb, 16, 16, budget)
     plain = bin_gaussians(xys, radii, nth, tb, 16, 16, budget, kernels=False)
     for name in binned._fields:
         assert torch.equal(getattr(binned, name), getattr(plain, name)), name
 
 
-@pytest.mark.parametrize("tb", [(120, 68), (255, 200)])
-@pytest.mark.parametrize("budget", [20480, 4096, 20000])
-def test_key_kernels_on_hard_inputs(dev, tb, budget):
+@pytest.mark.parametrize("tb,budget,cap,y_range", [
+    ((120, 68), 20480, 256, None), ((120, 68), 4096, 256, None),
+    ((120, 68), 20000, 256, None), ((255, 200), 20480, 256, None),
+    ((255, 200), 4096, 256, None), ((255, 200), 20000, 256, None),
+    ((120, 68), "exact", 256, None),  # no sentinel lane
+    ((120, 68), 20480, 1, (10, 12)),  # empty tile rows at both ends, cap 1
+    ((255, 200), 20480, 4, (100, 104)),  # int64 keys, gaps, runs past the cap
+])
+def test_key_kernels_on_hard_inputs(dev, tb, budget, cap, y_range):
     """`synthetic_key_inputs`, on which tests/test_torch_binning.py holds
-    the plain version to gsvc_tpu."""
-    ki = synthetic_key_inputs(6000, tb, budget, seed=budget, device=dev)
-    _check_k1_k2(ki)
+    the plain versions to gsvc_tpu."""
+    if budget == "exact":  # the budget ends where a kept splat's tiles end
+        nth = synthetic_key_inputs(6000, tb, 1 << 22, seed=0, device=dev).nth
+        budget = int(torch.cumsum(nth, 0)[3000])
+        ki = synthetic_key_inputs(6000, tb, budget, seed=0, device=dev)
+        assert int(ki.total_kept) == budget
+    else:
+        ki = synthetic_key_inputs(6000, tb, budget, seed=budget, device=dev,
+                                  y_range=y_range)
+    _check_k1_k2(ki, cap)
 
 
 def _segsum_flags(rng, s, mode):
@@ -351,8 +380,19 @@ def test_transpose_kernels_are_exact(dev, size):
     from gsvc_tpu_torch.scripts import probe_transpose as p6
 
     sc = _bench(dev, size)
-    for x in p6.probe_inputs(sc, dev).values():
-        assert torch.equal(p6.transpose_last2(x), p6.transpose_last2_torch(x))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # both tiles (R <= 16: 16 x 64, else 32 x 32); R or C not a multiple of 4
+    shapes = [(3, 2, 100), (3, 8, 100), (5, 3, 37), (2, 13, 50), (4, 360, 16),
+              (2, 100, 7), (2, 50, 3), (3, 33, 70)]
+    inputs = [torch.rand(shape, generator=gen, device=dev) for shape in shapes]
+    inputs.append(torch.rand(1 + 16 * 16 * 360, generator=gen, device=dev)[1:]
+                  .view(16, 16, 360))  # not 16-byte aligned: the 4-byte loads
+    for x in [*p6.probe_inputs(sc, dev).values(), *inputs]:
+        before = p6.transpose_last2.launches
+        got = p6.transpose_last2(x)
+        torch.cuda.synchronize()
+        assert p6.transpose_last2.launches == before + 1
+        assert torch.equal(got, p6.transpose_last2_torch(x)), tuple(x.shape)
     rows = rasterize_cuda.forward_rows(*sc.rargs)
     before = p6.rows_to_chw.launches
     planar = p6.rows_to_chw(rows, sc.H, sc.W, sc.tb)
