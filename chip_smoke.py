@@ -31,24 +31,33 @@ the first fault:
    "chw"). decoded.rgb must be within 1 uint8 level of the plain path's
    render, and the eval render within 1e-4;
 4. training slice: `fit_frame` with removal control (the K-frame mode) from
-   `init_splats` toward the bench scene's render, twice from one seed: PSNR
-   must rise, the two runs must be bitwise identical, and no binning budget
-   may overflow; then a few adaptive-control steps (the P-frame mode),
-   which revive splats;
+   `init_splats` toward the bench scene's render, its plain steps as
+   CUDA-graph replays (the default), then the same fit with graph=False:
+   PSNR must rise, the two fits must be bitwise identical (parameters,
+   mask, moments, counters, loss, best loss, patience, image), the graph
+   must have replayed, and no binning budget may overflow; then a few
+   adaptive-control steps (the P-frame mode), which revive splats, a
+   pre-train and a QAT fit, each with graphs and with graph=False, bitwise
+   equal;
 5. times: each kernel beside its plain version, the eval render
    (projection + binning + render + clip, "chw") in frames per second, and
-   the train step in ms (kernel path with the rows loss and with the image
-   loss, against the all-PyTorch path), all with CUDA events;
+   a plain train step in ms, eagerly and as a graph replay (represent with
+   the rows loss and with the image loss, QAT), against the all-PyTorch
+   path's eager step, all with CUDA events;
 6. the encoder: a 4-frame 1080p I420 clip (the bench scene, the same moved
    by a few pixels, then a cut to another seed's scene and its move),
    through `python -m gsvc_tpu_torch.drivers.represent` (10k splats,
    --is_rm --is_ad, K-frame detection), `drivers.compress` (QAT, rANS,
-   `frame_N.gsvc`) and `decode`, each by its `main`. It fails unless every
-   CLI returns 0, K_frames.txt starts with 1 and leaves a P-frame, every
-   fit beats its starting render's PSNR, no budget overflow is reported,
-   the bitstream trailers match K_frames.txt, and each decoded PSNR is
-   within 0.1 dB of the compress stage's; it prints per-frame fit seconds,
-   QAT ms a step, eval fps and bpp;
+   `frame_N.gsvc`) and `decode`, each by its `main`, the fits on CUDA
+   graphs. It fails unless every CLI returns 0, K_frames.txt starts with 1
+   and leaves a P-frame, every fit beats its starting render's PSNR, no
+   budget overflow is reported, the bitstream trailers match K_frames.txt,
+   each decoded PSNR is within 0.1 dB of the compress stage's, the fits
+   replayed graphs, and the launch counts of K1-K6 over the three CLIs are
+   the eager encoder's (`ENCODER_LAUNCHES`); it prints per-frame fit
+   seconds, QAT ms a step, eval fps and bpp, each CLI's graph captures,
+   capture seconds, replays and peak device memory, and each coded frame's
+   sha256 beside the eager encoder's (`ENCODER_SHA256`, equal or not);
 7. the profiling path (`gsvc_tpu_torch.scripts`): the harnesses' kernels
    against their plain versions (P1's K4 variants within max-abs 1e-4 and
    within 1e-4 of the plain render's largest entry, which must not be 0,
@@ -72,13 +81,15 @@ Prints a JSON line of the kernels, then, as the last line,
 
     python3 chip_smoke.py --profile
 
-runs phases 0 and 1, then profiles the represent and QAT train steps
-(`profile_steps`: host and device ms a step, launches, device idle share,
-the top device and host ops) and exits without the smoke's checks.
+runs phases 0 and 1, then profiles the represent and QAT train steps, run
+eagerly and as graph replays (`profile_steps`: host and device ms a step,
+launches, device idle share, the top device and host ops) and exits
+without the smoke's checks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -90,7 +101,16 @@ H, W, N = 1080, 1920, 10000
 RENDER_TOL = 1e-4
 GRAD_TOL = 1e-4  # max-abs error over the largest entry of the plain result
 TRAIN_ITERS = 300
+STEP_REPS = 40  # phase 5: timed steps, eager and replayed
 PROFILE_ITERS = 10  # phase 7: timed repetitions of each harness stage
+# phase 6's kernel launches and coded frames as the eager encoder made them
+# (every fit step eager, the same CLIs and seed): the graphs must launch the
+# same kernels; the bytes are compared and printed
+ENCODER_LAUNCHES = {"fill_decode_keys": 18487, "rank_cap_decode": 18487,
+                    "forward_rows": 17660, "backward_slots": 17660,
+                    "segmented_cumsum": 17660, "forward_chw": 808, "forward_image": 19}
+ENCODER_SHA256 = ("99e2fe7f5a9056a9", "b81dc6a0fe55d388", "b905047fe12e5c96",
+                  "52792031c532f8df")
 LIBS = ("fill", "segsum", "rasterize_fwd", "rasterize_bwd", "profile_kernel_parts",
         "profile_bwd_variants", "probe_transpose")
 
@@ -106,12 +126,67 @@ def errors(got, want):
     return err, err / max(float(want.abs().max()), 1e-30)
 
 
+def same_fit(torch, a, b) -> bool:
+    """Whether two represent or QAT states are bitwise equal: their host
+    counters and every tensor they hold (parameters, mask, moments, loss,
+    best loss or PSNR, patience, snapshots)."""
+    from gsvc_tpu_torch.utils.profiling import tensors
+
+    host = ("it", "lr_frozen", "grace")
+    if [getattr(a, k, None) for k in host] != [getattr(b, k, None) for k in host] \
+            or (a.opt.step, a.opt.fresh) != (b.opt.step, b.opt.fresh):
+        return False
+    def held(s):  # a represent state's splats are a module's parameters
+        params = s.params.parameters() if isinstance(s.params, torch.nn.Module) else ()
+        return [*params, *tensors(s)]
+
+    ta, tb = held(a), held(b)
+    return len(ta) == len(tb) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                      for x, y in zip(ta, tb))
+
+
+def plain_step_ms(torch, dev, plan, state, reps: int):
+    """(eager ms, replay ms) of a plain step of `plan` (`utils.graphs.FitPlan`),
+    whose first step is `state`'s next: that step and one more eagerly, then
+    CUDA events around `reps` eager steps, then around `reps` replays of the
+    step's graph after its warm-up and capture."""
+    from gsvc_tpu_torch.utils import graphs
+
+    box = [plan.step(plan.step(state))]
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def eager():
+        box[0] = plan.step(box[0])
+
+    eager_ms = timed(eager)
+    with graphs.StepGraph(dev) as run:
+        def replay():
+            s = box[0]
+            box[0] = run(lambda: plan.step(s), lambda: plan.after_plain(s))
+
+        for _ in range(graphs.WARMUP + 1):
+            replay()
+        replay_ms = timed(replay)
+    return eager_ms, replay_ms
+
+
 def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
     """Phase 6: the 4-frame clip through `drivers.represent`,
     `drivers.compress` and `decode` (each CLI's `main`, with the arguments
     of `scripts.encoder_drift.Run`), checked; returns the launch counts
     summed over the three CLIs."""
     import contextlib
+    import hashlib
     import io
 
     from gsvc_tpu_torch import decode as decode_cli
@@ -120,6 +195,7 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
     from gsvc_tpu_torch.drivers import represent as represent_cli
     from gsvc_tpu_torch.io import process_yuv_video
     from gsvc_tpu_torch.models.represent import render_frame
+    from gsvc_tpu_torch.utils.graphs import StepGraph
     from gsvc_tpu_torch.scripts.encoder_drift import (
         ENC_ITERS,
         QAT_ITERS,
@@ -146,15 +222,19 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
          ("fill_decode_keys", "rank_cap_decode", "forward_image")),
     ]
     total = {c.__name__: 0 for c in counters}
+    graph = StepGraph
     for name, main, argv, needed in clis:
         err = io.StringIO()
         for c in counters:
             c.launches = 0
+        graph.captures, graph.replays, graph.capture_seconds = 0, 0, 0.0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(err):
             rc = main(argv)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
         launches = {c.__name__: c.launches for c in counters}
         sys.stderr.write(err.getvalue())
         if rc != 0:
@@ -164,9 +244,15 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
         missing = [k for k in needed if launches[k] <= 0]
         if missing:
             fail(f"kernels not launched by {name}: {missing}; launches {launches}")
+        if name != "decode" and graph.replays == 0:
+            fail(f"{name}: no fit replayed a CUDA graph")
         for k, v in launches.items():
             total[k] += v
-        print(f"phase 6 {name}: {secs:.2f} s; launches {launches}")
+        print(f"phase 6 {name}: {secs:.2f} s; {graph.captures} graph captures in "
+              f"{graph.capture_seconds:.3f} s, {graph.replays} replays; peak device memory "
+              f"{peak_gb:.2f} GiB; launches {launches}")
+    if total != ENCODER_LAUNCHES:
+        fail(f"phase 6 launches {total}, the eager encoder's {ENCODER_LAUNCHES}")
 
     k_frames = [int(x) for x in run.k_frames.read_text().split()]
     if k_frames[0] != 1 or len(k_frames) >= n_frames:
@@ -204,8 +290,12 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
             fail(f"frame {f}: fitted PSNR {rep[f]['PSNR']} <= initial {init_psnr[f]:.4f}")
         if abs(dec[f]["PSNR"] - enc[f]["PSNR"]) >= 0.1:
             fail(f"frame {f}: decoded PSNR {dec[f]['PSNR']} vs encoder {enc[f]['PSNR']}")
+    sha = [hashlib.sha256((run.bitstream / f"frame_{f}.gsvc").read_bytes()).hexdigest()[:16]
+           for f in range(1, n_frames + 1)]
     print(f"phase 6 encoder [{smi}]: {W}x{H}, {N} splats, {n_frames} frames, K-frames "
-          f"{k_frames}; splats kept {counts}")
+          f"{k_frames}; splats kept {counts}; launches of K1-K6 the eager encoder's; coded "
+          f"frames' sha256 {sha}: " + ("the eager encoder's" if tuple(sha) == ENCODER_SHA256
+                                       else f"differ from the eager encoder's {ENCODER_SHA256}"))
     for f in range(1, n_frames + 1):
         print(f"phase 6 frame {f} [{smi}]: {'K' if f in k_frames else 'P'}; represent "
               f"{ENC_ITERS} its {rep[f]['Training']:.2f} s, PSNR {init_psnr[f]:.3f} -> "
@@ -340,7 +430,8 @@ def profile_steps(np, torch, dev, smi) -> None:
     """`--profile`: where a train step's time goes at 1080p/10k, for the
     represent step (removal control, rows L2, from `init_splats`) and the
     QAT step (K-frame mode, the bench scene as its checkpoint, the compress
-    driver's budget), each fitting the bench scene's render.
+    CLI's budget), each fitting the bench scene's render, as the fits
+    run them: eagerly (graph=False) and as replays of the step's CUDA graph.
 
     Per step: host enqueue and synced ms over 50 chained steps on the host
     clock, then torch.profiler over 20 more (`utils.profiling.profile_device`:
@@ -349,62 +440,67 @@ def profile_steps(np, torch, dev, smi) -> None:
     from gsvc_tpu_torch.config import FrameConfig
     from gsvc_tpu_torch.core import CHOLESKY_BOUND
     from gsvc_tpu_torch.models import compress
-    from gsvc_tpu_torch.models.represent import (
-        init_train_state,
-        make_rows_target,
-        make_train_step,
-    )
+    from gsvc_tpu_torch.models.represent import fit_plan, init_train_state
     from gsvc_tpu_torch.ops.binning import default_max_intersects
     from gsvc_tpu_torch.scripts.common import bench_scene
     from gsvc_tpu_torch.scripts.encoder_drift import render_scene
+    from gsvc_tpu_torch.utils import graphs
     from gsvc_tpu_torch.utils.profiling import device_events, launches, profile_device
 
     tb = ((W + 15) // 16, (H + 15) // 16, 1)
     means, L, colors, opacity = bench_scene(N, dev)
     gt = render_scene(means, L, colors, opacity, H, W, tb)
+    # control every 1000th step: the 130-odd steps below are step 1 and plain steps
     rcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=10**6,
-                       isremoval=True)
-    qcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=1,
+                       isremoval=True, densification_interval=1000)
+    qcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=999,
                        max_intersects=default_max_intersects(N, tb[0] * tb[1], factor=32))
     gmodel = {"_xyz": np.arctanh(means.cpu().numpy()),
               "_cholesky": L.cpu().numpy() - np.float32(CHOLESKY_BOUND),
               "_features_dc": colors.cpu().numpy()}
-    steps = (
-        ("represent step (removal control, rows L2)", make_train_step(rcfg),
-         init_train_state(rcfg, generator=torch.Generator().manual_seed(0), device=dev),
-         make_rows_target(gt, rcfg)),
-        ("QAT step (K-frame)",
-         compress.make_train_step_quantize(qcfg, draws=torch.Generator().manual_seed(0)),
-         compress.init_compress_state(gmodel, None, dev), make_rows_target(gt, qcfg)),
-    )
-    for name, step, state, target in steps:
-        for _ in range(5):
-            state = step(state, gt, target)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(50):
-            state = step(state, gt, target)
-        enqueue_ms = (time.perf_counter() - t0) / 50 * 1e3
-        torch.cuda.synchronize()
-        synced_ms = (time.perf_counter() - t0) / 50 * 1e3
-        box = [state]
 
-        def once(step=step, target=target):
-            box[0] = step(box[0], gt, target)
+    def represent():
+        state = init_train_state(rcfg, generator=torch.Generator().manual_seed(0), device=dev)
+        return fit_plan(state, gt, 999, rcfg), state
 
-        busy_ms, events = profile_device(once, 20)
-        device = device_events(events)
-        print(f"profile [{smi}]: {name}: host enqueue {enqueue_ms:.4f} ms, synced "
-              f"{synced_ms:.4f} ms a step; device busy {busy_ms:.4f} ms over "
-              f"{sum(e.count for e in device) / 20:.1f} device events and "
-              f"{launches(events) / 20:.1f} kernel launches a step; device idle "
-              f"{100 * (1 - busy_ms / synced_ms):.1f} %")
-        for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
-            print(f"profile   device {e.key[:64]:64s} {e.self_device_time_total / 20:9.1f} "
-                  f"us x{e.count / 20:.1f} a step")
-        for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]:
-            print(f"profile   host {e.key[:64]:64s} {e.self_cpu_time_total / 20:9.1f} "
-                  f"us x{e.count / 20:.1f} a step")
+    def qat():  # step 1 runs k-means
+        state = compress.init_compress_state(gmodel, None, dev)
+        return compress.qat_plan(state, gt, qcfg, torch.Generator().manual_seed(0)), state
+
+    for name, make in (("represent step (removal control, rows L2)", represent),
+                       ("QAT step (K-frame)", qat)):
+        for how in ("eager", "graph"):
+            plan, state = make()
+            state = plan.step(state)
+            with graphs.StepGraph(dev) if how == "graph" else graphs.Eager() as run:
+                box = [state]
+
+                def once(plan=plan, run=run, box=box):
+                    s = box[0]
+                    box[0] = run(lambda: plan.step(s), lambda: plan.after_plain(s))
+
+                for _ in range(graphs.WARMUP + 1):
+                    once()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    once()
+                enqueue_ms = (time.perf_counter() - t0) / 50 * 1e3
+                torch.cuda.synchronize()
+                synced_ms = (time.perf_counter() - t0) / 50 * 1e3
+                busy_ms, events = profile_device(once, 20)
+            device = device_events(events)
+            print(f"profile [{smi}]: {name}, {how}: host enqueue {enqueue_ms:.4f} ms, synced "
+                  f"{synced_ms:.4f} ms a step; device busy {busy_ms:.4f} ms over "
+                  f"{sum(e.count for e in device) / 20:.1f} device events and "
+                  f"{launches(events) / 20:.1f} kernel launches a step; device idle "
+                  f"{100 * (1 - busy_ms / synced_ms):.1f} %")
+            for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
+                print(f"profile   device {e.key[:64]:64s} {e.self_device_time_total / 20:9.1f} "
+                      f"us x{e.count / 20:.1f} a step")
+            for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]:
+                print(f"profile   host {e.key[:64]:64s} {e.self_cpu_time_total / 20:9.1f} "
+                      f"us x{e.count / 20:.1f} a step")
 
 
 def main() -> int:
@@ -442,11 +538,14 @@ def main() -> int:
     )
     from gsvc_tpu_torch.config import FrameConfig
     from gsvc_tpu_torch.core import CHOLESKY_BOUND, from_numpy
+    from gsvc_tpu_torch.models import compress
     from gsvc_tpu_torch.models.represent import (
         fit_frame,
+        fit_plan,
+        fit_twins,
         init_train_state,
-        make_rows_target,
         make_train_step,
+        pre_train_frame,
         render_frame,
     )
     from gsvc_tpu_torch.ops import fill_cuda, rasterize_cuda
@@ -455,7 +554,8 @@ def main() -> int:
     from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum
     from gsvc_tpu_torch.scripts.common import scene
     from gsvc_tpu_torch.utils import sass, work
-    from gsvc_tpu_torch.utils.profiling import device_loop_time, event_ms
+    from gsvc_tpu_torch.utils.graphs import StepGraph
+    from gsvc_tpu_torch.utils.profiling import device_loop_time
 
     # -- phase 1: build --------------------------------------------------
     t0 = time.perf_counter()
@@ -681,22 +781,32 @@ def main() -> int:
     def psnr_of(img):
         return float(10.0 * torch.log10(1.0 / torch.mean((img - gt) ** 2)))
 
-    def fit(cfg, seed=0):
+    def fit(cfg, seed=0, graph=None):
         state = init_train_state(cfg, generator=torch.Generator().manual_seed(seed),
                                  device=dev)
         psnr0 = psnr_of(render_frame(state.params, state.alive, cfg))
-        res = fit_frame(state, gt, cfg,
+        res = fit_frame(state, gt, cfg, graph=graph,
                         draws=torch.Generator(device=dev).manual_seed(seed + 1))
         return psnr0, res
+
+    def replayed(fn):
+        """fn()'s result, failing unless it replayed a CUDA graph."""
+        before = StepGraph.replays
+        out = fn()
+        if StepGraph.replays == before:
+            fail("a fit with graphs replayed none")
+        return out
 
     kcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N,
                        iterations=TRAIN_ITERS, isremoval=True)
     for c in counters:
         c.launches = 0
+    StepGraph.capture_seconds = 0.0
     t0 = time.perf_counter()
-    psnr0, res = fit(kcfg)
+    psnr0, res = replayed(lambda: fit(kcfg))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    capture_s = StepGraph.capture_seconds
     train_launches = {c.__name__: c.launches for c in counters}
     missing = [k for k in train_kernels if train_launches[k] <= 0]
     if missing:
@@ -709,22 +819,43 @@ def main() -> int:
     if int(res.state.max_overflow) != 0:
         fail(f"binning budget overflowed by {int(res.state.max_overflow)}")
     alive_k = int(res.state.alive.sum())
-    _psnr0b, res_b = fit(kcfg)
-    same = all(torch.equal(getattr(res.state.params, k), getattr(res_b.state.params, k))
-               for k in ("xyz", "cholesky", "features_dc", "rgb_w"))
-    if not (same and torch.equal(res.image, res_b.image)
-            and torch.equal(res.state.alive, res_b.state.alive)):
-        fail("two fits from one seed differ")
+    t0 = time.perf_counter()
+    _psnr0b, res_b = fit(kcfg, graph=False)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    if not (same_fit(torch, res.state, res_b.state) and torch.equal(res.image, res_b.image)):
+        fail("the fit with graphs differs from the fit with graph=False")
     dcfg = FrameConfig(H=H, W=W, num_points=9000, max_num_points=N, iterations=5,
                        isdensity=True)
-    _p, res_d = fit(dcfg, seed=3)
+    _p, res_d = replayed(lambda: fit(dcfg, seed=3))
     alive_d = int(res_d.state.alive.sum())
     if alive_d != N or not torch.isfinite(res_d.image).all():
         fail(f"adaptive control: {alive_d} alive after the revive, want {N}")
+    if not same_fit(torch, res_d.state, fit(dcfg, seed=3, graph=False)[1].state):
+        fail("adaptive control: the fit with graphs differs from graph=False")
+    # the K-frame detector's pre-train and a QAT fit on the scene as its checkpoint
+    pcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=100)
+    pre = [pre_train_frame(init_train_state(pcfg, generator=torch.Generator().manual_seed(4),
+                                            device=dev), gt, pcfg, graph=g).state
+           for g in (None, False)]
+    qcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=60)
+    gmodel = {"_xyz": np.arctanh(means.cpu().numpy()),
+              "_cholesky": L.cpu().numpy() - np.asarray(CHOLESKY_BOUND, np.float32),
+              "_features_dc": colors.cpu().numpy()}
+    qat = [compress.fit_compress(compress.init_compress_state(gmodel, None, dev), gt, qcfg,
+                                 reload_best=False, draws=torch.Generator().manual_seed(0),
+                                 graph=g)
+           for g in (None, False)]
+    for name, (a, b) in (("pre-train", pre), ("QAT fit", qat)):
+        if not same_fit(torch, a, b):
+            fail(f"{name}: the fit with graphs differs from graph=False")
     print(f"phase 4 training slice: fit_frame {TRAIN_ITERS} its (removal "
-          f"control) in {fit_s:.2f} s, PSNR {psnr0:.3f} -> {psnr1:.3f} dB, "
-          f"{alive_k} alive, overflow 0; a second fit is bitwise identical; "
-          f"adaptive control revived to {alive_d}; launches {train_launches}")
+          f"control) on graphs in {fit_s:.2f} s (capture {capture_s:.3f} s), with "
+          f"graph=False in {eager_s:.2f} s: bitwise equal; PSNR {psnr0:.3f} -> "
+          f"{psnr1:.3f} dB, {alive_k} alive, overflow 0; adaptive control revived to "
+          f"{alive_d}, a pre-train of {pcfg.iterations} and a QAT fit of "
+          f"{qcfg.iterations} its, each on graphs bitwise equal to graph=False; "
+          f"launches {train_launches}")
 
     # -- phase 5: times --------------------------------------------------
     def eval_fps(backend: str, reps: int) -> float:
@@ -785,37 +916,49 @@ def main() -> int:
           f"{fps['cuda']}, plain path {fps['torch']} (order plain, kernel, "
           f"kernel, plain)")
 
-    def train_step_ms(backend: str, rows_loss: bool, reps: int) -> float:
-        """Mean ms of the removal-control train step, chained through its
-        parameters, CUDA events around `reps` steps after two warm-ups."""
+    def represent_plan(backend: str, rows_loss: bool):
+        """The plan of a removal-control fit's steps 1..99 (step 1 its only
+        control step) and its state; the L2 loss in the rasterizer's
+        tile-row layout or on the image."""
         cfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N,
                           iterations=10**6, isremoval=True, backend=backend)
         state = init_train_state(cfg, generator=torch.Generator().manual_seed(0),
                                  device=dev)
-        step = make_train_step(cfg)
-        target = make_rows_target(gt, cfg) if rows_loss else None
-        for _ in range(2):
-            state = step(state, gt, target)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            state = step(state, gt, target)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
+        plan = fit_plan(state, gt, 99, cfg)
+        if not rows_loss:
+            step, twins = make_train_step(cfg), fit_twins(state, 99, cfg)
+            plan = plan._replace(step=lambda s: step(s, gt, None, twins))
+        return plan, state
 
-    step_ms = {"plain": [], "kernel rows loss": [], "kernel image loss": []}
-    for key in ("plain", "kernel rows loss", "kernel image loss",
+    def qat_plan():
+        state = compress.init_compress_state(gmodel, None, dev)
+        return compress.qat_plan(state, gt, qcfg, torch.Generator().manual_seed(0)), state
+
+    qcfg = dataclasses.replace(qcfg, iterations=99)
+    step_ms = {"plain": [], "kernel rows loss": [], "kernel image loss": [], "QAT": []}
+    for key in ("plain", "kernel rows loss", "kernel image loss", "QAT", "QAT",
                 "kernel image loss", "kernel rows loss", "plain"):
-        if key == "plain":
-            step_ms[key].append(train_step_ms("torch", False, 3))
+        if key == "plain":  # the all-PyTorch path, eagerly: ~1 s a step
+            plan, state = represent_plan("torch", False)
+            state = plan.step(plan.step(state))
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(2):
+                state = plan.step(state)
+            end.record()
+            end.synchronize()
+            step_ms[key].append(start.elapsed_time(end) / 2)
         else:
-            step_ms[key].append(train_step_ms("cuda", key.endswith("rows loss"), 50))
-    print(f"phase 5 time [{smi}]: train step 1080p/10k ms (removal control, "
-          f"L2): " + "; ".join(f"{k} {v}" for k, v in step_ms.items())
-          + " (order plain, rows, image, image, rows, plain)")
+            plan, state = (qat_plan() if key == "QAT"
+                           else represent_plan("cuda", key.endswith("rows loss")))
+            step_ms[key].append(plain_step_ms(torch, dev, plan, state, STEP_REPS))
+    print(f"phase 5 time [{smi}]: train step 1080p/10k ms, (eager, graph replay) with "
+          f"CUDA events over {STEP_REPS} steps each (plain: 2, eager only; represent: "
+          f"removal control, L2; QAT: K-frame): "
+          + "; ".join(f"{k} {v}" for k, v in step_ms.items())
+          + " (order plain, rows, image, QAT, QAT, image, rows, plain)")
 
     # -- phase 6: the encoder, YUV -> .gsvc -> decoded frames --------------
     torch.set_grad_enabled(True)

@@ -7,6 +7,7 @@ capacity N, beside an `alive` mask as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 from collections.abc import Mapping
 from typing import Optional, Sequence
 
@@ -17,6 +18,13 @@ from torch import nn
 # Added to the raw cholesky parameters before building the covariance
 # (reference GaussianSplats_Represent.py:45).
 CHOLESKY_BOUND = (0.5, 0.0, 0.5)
+
+
+@functools.lru_cache(maxsize=None)
+def cholesky_bound(device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """CHOLESKY_BOUND on `device`, made once a device (a copy from host
+    memory, which a step under CUDA-graph capture could not make)."""
+    return torch.tensor(CHOLESKY_BOUND, dtype=dtype, device=device)
 
 
 class GaussianFrame(nn.Module):
@@ -34,11 +42,8 @@ class GaussianFrame(nn.Module):
         self.features_dc = nn.Parameter(features_dc)
         self.rgb_w = nn.Parameter(rgb_w)
         # a buffer, so the training step adds it without a host-to-device copy
-        self.register_buffer(
-            "_bound",
-            torch.tensor(CHOLESKY_BOUND, dtype=cholesky.dtype, device=cholesky.device),
-            persistent=False,
-        )
+        self.register_buffer("_bound", cholesky_bound(cholesky.device, cholesky.dtype),
+                             persistent=False)
 
     @property
     def capacity(self) -> int:

@@ -17,6 +17,15 @@ gradient back to the splats. The best snapshot is chosen on the device
 with torch.where, so a step never waits for the host; the iteration
 counter is a host int.
 
+A step writes its results into the state's own tensors with `copy_` and
+reads Adan's step scalars and fresh flag from device twins
+(`utils.graphs.Twins`), so on a CUDA device `fit_compress` runs each plain
+step as a replay of one captured CUDA graph (gsvc_tpu's `lax.scan` inside
+the jitted fit); the first step of an un-initialised VQ, which runs
+k-means from `draws`, runs eagerly (`plan_steps`). `graph=False` runs every
+step eagerly, with the same bits. The fit updates the given state's
+tensors in place.
+
 Bit accounting runs on the host after training (`measure_bits`): fp16
 means (16 * N * 2 bits), rANS-coded cholesky codes + f32 scale / beta
 (quantize.py:72-80), the VQ codebook + rANS-coded stage indices
@@ -26,7 +35,6 @@ means (16 * N * 2 bits), rANS-coded cholesky codes + f32 scale / beta
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -47,13 +55,13 @@ from gsvc_tpu_torch.compress.quantizers import (
     uniform_quantizer_init,
 )
 from gsvc_tpu_torch.config import FrameConfig
-from gsvc_tpu_torch.core import CHOLESKY_BOUND
-from gsvc_tpu_torch.models.represent import _clip01, _rows_target_for
+from gsvc_tpu_torch.core import cholesky_bound
+from gsvc_tpu_torch.models.represent import _clip01, _rows_target_for, step_twins
 from gsvc_tpu_torch.ops.binning import budget_overflow, default_max_intersects
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
 from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
-from gsvc_tpu_torch.optim.adan import AdanState, adan_init, adan_step
-from gsvc_tpu_torch.optim.schedule import step_lr
+from gsvc_tpu_torch.optim.adan import AdanState, adan_host_step, adan_init, adan_step_
+from gsvc_tpu_torch.utils import graphs
 from gsvc_tpu_torch.utils.profiling import _sync
 
 CHOL_BITS = 6  # UniformQuantizer(bits=6), GaussianSplats_Compress.py:37
@@ -101,8 +109,8 @@ def init_compress_state(gmodel: dict, p_gmodel: Optional[dict] = None,
     (train_video_Compress.py:74-80). Delta mode (P-frames): trainable
     params = gmodel - p_gmodel, frozen buffers = p_gmodel (:51-72)."""
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+    def t(a):  # a copy: the fit updates the parameters in place
+        return torch.tensor(np.asarray(a, np.float32), device=device)
 
     xyz, chol, feat = t(gmodel["_xyz"]), t(gmodel["_cholesky"]), t(gmodel["_features_dc"])
     if p_gmodel is not None:
@@ -125,18 +133,14 @@ def init_compress_state(gmodel: dict, p_gmodel: Optional[dict] = None,
     def scalar(v):
         return torch.tensor(v, dtype=torch.float32, device=device)
 
+    # the fit updates params in place, so the snapshot starts as a copy
+    best_params = CompressParams(**{k: v.clone() for k, v in _p2d(params).items()})
     return CompressState(
         params=params, vq=residual_vq_init(2, 8, 3, device), opt=adan_init(_p2d(params)),
-        it=0, best_psnr=scalar(float("-inf")), best_params=params,
+        it=0, best_psnr=scalar(float("-inf")), best_params=best_params,
         best_vq=residual_vq_init(2, 8, 3, device), loss=scalar(float("inf")),
         psnr=scalar(0.0), p_xyz=p_xyz, p_cholesky=p_chol, p_features_dc=p_feat,
     )
-
-
-@functools.lru_cache(maxsize=None)
-def _bound(device: torch.device) -> torch.Tensor:
-    """CHOLESKY_BOUND on `device`, made once (no copy per step)."""
-    return torch.tensor(CHOLESKY_BOUND, dtype=torch.float32, device=device)
 
 
 def _quantized_geometry(params: CompressParams, p_xyz, p_cholesky):
@@ -144,7 +148,7 @@ def _quantized_geometry(params: CompressParams, p_xyz, p_cholesky):
     means = torch.tanh(fake_quantize_half(params.xyz) + p_xyz)
     uq = UniformQuantParams(scale=params.q_scale, beta=params.q_beta)
     chol_deq, chol_codes = uniform_quantize(params.cholesky, uq, CHOL_BITS)
-    chol = chol_deq + _bound(chol_deq.device) + p_cholesky
+    chol = chol_deq + cholesky_bound(chol_deq.device) + p_cholesky
     return means, chol, chol_codes
 
 
@@ -198,14 +202,14 @@ def compress_overflow(state: CompressState, cfg: FrameConfig) -> torch.Tensor:
     return budget_overflow(nth, mi)
 
 
-def _pick(improved: torch.Tensor, new, old):
-    """Field-wise torch.where(improved, new, old) over a dataclass of
-    tensors (host fields are taken from `new`)."""
-    return dataclasses.replace(new, **{
-        f.name: torch.where(improved, getattr(new, f.name), getattr(old, f.name))
-        for f in dataclasses.fields(new)
-        if isinstance(getattr(new, f.name), torch.Tensor)
-    })
+def _assign(dst, src, where: Optional[torch.Tensor] = None) -> None:
+    """dst <- src, or torch.where(where, src, dst), field by field in dst's
+    own tensors (dataclasses of tensors; host fields untouched)."""
+    for f in dataclasses.fields(dst):
+        d = getattr(dst, f.name)
+        if isinstance(d, torch.Tensor):
+            v = getattr(src, f.name)
+            d.copy_(v if where is None else torch.where(where, v, d))
 
 
 def _loss_and_grads(state: CompressState, gt: torch.Tensor, cfg: FrameConfig,
@@ -232,38 +236,67 @@ def make_train_step_quantize(cfg: FrameConfig, shard=None, draws: VQDraws = None
     """train_iter_quantize (GaussianSplats_Compress.py:86-98): loss =
     L2(recon) + vq_loss; Adan step; StepLR; best-PSNR snapshot.
 
-    step(state, gt, rows_target=None) returns the next state; with
-    `rows_target` (models.represent.make_rows_target) the L2 runs in the
-    rasterizer's tile-row layout. `draws` picks the k-means rows of the
-    first step (see compress.quantizers)."""
+    step(state, gt, rows_target=None, twins=None) writes the step into the
+    state's own tensors and returns the state with its host fields moved
+    on; with `rows_target` (models.represent.make_rows_target) the L2 runs
+    in the rasterizer's tile-row layout. `twins` (`represent.step_twins`,
+    made once a fit slice) holds the device copies of the host values the
+    step reads; without them the step makes its own for this one step.
+    `draws` picks the k-means rows of the first step (see
+    compress.quantizers)."""
     if shard is not None:
         raise NotImplementedError(f"shard {SHARDING}")
 
-    def step(state: CompressState, gt: torch.Tensor, rows_target=None) -> CompressState:
-        it = state.it + 1
+    def step(state: CompressState, gt: torch.Tensor, rows_target=None,
+             twins: Optional[graphs.Twins] = None) -> CompressState:
+        if twins is None:
+            twins = step_twins(state.opt, state.it, state.it + 1, cfg, state.psnr.device)
         recon, vq_loss, grads, new_vq = _loss_and_grads(state, gt, cfg, rows_target, draws)
         with torch.no_grad():
             psnr = 10.0 * torch.log10(1.0 / torch.clamp(recon, min=1e-20))
-            new_tr, new_opt = adan_step(
-                _p2d(state.params), grads, state.opt, step_lr(cfg.lr, it - 1),
-                betas=cfg.betas, eps=cfg.eps)
-            new_params = CompressParams(**new_tr)
+            opt = adan_step_(_p2d(state.params), grads, state.opt, twins.scalars,
+                             twins.fresh, betas=cfg.betas, eps=cfg.eps)
+            twins.row.add_(1)
             improved = psnr > state.best_psnr
-            return dataclasses.replace(
-                state,
-                params=new_params,
-                vq=new_vq,
-                opt=new_opt,
-                it=it,
-                best_psnr=torch.maximum(psnr, state.best_psnr),
-                # initted (host) is True from the first training step on
-                best_params=_pick(improved, new_params, state.best_params),
-                best_vq=_pick(improved, new_vq, state.best_vq),
-                loss=recon + vq_loss,
-                psnr=psnr,
-            )
+            state.best_psnr.copy_(torch.maximum(psnr, state.best_psnr))
+            _assign(state.best_params, state.params, improved)
+            _assign(state.best_vq, new_vq, improved)
+            _assign(state.vq, new_vq)
+            state.loss.copy_(recon + vq_loss)
+            state.psnr.copy_(psnr)
+        # initted (host) is True from the first training step on
+        return dataclasses.replace(
+            state, opt=opt, it=state.it + 1,
+            vq=dataclasses.replace(state.vq, initted=new_vq.initted),
+            best_vq=dataclasses.replace(state.best_vq, initted=new_vq.initted))
 
     return step
+
+
+def plan_steps(it: int, limit: int, initted: bool) -> list:
+    """Steps it + 1 .. limit of a QAT fit as runs [(first, count, eager)]:
+    the first step of an un-initialised VQ (k-means from `draws`, and the
+    host flag `initted` flips) alone and eager, the rest one run."""
+    return graphs.plan_runs(it, limit, lambda i: i == it + 1 and not initted)
+
+
+def _after_plain(state: CompressState) -> CompressState:
+    """The host fields after a replayed QAT step: the iteration and Adan's
+    step move on."""
+    return dataclasses.replace(state, it=state.it + 1, opt=adan_host_step(state.opt))
+
+
+def qat_plan(state: CompressState, gt: torch.Tensor, cfg: FrameConfig,
+             draws: VQDraws = None) -> graphs.FitPlan:
+    """The QAT slice of cfg.iterations steps from state.it: its runs, its
+    step on the slice's twins and rows target, the host fields after a
+    plain step."""
+    step = make_train_step_quantize(cfg, draws=draws)
+    rows_target = _rows_target_for(gt, cfg)
+    limit = state.it + cfg.iterations
+    twins = step_twins(state.opt, state.it, limit, cfg, state.psnr.device)
+    return graphs.FitPlan(plan_steps(state.it, limit, state.vq.initted),
+                          lambda s: step(s, gt, rows_target, twins), _after_plain)
 
 
 def _reload_best(state: CompressState) -> CompressState:
@@ -272,26 +305,28 @@ def _reload_best(state: CompressState) -> CompressState:
 
 
 def fit_compress(state: CompressState, gt: torch.Tensor, cfg: FrameConfig,
-                 reload_best: bool = True, draws: VQDraws = None) -> CompressState:
+                 reload_best: bool = True, draws: VQDraws = None,
+                 graph: Optional[bool] = None) -> CompressState:
     """cfg.iterations QAT steps, then the best-PSNR snapshot
     (train_video_Compress.py:89-102). reload_best=False leaves the last
-    state, so the fit can be resumed (`fit_compress_chunked`)."""
-    step = make_train_step_quantize(cfg, draws=draws)
-    rows_target = _rows_target_for(gt, cfg)
-    for _ in range(cfg.iterations):
-        state = step(state, gt, rows_target)
+    state, so the fit can be resumed (`fit_compress_chunked`). graph None
+    (the default) runs the plain steps as CUDA-graph replays on a CUDA
+    device and eagerly on the CPU; False runs every step eagerly, with the
+    same bits; True on the CPU raises."""
+    state = graphs.run_fit(state, qat_plan(state, gt, cfg, draws), gt.device, graph)
     return _reload_best(state) if reload_best else state
 
 
 def fit_compress_chunked(state: CompressState, gt: torch.Tensor, cfg: FrameConfig,
-                         chunk: int, draws: VQDraws = None) -> CompressState:
+                         chunk: int, draws: VQDraws = None,
+                         graph: Optional[bool] = None) -> CompressState:
     """fit_compress in slices of at most `chunk` iterations, synced between
     slices; the same trajectory, the best snapshot reloaded once at the end."""
     done = 0
     while done < cfg.iterations:
         n = min(chunk, cfg.iterations - done)
         state = fit_compress(state, gt, dataclasses.replace(cfg, iterations=n),
-                             reload_best=False, draws=draws)
+                             reload_best=False, draws=draws, graph=graph)
         _sync(state.loss)
         done += n
     return _reload_best(state)

@@ -7,13 +7,25 @@ One step is the reference train_iter (GaussianSplats_Represent.py:191-207):
 render, loss, backward (autograd; on the "cuda" backend the rasterizer's
 backward is K6 and the K3 reduction), splat control, Adan, StepLR, the
 binning-overflow check and early stopping. Splats live at a fixed capacity
-beside an `alive` mask, as in gsvc_tpu. The port updates the parameters in
-place (saves a copy of every tensor per step) and keeps the iteration
+beside an `alive` mask, as in gsvc_tpu. The port keeps the iteration
 counter, the Adan step, `lr_frozen` and the early-stop grace on the host,
 so control iterations need no sync; the device is read only where the JAX
 step branches on a device value: the prune count at the control threshold
 and the early-stop patience (`fit_frame` reads it only when it could have
 run out).
+
+A step writes every new value into the state's own tensors with `copy_`
+(values unchanged), so the tensors of a state never change during a fit,
+and reads the host values it depends on from their device twins
+(`utils.graphs.Twins`: Adan's step scalars, folded with the StepLR rate
+into one table a fit slice, Adan's fresh flag and the grace). On a CUDA
+device the fits (`fit_frame(_partial)`, `pre_train_frame`) therefore run
+each plain step as a replay of one captured CUDA graph, gsvc_tpu's one
+jitted `lax.while_loop` / `lax.scan` a fit; the control steps (`it == 1`
+and every `densification_interval`-th, where the mask is rebuilt, the
+moments reset and the overflow checked) run eagerly (`plan_steps`).
+`graph=False` runs every step eagerly, with the same bits. The fits update
+the given state's tensors in place and return a state that holds them.
 
 Reference quirks kept (see gsvc_tpu's module docstring): control
 iterations that rebuild parameters skip the Adan update and restart its
@@ -35,17 +47,20 @@ import numpy as np
 import torch
 
 from gsvc_tpu_torch.config import FrameConfig
-from gsvc_tpu_torch.core import CHOLESKY_BOUND, GaussianFrame, init_splats
+from gsvc_tpu_torch.core import GaussianFrame, cholesky_bound, init_splats
 from gsvc_tpu_torch.ops.binning import budget_overflow, default_max_intersects
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
 from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum
 from gsvc_tpu_torch.optim.adan import (
     AdanState,
     adan_init,
-    adan_reset_moments,
-    adan_step,
+    adan_host_step,
+    adan_reset_moments_,
+    adan_step_,
+    adan_table,
 )
 from gsvc_tpu_torch.optim.schedule import step_lr
+from gsvc_tpu_torch.utils import graphs
 from gsvc_tpu_torch.utils.losses import loss_fn
 
 Draws = Union[None, torch.Generator, Callable[[int], tuple]]
@@ -171,9 +186,7 @@ def render_frame_pos(
     cholesky of 1.0 (+ bound), [H, W, 3] (GaussianSplats_Represent.py:72-82)."""
     n = params.capacity
     dev = params.xyz.device
-    cholesky = torch.full((n, 3), 1.0, dtype=torch.float32, device=dev) + torch.tensor(
-        CHOLESKY_BOUND, dtype=torch.float32, device=dev
-    )
+    cholesky = torch.full((n, 3), 1.0, dtype=torch.float32, device=dev) + cholesky_bound(dev)
     xys, depths, radii, conics, nth = project_gaussians_2d(
         params.get_xyz, cholesky, cfg.H, cfg.W,
         cfg.tile_bounds, cfg.block_w, cfg.block_h, alive=alive,
@@ -294,10 +307,17 @@ def _threshold_prune(params, alive, target: int):
     return alive, False
 
 
+# splat control's thresholds: removal prunes until iteration 4000
+# (GaussianSplats_Represent.py:98-128); adaptive control revives at 1,
+# prunes from 500 and stops at 1000 (:130-172)
+REMOVAL_THRESHOLD = 4000
+DENSITY_ADD, DENSITY_REMOVE = 500, 500
+
+
 def _removal_control(params, alive, it: int, cfg: FrameConfig):
     """GaussianSplats_Represent.py:98-128. Returns (params, alive, rebuilt,
     hit_threshold)."""
-    thresh = 4000
+    thresh = REMOVAL_THRESHOLD
     interval_events = thresh // cfg.densification_interval
     per_step = int((cfg.removal_rate / interval_events) * cfg.max_num_points)
     target = int(cfg.max_num_points * (1.0 - cfg.removal_rate))
@@ -312,7 +332,7 @@ def _removal_control(params, alive, it: int, cfg: FrameConfig):
 def _adaptive_control(params, alive, draws: Draws, it: int, cfg: FrameConfig):
     """GaussianSplats_Represent.py:130-172. Returns (params, alive, rebuilt,
     hit_threshold)."""
-    t_rm, t_add = 500, 500
+    t_rm, t_add = DENSITY_REMOVE, DENSITY_ADD
     thresh = t_rm + t_add
     den = int(cfg.max_num_points * cfg.removal_rate)
     events = t_rm // cfg.densification_interval
@@ -343,88 +363,156 @@ def _loss_and_grads(state: TrainState, gt, cfg: FrameConfig, lambda_value,
     return loss.detach(), sq, dict(zip(tr, grads))
 
 
+def control_step(it: int, cfg: FrameConfig) -> bool:
+    """Whether iteration `it` (1-based) is a control step, which runs
+    eagerly: it == 1 and every densification_interval-th iteration in every
+    mode (the binning-overflow check runs there; with --is_ad / --is_rm the
+    mask is rebuilt and the moments reset)."""
+    return it == 1 or it % cfg.densification_interval == 0
+
+
+def _hits_threshold(it: int, cfg: FrameConfig) -> bool:
+    """Whether step `it` is the control threshold, after which the rate is
+    frozen and Adan's step restarts (the hit_threshold `_removal_control` /
+    `_adaptive_control` return there)."""
+    thresh = (DENSITY_ADD + DENSITY_REMOVE if cfg.isdensity
+              else REMOVAL_THRESHOLD if cfg.isremoval else None)
+    return it == thresh and it % cfg.densification_interval == 0
+
+
+def plan_steps(it: int, limit: int, cfg: FrameConfig) -> list:
+    """Steps it + 1 .. limit of a represent fit as runs [(first, count,
+    eager)]: each control step (`control_step`) alone and eager, the plain
+    steps between them one run (`utils.graphs.plan_runs`)."""
+    return graphs.plan_runs(it, limit, lambda i: control_step(i, cfg))
+
+
+def step_twins(opt: AdanState, it: int, limit: int, cfg: FrameConfig, device,
+               grace: Optional[int] = None, lr_frozen: bool = False,
+               threshold: Callable[[int], bool] = lambda i: False) -> graphs.Twins:
+    """The device twins of the steps it + 1 .. limit: Adan's scalars of each
+    (its step counter and the StepLR rate as the steps move them: frozen
+    from the step where threshold(i) holds, where Adan's step restarts),
+    Adan's fresh flag and, for a fit, the early-stop grace."""
+    steps = []
+    step, frozen = opt.step, lr_frozen
+    for i in range(it + 1, limit + 1):
+        hit = threshold(i)
+        frozen = frozen or hit
+        steps.append((step + 1, cfg.lr if frozen else step_lr(cfg.lr, i - 1)))
+        step = 0 if hit else step + 1
+    return graphs.make_twins(adan_table(steps, cfg.betas, device=device), opt.fresh,
+                             grace, device)
+
+
+def fit_twins(state: TrainState, limit: int, cfg: FrameConfig) -> graphs.Twins:
+    """`step_twins` of the fit slice from state.it to `limit`."""
+    return step_twins(state.opt, state.it, limit, cfg, state.alive.device, state.grace,
+                      state.lr_frozen, lambda i: _hits_threshold(i, cfg))
+
+
+def _assign_splats(dst: GaussianFrame, src: GaussianFrame) -> None:
+    """Copy `src`'s splats into `dst`'s own parameter tensors."""
+    for name in ("xyz", "cholesky", "features_dc", "rgb_w"):
+        getattr(dst, name).copy_(getattr(src, name))
+
+
 def make_train_step(cfg: FrameConfig, lambda_value: float = 0.0,
                     draws: Draws = None):
     """One reference train_iter: forward/loss/backward, splat control, Adan
     step, scheduler step, overflow check, early stopping.
 
-    step(state, gt, rows_target=None) updates the state's parameters in
-    place and returns the next state; `rows_target` (make_rows_target,
-    made once per frame) runs the loss in tile-row space."""
+    step(state, gt, rows_target=None, twins=None) writes the step into the
+    state's own tensors and returns the state with its host fields moved on;
+    `rows_target` (make_rows_target, made once per frame) runs the loss in
+    tile-row space. `twins` (`fit_twins`, made once a fit slice) holds the
+    device copies of the host values the step reads; without them the step
+    makes its own for this one step."""
     num_tiles = cfg.tile_bounds[0] * cfg.tile_bounds[1]
     mi = (cfg.max_intersects if cfg.max_intersects is not None
           else default_max_intersects(cfg.max_num_points, num_tiles))
-    interval = cfg.densification_interval
 
-    def step(state: TrainState, gt: torch.Tensor, rows_target=None) -> TrainState:
+    def step(state: TrainState, gt: torch.Tensor, rows_target=None,
+             twins: Optional[graphs.Twins] = None) -> TrainState:
+        if twins is None:
+            twins = fit_twins(state, state.it + 1, cfg)
         it = state.it + 1  # 1-based like the reference loop
         loss, sq, grads = _loss_and_grads(state, gt, cfg, lambda_value, rows_target)
         psnr = _psnr(cfg, sq)
 
-        params, alive = state.params, state.alive
+        params, alive, opt = state.params, state.alive, state.opt
         rebuilt = hit_threshold = False
         with torch.no_grad():
-            if cfg.isdensity and (it == 1 or it % interval == 0):
-                params, alive, rebuilt, hit_threshold = _adaptive_control(
-                    params, alive, draws, it, cfg)
-            elif cfg.isremoval and not cfg.isdensity and it % interval == 0:
-                params, alive, rebuilt, hit_threshold = _removal_control(
-                    params, alive, it, cfg)
-
-            # binning budget overflow, on the control-step parameters (a
-            # silent overflow drops the highest-index splats and their grads)
-            max_overflow = state.max_overflow
-            if it == 1 or it % interval == 0:
+            if control_step(it, cfg):
+                new = None
+                if cfg.isdensity:
+                    new = _adaptive_control(params, alive, draws, it, cfg)
+                elif cfg.isremoval and it % cfg.densification_interval == 0:
+                    new = _removal_control(params, alive, it, cfg)
+                if new is not None:
+                    new_params, new_alive, rebuilt, hit_threshold = new
+                    if new_params is not params:
+                        _assign_splats(params, new_params)
+                    alive.copy_(new_alive)
+                # binning budget overflow, on the control-step parameters (a
+                # silent overflow drops the highest-index splats and their grads)
                 nth = project_gaussians_2d(
                     params.get_xyz, params.get_cholesky_elements, cfg.H, cfg.W,
                     cfg.tile_bounds, cfg.block_w, cfg.block_h, alive=alive)[4]
-                max_overflow = torch.maximum(max_overflow, budget_overflow(nth, mi))
+                state.max_overflow.copy_(
+                    torch.maximum(state.max_overflow, budget_overflow(nth, mi)))
 
             # scheduler-detach quirk: after update_optimizer lr stays at base
+            # (folded into the twins' table, `fit_twins`)
             lr_frozen = state.lr_frozen or hit_threshold
-            lr = cfg.lr if lr_frozen else step_lr(cfg.lr, it - 1)
             if rebuilt:
                 # rebuilt parameters have no grads in the reference: the
                 # update is skipped, moments restart, the step still counts
-                opt = adan_reset_moments(state.opt)
-                opt.step += 1
+                opt = adan_reset_moments_(opt, twins.fresh)
+                opt = dataclasses.replace(opt, step=opt.step + 1)
             else:
-                tr = _trainable(params)
-                new_tr, opt = adan_step(tr, grads, state.opt, lr,
-                                        betas=cfg.betas, eps=cfg.eps)
-                for k, p in tr.items():
-                    p.copy_(new_tr[k])
+                opt = adan_step_(_trainable(params), grads, opt, twins.scalars,
+                                 twins.fresh, betas=cfg.betas, eps=cfg.eps)
             if hit_threshold:
-                opt.step = 0
+                opt = dataclasses.replace(opt, step=0)
+            twins.row.add_(1)
 
             # early stopping (EarlyStopping, utils.py:188-211), on the device
             improved = state.best_loss - loss > cfg.early_stop_min_delta
-            first = torch.isinf(state.best_loss)
-            best_loss = torch.where(improved | first, loss, state.best_loss)
-            patience = torch.where(improved | first, 0, state.patience + 1)
-            grace = state.grace - 1
-            stop = (patience >= cfg.early_stop_patience) & (grace < 0)
+            take = improved | torch.isinf(state.best_loss)
+            patience = torch.where(take, 0, state.patience + 1).to(torch.int32)
+            twins.grace.sub_(1)
+            stop = (patience >= cfg.early_stop_patience) & (twins.grace < 0)
+            state.best_loss.copy_(torch.where(take, loss, state.best_loss))
+            for dst, src in ((state.patience, patience), (state.stop, stop),
+                             (state.loss, loss), (state.psnr, psnr)):
+                dst.copy_(src)
 
-        return TrainState(
-            params=params, alive=alive, opt=opt, it=it, lr_frozen=lr_frozen,
-            best_loss=best_loss, patience=patience.to(torch.int32), grace=grace,
-            stop=stop, loss=loss, psnr=psnr, max_overflow=max_overflow,
-        )
+        return dataclasses.replace(state, opt=opt, it=it, lr_frozen=lr_frozen,
+                                   grace=state.grace - 1)
 
     return step
 
 
+def _after_plain(state: TrainState, grace: bool = True) -> TrainState:
+    """The host fields after a plain step (no control): the iteration, Adan's
+    step and, for a fit step, the grace move on."""
+    return dataclasses.replace(state, it=state.it + 1, opt=adan_host_step(state.opt),
+                               grace=state.grace - 1 if grace else state.grace)
+
+
 def fit_frame(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
-              lambda_value: float = 0.0, draws: Draws = None) -> FitResult:
+              lambda_value: float = 0.0, draws: Draws = None,
+              graph: Optional[bool] = None) -> FitResult:
     """Run the per-frame optimisation to cfg.iterations or early stop.
 
     Stops at exactly the iteration where gsvc_tpu's while_loop stops. The
     patience grows by at most one a step, so after reading it as p the
     stop cannot come within the next patience - p steps: the device is
     read about once per early_stop_patience steps, not every step.
-    gt: [H, W, 3] float32 in [0, 1].
+    gt: [H, W, 3] float32 in [0, 1]. `graph`: see `fit_frame_partial`.
     """
-    state = fit_frame_partial(state, gt, cfg.iterations, cfg, lambda_value, draws)
+    state = fit_frame_partial(state, gt, cfg.iterations, cfg, lambda_value, draws, graph)
     return FitResult(state=state, image=render_frame(state.params, state.alive, cfg))
 
 
@@ -432,25 +520,44 @@ def _rows_target_for(gt: torch.Tensor, cfg: FrameConfig):
     return make_rows_target(gt, cfg) if _use_rows_loss(cfg, gt.device) else None
 
 
+def fit_plan(state: TrainState, gt: torch.Tensor, limit: int, cfg: FrameConfig,
+             lambda_value: float = 0.0, draws: Draws = None) -> graphs.FitPlan:
+    """The fit slice from state.it to `limit`: its runs (`plan_steps`), its
+    step on the slice's twins and rows target, and the host fields after a
+    plain step."""
+    step = make_train_step(cfg, lambda_value, draws)
+    rows_target = _rows_target_for(gt, cfg)
+    twins = fit_twins(state, limit, cfg)
+    return graphs.FitPlan(plan_steps(state.it, limit, cfg),
+                          lambda s: step(s, gt, rows_target, twins), _after_plain)
+
+
 def fit_frame_partial(state: TrainState, gt: torch.Tensor, limit: int,
                       cfg: FrameConfig, lambda_value: float = 0.0,
-                      draws: Draws = None) -> TrainState:
+                      draws: Draws = None, graph: Optional[bool] = None) -> TrainState:
     """Resumable slice of `fit_frame`: the same steps up to iteration
     min(limit, cfg.iterations) or the early stop. Chained slices with one
     `draws` generator equal one `fit_frame` bitwise, early stop included
-    (the stop rule reads only the state)."""
-    step = make_train_step(cfg, lambda_value, draws)
-    rows_target = _rows_target_for(gt, cfg)
+    (the stop rule reads only the state).
+
+    graph None (the default) runs the plain steps as CUDA-graph replays on
+    a CUDA device (`utils.graphs.StepGraph`) and eagerly on the CPU; False
+    runs every step eagerly, with the same bits; True on the CPU raises."""
     lim = min(int(limit), cfg.iterations)
+    if bool(state.stop) or state.it >= lim:
+        return state
     next_check = state.it
-    stopped = bool(state.stop)
-    while not stopped and state.it < lim:
-        state = step(state, gt, rows_target)
-        if state.grace < 0 and state.it >= next_check:
-            p = int(state.patience)
-            stopped = p >= cfg.early_stop_patience
-            next_check = state.it + cfg.early_stop_patience - p
-    return state
+
+    def stop(s: TrainState) -> bool:
+        nonlocal next_check
+        if s.grace < 0 and s.it >= next_check:
+            p = int(s.patience)
+            next_check = s.it + cfg.early_stop_patience - p
+            return p >= cfg.early_stop_patience
+        return False
+
+    plan = fit_plan(state, gt, lim, cfg, lambda_value, draws)
+    return graphs.run_fit(state, plan, gt.device, graph, stop)
 
 
 def fit_frame_trace(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
@@ -461,36 +568,49 @@ def fit_frame_trace(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
     fixed to 0, keeping the render from the PRE-update parameters of
     iterations trace_every, 2*trace_every, ... (gsvc_tpu's
     `fit_frame_trace`; `lambda_value` is accepted and ignored there too).
+    Every step runs eagerly.
 
     Returns (final state, images [iterations // trace_every, H, W, 3])."""
     del lambda_value
-    step = make_train_step(cfg, 0.0, draws)
-    rows_target = _rows_target_for(gt, cfg)
+    plan = fit_plan(state, gt, state.it + cfg.iterations, cfg, 0.0, draws)
     images = []
     for i in range(cfg.iterations):
         if (i + 1) % trace_every == 0:
             images.append(render_frame(state.params, state.alive, cfg))
-        state = step(state, gt, rows_target)
+        state = plan.step(state)
     if not images:
         return state, gt.new_zeros((0, cfg.H, cfg.W, 3))
     return state, torch.stack(images)
 
 
-def pre_train_frame(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
-                    lambda_value: float = 0.7) -> FitResult:
-    """The pre_train loop (no control, no early stop): the K-frame
-    detection pass (SimpleTrainer2d.pre_train, train_video_Represent.py:117-133)."""
+def pre_train_plan(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
+                   lambda_value: float = 0.7) -> graphs.FitPlan:
+    """The pre-train's cfg.iterations steps from state.it: one run of plain
+    steps (no control, no early stop), the StepLR rate unfrozen."""
     rows_target = _rows_target_for(gt, cfg)
-    for _ in range(cfg.iterations):
-        it = state.it + 1
+    first, limit = state.it, state.it + cfg.iterations
+    twins = step_twins(state.opt, first, limit, cfg, state.alive.device)
+
+    def step(state: TrainState) -> TrainState:
         loss, sq, grads = _loss_and_grads(state, gt, cfg, lambda_value, rows_target)
-        tr = _trainable(state.params)
         with torch.no_grad():
-            new_tr, opt = adan_step(tr, grads, state.opt, step_lr(cfg.lr, it - 1),
-                                    betas=cfg.betas, eps=cfg.eps)
-            for k, p in tr.items():
-                p.copy_(new_tr[k])
-        state = dataclasses.replace(state, opt=opt, it=it, loss=loss,
-                                    psnr=_psnr(cfg, sq))
+            opt = adan_step_(_trainable(state.params), grads, state.opt,
+                             twins.scalars, twins.fresh, betas=cfg.betas, eps=cfg.eps)
+            twins.row.add_(1)
+            state.loss.copy_(loss)
+            state.psnr.copy_(_psnr(cfg, sq))
+        return dataclasses.replace(state, opt=opt, it=state.it + 1)
+
+    return graphs.FitPlan(graphs.plan_runs(first, limit, lambda i: False), step,
+                          lambda s: _after_plain(s, grace=False))
+
+
+def pre_train_frame(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
+                    lambda_value: float = 0.7, graph: Optional[bool] = None) -> FitResult:
+    """The pre_train loop (no control, no early stop): the K-frame
+    detection pass (SimpleTrainer2d.pre_train, train_video_Represent.py:117-133).
+    `graph` as in `fit_frame_partial`."""
+    plan = pre_train_plan(state, gt, cfg, lambda_value)
+    state = graphs.run_fit(state, plan, gt.device, graph)
     return FitResult(state=state,
                      image=render_frame(state.params, state.alive, cfg))

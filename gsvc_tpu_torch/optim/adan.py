@@ -7,6 +7,17 @@ the update is plain elementwise PyTorch under `torch.no_grad()` (the JAX
 package has no kernel here either). The step counter and the per-leaf
 `fresh` flags are host values, so no update needs a host sync.
 
+Two forms of one update. `adan_step` takes the step's scalars as host
+floats and returns new tensors. `adan_step_`, the fits' form, takes them
+as [] device tensors, a row of a table made once a fit (`adan_table`), and
+the fresh flag as a [] bool tensor, and writes its results into the
+parameters' and the state's own tensors with `copy_`: a CUDA graph of the
+step then replays every later step. Both give the same bits: a multiply by
+a [] tensor rounds as one by the float, `torch.where` on the flag copies,
+and a division by a Python float, which PyTorch computes on a CUDA tensor
+as a multiply by its float32 reciprocal (div_true_kernel_cuda), is taken
+from a table that holds that reciprocal (`_div`).
+
 Update rule per step t:
     g       <- g * clip                      (global-norm clip factor)
     m_t     = b1*m + (1-b1)*g
@@ -24,7 +35,7 @@ g itself, so the difference term is zero (optimizer.py:187-189).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +75,84 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+# A step's scalars, the columns of `adan_table`: the two step sizes, the
+# divisors sqrt(1 - b3^t) and 1 + lr*wd, and no_prox's factor 1 - lr*wd.
+SCALARS = ("step_size", "step_size_diff", "bc3_sqrt", "decay", "shrink")
+_DIVISORS = (2, 3)
+
+
+def adan_scalars(step: int, lr: float, betas=(0.98, 0.92, 0.99),
+                 weight_decay: float = 0.0) -> tuple:
+    """The scalars (`SCALARS`) of Adan step `step` (1-based) at rate `lr`,
+    rounded to float32 as gsvc_tpu takes them, as host floats."""
+    b1, b2, b3 = betas
+    t = np.float32(step)
+    lr32 = np.float32(lr)
+    bc1 = np.float32(1.0) - np.float32(b1) ** t
+    bc2 = np.float32(1.0) - np.float32(b2) ** t
+    wd = np.float32(weight_decay)
+    return (_f32(lr32 / bc1), _f32(lr32 * np.float32(b2) / bc2),
+            _f32(np.sqrt(np.float32(1.0) - np.float32(b3) ** t)),
+            _f32(np.float32(1.0) + lr32 * wd), _f32(np.float32(1.0) - lr32 * wd))
+
+
+def adan_table(steps, betas=(0.98, 0.92, 0.99), weight_decay: float = 0.0,
+               device="cpu") -> np.ndarray:
+    """[R, 5] float32: `adan_scalars` of each (step, lr) of `steps`, for
+    `adan_step_` on `device`. For a CUDA device the divisors are stored as
+    their float32 reciprocals (`_div`)."""
+    table = np.array([adan_scalars(s, lr, betas, weight_decay) for s, lr in steps],
+                     np.float32).reshape(-1, len(SCALARS))
+    if torch.device(device).type == "cuda":
+        table[:, _DIVISORS] = np.float32(1.0) / table[:, _DIVISORS]
+    return table
+
+
+def _div(x: torch.Tensor, d) -> torch.Tensor:
+    """x / d as PyTorch divides by the Python float d. A [] tensor d is a
+    row of `adan_table`: on a CUDA tensor PyTorch divides by a Python float
+    as a multiply by its float32 reciprocal, which the table holds there;
+    on the CPU it divides."""
+    if isinstance(d, torch.Tensor) and d.is_cuda:
+        return x * d
+    return x / d
+
+
+def _update(params, grads, state: AdanState, sc, fresh, betas, eps,
+            max_grad_norm, no_prox):
+    """The update's arithmetic: (params, m, n, d, -g) dicts of new tensors.
+    `sc` holds the `SCALARS` as floats or [] tensors; `fresh` is the dict of
+    host flags or one [] bool tensor for every leaf."""
+    b1, b2, b3 = betas
+    step_size, step_size_diff, bc3_sqrt, decay, shrink = sc
+    clip = None
+    if max_grad_norm > 0.0:
+        gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+        clip = torch.clamp(max_grad_norm / (gnorm + eps), max=1.0)
+
+    new_p, m_new, n_new, d_new, npg_new = {}, {}, {}, {}, {}
+    for k, p in params.items():
+        g = grads[k] if clip is None else grads[k] * clip
+        if isinstance(fresh, torch.Tensor):
+            npg = torch.where(fresh, -g, state.neg_pre_grad[k])
+        else:
+            npg = -g if fresh[k] else state.neg_pre_grad[k]
+        diff = npg + g  # g_t - g_{t-1}
+        m_t = b1 * state.exp_avg[k] + (1.0 - b1) * g
+        d_t = b2 * state.exp_avg_diff[k] + (1.0 - b2) * diff
+        u = g + b2 * diff
+        n_t = b3 * state.exp_avg_sq[k] + (1.0 - b3) * u * u
+        denom = _div(torch.sqrt(n_t), bc3_sqrt) + eps
+        if no_prox:
+            q = p * shrink
+            q = q - step_size * m_t / denom - step_size_diff * d_t / denom
+        else:
+            q = p - step_size * m_t / denom - step_size_diff * d_t / denom
+            q = _div(q, decay)
+        new_p[k], m_new[k], n_new[k], d_new[k], npg_new[k] = q, m_t, n_t, d_t, -g
+    return new_p, m_new, n_new, d_new, npg_new
+
+
 @torch.no_grad()
 def adan_step(
     params: Mapping[str, torch.Tensor],
@@ -79,40 +168,55 @@ def adan_step(
     """One Adan update. Returns (new_params, new_state); the inputs are
     not modified. Step scalars are rounded to float32 as gsvc_tpu takes
     them."""
-    b1, b2, b3 = betas
-    step = state.step + 1
-    t = np.float32(step)
-    lr32 = np.float32(lr)
-    bc1 = np.float32(1.0) - np.float32(b1) ** t
-    bc2 = np.float32(1.0) - np.float32(b2) ** t
-    bc3_sqrt = _f32(np.sqrt(np.float32(1.0) - np.float32(b3) ** t))
-    step_size = _f32(lr32 / bc1)
-    step_size_diff = _f32(lr32 * np.float32(b2) / bc2)
-    decay = _f32(np.float32(1.0) + lr32 * np.float32(weight_decay))
-
-    clip = None
-    if max_grad_norm > 0.0:
-        gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
-        clip = torch.clamp(max_grad_norm / (gnorm + eps), max=1.0)
-
-    new_p, m_new, n_new, d_new, npg_new = {}, {}, {}, {}, {}
-    for k, p in params.items():
-        g = grads[k] if clip is None else grads[k] * clip
-        npg = -g if state.fresh[k] else state.neg_pre_grad[k]
-        diff = npg + g  # g_t - g_{t-1}
-        m_t = b1 * state.exp_avg[k] + (1.0 - b1) * g
-        d_t = b2 * state.exp_avg_diff[k] + (1.0 - b2) * diff
-        u = g + b2 * diff
-        n_t = b3 * state.exp_avg_sq[k] + (1.0 - b3) * u * u
-        denom = torch.sqrt(n_t) / bc3_sqrt + eps
-        if no_prox:
-            q = p * _f32(np.float32(1.0) - lr32 * np.float32(weight_decay))
-            q = q - step_size * m_t / denom - step_size_diff * d_t / denom
-        else:
-            q = p - step_size * m_t / denom - step_size_diff * d_t / denom
-            q = q / decay
-        new_p[k], m_new[k], n_new[k], d_new[k], npg_new[k] = q, m_t, n_t, d_t, -g
+    sc = adan_scalars(state.step + 1, lr, betas, weight_decay)
+    new_p, m_new, n_new, d_new, npg_new = _update(
+        params, grads, state, sc, state.fresh, betas, eps, max_grad_norm, no_prox)
     return new_p, AdanState(
-        step=step, exp_avg=m_new, exp_avg_sq=n_new, exp_avg_diff=d_new,
+        step=state.step + 1, exp_avg=m_new, exp_avg_sq=n_new, exp_avg_diff=d_new,
         neg_pre_grad=npg_new, fresh={k: False for k in params},
     )
+
+
+@torch.no_grad()
+def adan_step_(
+    params: Mapping[str, torch.Tensor],
+    grads: Mapping[str, torch.Tensor],
+    state: AdanState,
+    scalars: Sequence[torch.Tensor],
+    fresh: torch.Tensor,
+    betas: Tuple[float, float, float] = (0.98, 0.92, 0.99),
+    eps: float = 1e-8,
+    max_grad_norm: float = 0.0,
+    no_prox: bool = False,
+) -> AdanState:
+    """`adan_step` on the fit's own tensors: the step's `scalars` are a row
+    of `adan_table` ([] tensors) and `fresh` the [] bool twin of the state's
+    flags. The new parameters go into `params`' tensors and the moments into
+    the state's, by `copy_`; `fresh` is set False. Returns the state with
+    step + 1 and its flags False."""
+    new = _update(params, grads, state, scalars, fresh, betas, eps, max_grad_norm,
+                  no_prox)
+    for dst, src in zip((params, state.exp_avg, state.exp_avg_sq, state.exp_avg_diff,
+                         state.neg_pre_grad), new):
+        for k, t in src.items():
+            dst[k].copy_(t)
+    fresh.fill_(False)
+    return adan_host_step(state)
+
+
+def adan_host_step(state: AdanState) -> AdanState:
+    """The host fields after one update (a replayed step sets them so):
+    step + 1, fresh flags False."""
+    return dataclasses.replace(state, step=state.step + 1,
+                               fresh={k: False for k in state.fresh})
+
+
+@torch.no_grad()
+def adan_reset_moments_(state: AdanState, fresh: torch.Tensor) -> AdanState:
+    """`adan_reset_moments` in the state's own tensors (zeroed) and the [] bool
+    twin `fresh` (set True)."""
+    for tree in (state.exp_avg, state.exp_avg_sq, state.exp_avg_diff, state.neg_pre_grad):
+        for t in tree.values():
+            t.zero_()
+    fresh.fill_(True)
+    return dataclasses.replace(state, fresh={k: True for k in state.fresh})

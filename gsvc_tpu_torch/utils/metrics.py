@@ -9,6 +9,7 @@ call (TF32 keeps about three decimal digits).
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -97,6 +98,15 @@ def _avg_pool2_padded(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dim=(3, 5)) / 4.0
 
 
+@functools.lru_cache(maxsize=None)
+def _ms_weights(levels: int, device: torch.device) -> torch.Tensor:
+    """The first `levels` MS-SSIM weights, normalised, on `device`: made
+    once (a copy from host memory, which a step under CUDA-graph capture
+    could not make)."""
+    weights = torch.tensor(MS_SSIM_WEIGHTS[:levels], dtype=torch.float32, device=device)
+    return weights / torch.sum(weights)
+
+
 def ms_ssim(
     pred: torch.Tensor,
     target: torch.Tensor,
@@ -114,8 +124,7 @@ def ms_ssim(
     levels = len(MS_SSIM_WEIGHTS)
     while levels > 1 and (min_side >> (levels - 1)) < win_size:
         levels -= 1
-    weights = torch.tensor(MS_SSIM_WEIGHTS[:levels], dtype=torch.float32, device=pred.device)
-    weights = weights / torch.sum(weights)
+    weights = _ms_weights(levels, pred.device)
     mcs = []
     ssim_pc = None
     for lvl in range(levels):
