@@ -8,8 +8,10 @@ with 10k splats, the paper's operating point, and fails (non-zero exit) at
 the first fault:
 
 0. device: a CUDA card, its name and power limit from nvidia-smi;
-1. build: the kernels of gsvc_tpu_torch/csrc, one nvcc per source, in
-   parallel; ptxas's register and shared-memory use of every kernel, K3's
+1. build: the kernels of gsvc_tpu_torch/csrc, one nvcc per source, and the
+   native rANS and I420 code of gsvc_tpu_torch/native, one g++ each, all in
+   parallel (each build's seconds); ptxas's register and shared-memory use
+   of every kernel, K3's
    cluster size, and the inner-loop instruction mix of K4/K5 and K6 a
    (pixel, lane) pair from the built libraries' SASS (`utils.sass`; "not
    measured" without cuobjdump);
@@ -25,11 +27,18 @@ the first fault:
    K3 also at the full budget with sparse flags, whose segments run over
    several CTAs' spans; two launches of K2, K5, K4 rows, K6 (rows) and K3
    (both cases) bitwise equal;
-3. serving slice: a K-frame stream of the scene written with `pack_frame`,
-   then decoded by `python -m gsvc_tpu_torch.decode` (its `main`) and
-   rendered once more as the planar eval render (`render_frame`, layout
-   "chw"). decoded.rgb must be within 1 uint8 level of the plain path's
-   render, and the eval render within 1e-4;
+3. serving slice: a stream of DECODE_FRAMES K-frames of the scene written
+   with `pack_frame` (`scripts.decode_rate`), decoded by `python -m
+   gsvc_tpu_torch.decode --no_png` (its `main`), its renders replays of one
+   captured CUDA graph, then rendered once more as the planar eval render
+   (`render_frame`, layout "chw"); the same CLI runs with every render
+   eager before it and after a second graph run (whose capture is cached).
+   decoded.rgb must be within 1 uint8 level of the plain path's render,
+   the graph runs' bytes equal to the eager runs', the graph captured once
+   and replayed for every later frame with K1, K2 and K4 `image` inside,
+   the native rANS decode equal to the numpy one, and the eval render
+   within 1e-4. Prints the decoder's frames/s and ms a frame by stage for
+   each run, and the rANS decode of a frame natively and in numpy;
 4. training slice: `fit_frame` with removal control (the K-frame mode) from
    `init_splats` toward the bench scene's render, its plain steps as
    CUDA-graph replays (the default), then the same fit with graph=False:
@@ -40,7 +49,9 @@ the first fault:
    pre-train and a QAT fit, each with graphs and with graph=False, bitwise
    equal;
 5. times: each kernel beside its plain version, the eval render
-   (projection + binning + render + clip, "chw") in frames per second, and
+   (projection + binning + render + clip, "chw") in frames per second (a
+   chained device loop, and 100 calls eager and as replays of its CUDA
+   graph, whose frame must equal the eager one bitwise), and
    a plain train step in ms, eagerly and as a graph replay (represent with
    the rows loss and with the image loss, QAT), against the all-PyTorch
    path's eager step, all with CUDA events;
@@ -48,14 +59,15 @@ the first fault:
    by a few pixels, then a cut to another seed's scene and its move),
    through `python -m gsvc_tpu_torch.drivers.represent` (10k splats,
    --is_rm --is_ad, K-frame detection), `drivers.compress` (QAT, rANS,
-   `frame_N.gsvc`) and `decode`, each by its `main`, the fits on CUDA
-   graphs. It fails unless every CLI returns 0, K_frames.txt starts with 1
+   `frame_N.gsvc`) and `decode`, each by its `main`, the fits and the
+   renders on CUDA graphs. It fails unless every CLI returns 0, K_frames.txt starts with 1
    and leaves a P-frame, every fit beats its starting render's PSNR, no
    budget overflow is reported, the bitstream trailers match K_frames.txt,
    each decoded PSNR is within 0.1 dB of the compress stage's, the fits
    replayed graphs, and the launch counts of K1-K6 over the three CLIs are
    the eager encoder's (`ENCODER_LAUNCHES`); it prints per-frame fit
-   seconds, QAT ms a step, eval fps and bpp, each CLI's graph captures,
+   seconds, QAT ms a step, eval fps and bpp, each CLI's fit and render
+   graph captures,
    capture seconds, replays and peak device memory, and each coded frame's
    sha256 beside the eager encoder's (`ENCODER_SHA256`, equal or not);
 7. the profiling path (`gsvc_tpu_torch.scripts`): the harnesses' kernels
@@ -103,16 +115,19 @@ GRAD_TOL = 1e-4  # max-abs error over the largest entry of the plain result
 TRAIN_ITERS = 300
 STEP_REPS = 40  # phase 5: timed steps, eager and replayed
 PROFILE_ITERS = 10  # phase 7: timed repetitions of each harness stage
+DECODE_FRAMES = 16  # phase 3's stream
 # phase 6's kernel launches and coded frames as the eager encoder made them
-# (every fit step eager, the same CLIs and seed): the graphs must launch the
-# same kernels; the bytes are compared and printed
+# (`python -m gsvc_tpu_torch.scripts.encoder_drift --eager`: every fit step
+# and render eager, the same CLIs and seed): the graphs must launch the same
+# kernels; the bytes are compared and printed
 ENCODER_LAUNCHES = {"fill_decode_keys": 18487, "rank_cap_decode": 18487,
                     "forward_rows": 17660, "backward_slots": 17660,
                     "segmented_cumsum": 17660, "forward_chw": 808, "forward_image": 19}
-ENCODER_SHA256 = ("99e2fe7f5a9056a9", "b81dc6a0fe55d388", "b905047fe12e5c96",
-                  "52792031c532f8df")
+ENCODER_SHA256 = ("8e76cbd280e9cef0", "40c8b44f5d5a4e3d", "afe1be16eebdc54a",
+                  "0ac06a4d66f84cbc")
 LIBS = ("fill", "segsum", "rasterize_fwd", "rasterize_bwd", "profile_kernel_parts",
         "profile_bwd_variants", "probe_transpose")
+NATIVE = ("rans", "yuv")  # host C++ (gsvc_tpu_torch/native), built with g++
 
 
 def fail(msg: str) -> None:
@@ -195,7 +210,7 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
     from gsvc_tpu_torch.drivers import represent as represent_cli
     from gsvc_tpu_torch.io import process_yuv_video
     from gsvc_tpu_torch.models.represent import render_frame
-    from gsvc_tpu_torch.utils.graphs import StepGraph
+    from gsvc_tpu_torch.utils.graphs import RenderGraph, StepGraph
     from gsvc_tpu_torch.scripts.encoder_drift import (
         ENC_ITERS,
         QAT_ITERS,
@@ -215,10 +230,7 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
         ("compress", compress_cli.main, run.compress,
          ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
           "segmented_cumsum", "forward_chw")),
-        ("decode", decode_cli.main, [
-            "--bitstream", str(run.bitstream), "--height", str(H), "--width", str(W),
-            "--model_path", str(run.npz), "--k_frames", str(run.k_frames), "-d", str(yuv),
-            "--no_png", "--out", str(tmp / "decoded")],
+        ("decode", decode_cli.main, run.decode,
          ("fill_decode_keys", "rank_cap_decode", "forward_image")),
     ]
     total = {c.__name__: 0 for c in counters}
@@ -228,6 +240,7 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
         for c in counters:
             c.launches = 0
         graph.captures, graph.replays, graph.capture_seconds = 0, 0, 0.0
+        RenderGraph.captures, RenderGraph.replays, RenderGraph.capture_seconds = 0, 0, 0.0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(err):
@@ -246,11 +259,15 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
             fail(f"kernels not launched by {name}: {missing}; launches {launches}")
         if name != "decode" and graph.replays == 0:
             fail(f"{name}: no fit replayed a CUDA graph")
+        if RenderGraph.replays == 0:
+            fail(f"{name}: no render replayed a CUDA graph")
         for k, v in launches.items():
             total[k] += v
-        print(f"phase 6 {name}: {secs:.2f} s; {graph.captures} graph captures in "
-              f"{graph.capture_seconds:.3f} s, {graph.replays} replays; peak device memory "
-              f"{peak_gb:.2f} GiB; launches {launches}")
+        print(f"phase 6 {name}: {secs:.2f} s; fits: {graph.captures} graph captures in "
+              f"{graph.capture_seconds:.3f} s, {graph.replays} replays; renders: "
+              f"{RenderGraph.captures} captures in {RenderGraph.capture_seconds:.3f} s, "
+              f"{RenderGraph.replays} replays; peak device memory {peak_gb:.2f} GiB; "
+              f"launches {launches}")
     if total != ENCODER_LAUNCHES:
         fail(f"phase 6 launches {total}, the eager encoder's {ENCODER_LAUNCHES}")
 
@@ -533,7 +550,7 @@ def main() -> int:
     from gsvc_tpu_torch import _build
     from gsvc_tpu_torch.compress.bitstream import (
         decode_frame,
-        pack_frame,
+        decoded_renderer,
         render_decoded,
     )
     from gsvc_tpu_torch.config import FrameConfig
@@ -553,15 +570,17 @@ def main() -> int:
     from gsvc_tpu_torch.ops.projection import project_gaussians_2d
     from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum
     from gsvc_tpu_torch.scripts.common import scene
-    from gsvc_tpu_torch.utils import sass, work
-    from gsvc_tpu_torch.utils.graphs import StepGraph
+    from gsvc_tpu_torch.utils import graphs, sass, work
+    from gsvc_tpu_torch.utils.graphs import RenderGraph, StepGraph
     from gsvc_tpu_torch.utils.profiling import device_loop_time
 
     # -- phase 1: build --------------------------------------------------
     t0 = time.perf_counter()
-    _build.build_all(LIBS)
+    _build.build_all(LIBS + NATIVE)
     build_s = time.perf_counter() - t0
-    print(f"phase 1 build: {build_s:.2f} s")
+    print(f"phase 1 build: {build_s:.2f} s; native (g++): " + ", ".join(
+        f"{lib} " + (f"{_build.build_seconds[lib]:.2f} s" if lib in _build.build_seconds
+                     else "built before") for lib in NATIVE))
     for lib in LIBS:
         for kernel, used in _build.resources(_build.build_log(lib)):
             print(f"phase 1 ptxas {lib} {sass.pretty(kernel)}: {used}")
@@ -703,18 +722,20 @@ def main() -> int:
         f"cases) bitwise equal; keys {str(keys.dtype)[6:]}; peak {peak_gb:.1f} GiB")
 
     # -- phase 3: the slice, through the decoder CLI --------------------
-    from gsvc_tpu_torch import decode as decode_cli
+    from gsvc_tpu_torch.scripts.decode_rate import (
+        decode_run,
+        describe,
+        k_frame_blob,
+        write_stream,
+    )
 
-    rng = np.random.default_rng(1)
-    scale = np.array([5.5, 6.0, 5.5], np.float32) / 63.0
-    beta = np.array([0.5, -3.0, 0.5], np.float32)
-    raw_chol = L.cpu().numpy() - np.asarray(CHOLESKY_BOUND, np.float32)
-    codes = np.clip(np.round((raw_chol - beta) / scale), 0, 63).astype(np.int32)
-    embed = rng.uniform(0.0, 0.5, (2, 64, 3)).astype(np.float32)
-    idx = rng.integers(0, 64, (N, 2)).astype(np.int32)
-    xyz16 = np.arctanh(means.cpu().numpy()).astype(np.float16)
-    blob = pack_frame(xyz16, scale, beta, codes, embed, idx, "K")
-    dec_means, dec_chol, dec_colors = decode_frame(blob)
+    blob = k_frame_blob(sc)
+    t_numpy, t_native = {}, {}  # the numpy plain codec once, for the record
+    dec_plain = decode_frame(blob, native=False, times=t_numpy)
+    dec = decode_frame(blob, times=t_native)
+    dec_means, dec_chol, dec_colors = dec
+    if not all(np.array_equal(a, b) for a, b in zip(dec, dec_plain)):
+        fail("decode_frame with the native rANS differs from the numpy codec")
     n_dec = int(project_gaussians_2d(
         torch.as_tensor(dec_means, device=dev),
         torch.as_tensor(dec_chol, device=dev), H, W, tb)[4].sum())
@@ -730,49 +751,75 @@ def main() -> int:
                            iterations=1, backend=backend,
                            max_intersects=dec_budget)
 
-    counters = (fill_cuda.fill_decode_keys, fill_cuda.rank_cap_decode,
-                rasterize_cuda.forward_image, rasterize_cuda.forward_chw,
-                rasterize_cuda.forward_rows, rasterize_cuda.backward_slots,
-                fill_cuda.segmented_cumsum)
+    counters = graphs.kernel_counters()
     serve_kernels = ("fill_decode_keys", "rank_cap_decode", "forward_image",
                      "forward_chw")
     train_kernels = ("fill_decode_keys", "rank_cap_decode", "forward_rows",
                      "backward_slots", "segmented_cumsum")
     with tempfile.TemporaryDirectory() as tmp:
-        bs = Path(tmp) / "bitstream"
-        bs.mkdir()
-        (bs / "frame_1.gsvc").write_bytes(blob)
+        # the decoder's runs: eager, graph (the main path), graph (its capture
+        # cached), eager
+        bs, k_file = write_stream(blob, Path(tmp), DECODE_FRAMES)
+        runs = [("eager", decode_run(bs, k_file, Path(tmp) / "0", H, W, eager=True))]
         for c in counters:
             c.launches = 0
+        RenderGraph.captures, RenderGraph.replays = 0, 0
         t0 = time.perf_counter()
-        rc = decode_cli.main(["--bitstream", str(bs), "--height", str(H),
-                              "--width", str(W), "--no_png"])
+        runs.append(("graph", decode_run(bs, k_file, Path(tmp) / "1", H, W)))
         eval_img = render_frame(frame, alive, frame_cfg("auto"), layout="chw")
         torch.cuda.synchronize()
         slice_s = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters}
-        if rc != 0:
-            fail(f"decode returned {rc}")
+        captures, replays = RenderGraph.captures, RenderGraph.replays
+        runs += [("graph", decode_run(bs, k_file, Path(tmp) / "2", H, W)),
+                 ("eager", decode_run(bs, k_file, Path(tmp) / "3", H, W, eager=True))]
+        for name, run in runs:
+            if run["rc"] != 0:
+                fail(f"decode ({name} renders) returned {run['rc']}")
         missing = [k for k in serve_kernels if launches[k] <= 0]
         if missing:
             fail(f"kernels not launched on the main path: {missing}")
-        decoded = np.fromfile(Path(tmp) / "decoded" / "decoded.rgb", np.uint8)
-        if decoded.size != H * W * 3:
-            fail(f"decoded.rgb holds {decoded.size} bytes, want {H * W * 3}")
-        if not (Path(tmp) / "decoded" / "decode.txt").is_file():
+        decoded = [np.fromfile(Path(tmp) / str(i) / "decoded.rgb", np.uint8)
+                   for i in range(len(runs))]
+        if decoded[1].size != DECODE_FRAMES * H * W * 3:
+            fail(f"decoded.rgb holds {decoded[1].size} bytes, want "
+                 f"{DECODE_FRAMES * H * W * 3}")
+        if not all(np.array_equal(d, decoded[1]) for d in decoded):
+            fail("the decoder's graph replays differ from its eager renders")
+        if not (Path(tmp) / "1" / "decode.txt").is_file():
             fail("decode.txt missing")
-    ref = render_decoded(dec_means, dec_chol, dec_colors, frame_cfg("torch"), dev)
+    # the decoder's graph: the cache's entry for its splat count and budget
+    replayed = dict((c.__name__, n) for c, n in
+                    decoded_renderer(N, frame_cfg("auto"), dev).counts)
+    inside = {"fill_decode_keys": 1, "rank_cap_decode": 1, "forward_image": 0}
+    if (captures, replays) != (1, DECODE_FRAMES - 1) or any(
+            replayed.get(k) != 1 for k in inside) or any(  # the eval render adds K1, K2
+            launches[k] != DECODE_FRAMES + extra for k, extra in inside.items()):
+        fail(f"decoder graphs: {captures} captures, {replays} replays, a replay's "
+             f"launches {replayed}, the run's {launches}; want 1 capture, "
+             f"{DECODE_FRAMES - 1} replays, each launching K1, K2 and K4 image once")
+    ref = render_decoded(dec_means, dec_chol, dec_colors, frame_cfg("torch"), dev,
+                         graph=False)
     ref8 = (ref.cpu().numpy() * 255.0).round().astype(np.int16)
-    level = int(np.abs(decoded.reshape(H, W, 3).astype(np.int16) - ref8).max())
+    frames8 = decoded[1].reshape(DECODE_FRAMES, H, W, 3).astype(np.int16)
+    level = int(np.abs(frames8 - ref8).max())
     if level > 1:
         fail(f"decoded.rgb is {level} levels from the plain render")
     eval_ref = render_frame(frame, alive, frame_cfg("torch"), layout="chw")
     eval_err = float((eval_img - eval_ref).abs().max())
     if not (torch.isfinite(eval_img).all() and eval_err <= RENDER_TOL):
         fail(f"eval render max-abs {eval_err} > {RENDER_TOL}")
-    print(f"phase 3 serving slice: decode + eval render {slice_s:.2f} s; decoded.rgb "
-          f"within {level} level(s) of the plain render; eval chw max-abs "
+    print(f"phase 3 serving slice: decode of {DECODE_FRAMES} frames + eval render "
+          f"{slice_s:.2f} s; decoded.rgb within {level} level(s) of the plain render, "
+          f"the graph runs' bytes equal to the eager runs'; {captures} capture, {replays} "
+          f"replays, each launching {replayed}; native rANS = numpy; eval chw max-abs "
           f"{eval_err:.3g}; launches {launches}")
+    for name, run in runs:
+        print(f"phase 3 time [{smi}]: decoder, {name} renders, "
+              + describe("1080p/10k --no_png", run, DECODE_FRAMES))
+    print(f"phase 3 time [{smi}]: rANS decode of one frame's {5 * N} symbols "
+          f"(host): native {1e3 * t_native['entropy']:.4f} ms, numpy "
+          f"{1e3 * t_numpy['entropy']:.4f} ms")
 
     # -- phase 4: the training slice -------------------------------------
     torch.set_grad_enabled(True)
@@ -873,6 +920,34 @@ def main() -> int:
     with torch.no_grad():
         for backend in ("torch", "cuda", "cuda", "torch"):
             fps[backend].append(eval_fps(backend, 100 if backend == "cuda" else 10))
+
+    def eval_render():
+        x, d, r, c, k = project_gaussians_2d(means, L, H, W, tb)
+        img = rasterize_gaussians_sum(x, d, r, c, k, colors, opacity, H, W, backend="cuda",
+                                      layout="chw", max_intersects=budget)
+        return torch.clamp(img, 0.0, 1.0)
+
+    # the eval render as the represent driver's fps loop runs it: 100 calls
+    # eagerly, and 100 replays of its graph after the eager first call
+    call_fps = {"eager": [], "graph": []}
+    for how in ("eager", "graph", "graph", "eager"):
+        with graphs.render_graph(eval_render, (), dev, graph=how == "graph") as render:
+            first = render()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(100):
+                out = render()
+            end.record()
+            end.synchronize()
+            call_fps[how].append(100e3 / start.elapsed_time(end))
+            if how == "graph":
+                inside = dict((c.__name__, n) for c, n in render.counts)
+                if not torch.equal(out, first):
+                    fail("the eval render's replay differs from its eager render")
+                if any(inside.get(k) != 1 for k in ("fill_decode_keys", "rank_cap_decode",
+                                                    "forward_chw")):
+                    fail(f"the eval render's graph launches {inside}: want K1, K2, K5 once")
     timed = [
         ("K1 fill_decode_keys", "gsvc_tpu_torch/csrc/fill.cu",
          "gsvc_tpu/ops/fill_pallas.py:57", "fill_decode_keys", errs["K1"],
@@ -913,8 +988,10 @@ def main() -> int:
     kernels = [timed_row(smi, 5, *row, bounds[row[0]], library.get(row[0]))
                for row in timed]
     print(f"phase 5 time [{smi}]: eval render 1080p/10k chw fps: kernel path "
-          f"{fps['cuda']}, plain path {fps['torch']} (order plain, kernel, "
-          f"kernel, plain)")
+          f"{fps['cuda']}, plain path {fps['torch']} (a chained device loop; order "
+          f"plain, kernel, kernel, plain); 100 calls, CUDA events: eager "
+          f"{call_fps['eager']}, graph replays {call_fps['graph']} (order eager, graph, "
+          f"graph, eager; each replay bitwise the eager render, launching K1, K2, K5)")
 
     def represent_plan(backend: str, rows_loss: bool):
         """The plan of a removal-control fit's steps 1..99 (step 1 its only

@@ -1,16 +1,21 @@
-"""Build the CUDA kernels in csrc/ at first use and load them with ctypes.
+"""Build the CUDA kernels in csrc/ and the host code in native/ at first use
+and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
 plain C interface, `build/lib<name>-<hash>.so`; the hash covers the source
-and every header, so an edited kernel never loads a stale build. A file
-lock per library serialises concurrent builds of it (several processes may
-start at once); `build_all` runs one nvcc per source, all at once.
-The library is loaded with ctypes, with every pointer and the stream as
-`c_void_p`; each C entry returns `cudaGetLastError()`, which `check`
-turns into an exception.
+and every header, so an edited kernel never loads a stale build. Each
+`native/<name>.cpp` (the rANS codec and the I420 converter) compiles the
+same way with g++ (`HOST_FLAGS`). A file lock per library serialises
+concurrent builds of it (several processes may start at once); `build_all`
+runs one compiler per source, all at once. A failed build raises with the
+compiler's output. The library is loaded with ctypes; a kernel library
+takes every pointer and the stream as `c_void_p`, and each of its C
+entries returns `cudaGetLastError()`, which `check` turns into an
+exception.
 
 Nothing here runs at import: the CPU tests import every module, and only
-a call on a CUDA tensor builds.
+a call on a CUDA tensor builds a kernel; the host libraries build at their
+first call, on either device.
 """
 
 from __future__ import annotations
@@ -23,19 +28,37 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
+NATIVE_DIR = PKG_DIR / "native"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _libs: dict = {}
 _libs_lock = threading.Lock()
+# seconds each library's compiler ran in this process (absent: it was built)
+build_seconds: dict = {}
+
+
+def is_host(name: str) -> bool:
+    """Whether `name` is a host library (native/<name>.cpp), not a kernel's."""
+    return (NATIVE_DIR / f"{name}.cpp").is_file()
+
+
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH: the native rANS and I420 code "
+                           "(gsvc_tpu_torch/native) need a host C++ compiler")
+    return gxx
 
 
 def _nvcc() -> str:
@@ -48,17 +71,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _source_hash(src: Path) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in [src] + sorted(CSRC_DIR.glob("*.cuh")):
+def _source(name: str) -> Path:
+    return NATIVE_DIR / f"{name}.cpp" if is_host(name) else CSRC_DIR / f"{name}.cu"
+
+
+def _source_hash(name: str) -> str:
+    src = _source(name)
+    if is_host(name):
+        h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+        deps = [src]
+    else:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        deps = [src] + sorted(CSRC_DIR.glob("*.cuh"))
+    for p in deps:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    return BUILD_DIR / f"lib{name}-{_source_hash(src)}.so"
+    return BUILD_DIR / f"lib{name}-{_source_hash(name)}.so"
+
+
+def _command(name: str, out: Path) -> list:
+    if is_host(name):
+        return [_gxx(), *HOST_FLAGS, "-o", str(out), str(_source(name))]
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out), str(_source(name))]
 
 
 def _compile(name: str) -> Path:
@@ -72,15 +110,18 @@ def _compile(name: str) -> Path:
             if out.exists():  # another process built it while we waited
                 return out
             tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
-                   "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+            cmd = _command(name, tmp)
+            t0 = time.perf_counter()
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 tmp.unlink(missing_ok=True)
+                src = _source(name)
                 raise RuntimeError(
-                    f"nvcc failed for csrc/{name}.cu:\n{' '.join(cmd)}\n"
+                    f"{Path(cmd[0]).name} failed for {src.parent.name}/{src.name}:\n"
+                    f"{' '.join(cmd)}\n"
                     f"{res.stdout}{res.stderr}"
                 )
+            build_seconds[name] = time.perf_counter() - t0
             out.with_suffix(".log").write_text(res.stdout + res.stderr)
             os.replace(tmp, out)
             return out
@@ -89,11 +130,15 @@ def _compile(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The shared library of csrc/<name>.cu, compiled on first use."""
+    """The shared library of csrc/<name>.cu or native/<name>.cpp, compiled
+    on first use."""
     with _libs_lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_compile(name)))
+            if is_host(name):
+                _libs[name] = lib
+                return lib
             lib.gsvc_error_string.restype = ctypes.c_char_p
             lib.gsvc_error_string.argtypes = [ctypes.c_int]
             lib.gsvc_empty_launch.restype = ctypes.c_int
@@ -103,7 +148,7 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all(names) -> None:
-    """Compile the named libraries in parallel (one nvcc each), then load."""
+    """Compile the named libraries in parallel (one compiler each), then load."""
     names = list(names)
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
         list(pool.map(_compile, names))
@@ -112,7 +157,8 @@ def build_all(names) -> None:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output (ptxas register and shared-memory use) of a build."""
+    """The compiler's output of a build (for a kernel, ptxas's register and
+    shared-memory use)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 

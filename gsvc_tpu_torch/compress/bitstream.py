@@ -2,10 +2,13 @@
 
 `encode_frame` quantises a fitted `CompressState` and `pack_frame` writes
 the container from the numpy codes; `decode_frame` + `render_decoded`
-reconstruct a frame from the bytes. The bytes are the JAX package's: fp16
-means, rANS-coded 6-bit cholesky codes with f32 scale/beta, the VQ
-codebook and rANS-coded stage indices, and a "GSV1" + K/P trailer. The
-encoder takes the frame type from its caller; gsvc_tpu infers it from
+reconstruct a frame from the bytes; on a CUDA device the render is a
+replay of a captured CUDA graph, one a splat count and frame size
+(`decoded_renderer`, `utils.graphs.RenderCache`), the counterpart of
+gsvc_tpu's one jitted render per FrameConfig. The bytes are the JAX
+package's: fp16 means, rANS-coded 6-bit cholesky codes with f32
+scale/beta, the VQ codebook and rANS-coded stage indices, and a "GSV1" +
+K/P trailer. The encoder takes the frame type from its caller; gsvc_tpu infers it from
 whether the side information is all zeros, and writes the same bytes
 whenever that guess is right.
 
@@ -16,7 +19,9 @@ module's docstring).
 
 from __future__ import annotations
 
+import functools
 import io
+import time
 from typing import Optional
 
 import numpy as np
@@ -28,8 +33,10 @@ from gsvc_tpu_torch.compress.entropy import (
 )
 from gsvc_tpu_torch.config import FrameConfig
 from gsvc_tpu_torch.core import CHOLESKY_BOUND
+from gsvc_tpu_torch.utils import graphs
 
 CHOL_BITS = 6
+_RENDERS = graphs.RenderCache(maxsize=8)
 
 
 def pack_frame(
@@ -127,11 +134,17 @@ def decode_frame(
     p_xyz: Optional[np.ndarray] = None,
     p_cholesky: Optional[np.ndarray] = None,
     p_features_dc: Optional[np.ndarray] = None,
+    native: bool = True,
+    times: Optional[dict] = None,
 ):
     """Bytes -> (means [N,2], cholesky + bound [N,3], colours [N,3]) numpy.
 
     p_* are the P-frame side-information buffers (None for K-frames).
+    `native=False` entropy-decodes with the plain numpy codec. `times`, a
+    dict, gains the host seconds of the rANS decode ("entropy") and of the
+    rest ("unpack").
     """
+    t0 = time.perf_counter()
     buf = memoryview(blob)
     off = 0
 
@@ -157,13 +170,15 @@ def decode_frame(
     embed = get().reshape(q, k, 3)
     i_comp, i_counts, i_unique = get(), get(), get()
 
+    t1 = time.perf_counter()
     codes = decompress_matrix_flatten_categorical(
-        c_comp, c_counts, c_unique, n * 3, (n, 3)
+        c_comp, c_counts, c_unique, n * 3, (n, 3), native=native
     ).astype(np.float32)
-    chol_deq = codes * q_scale[None, :] + q_beta[None, :]
     idx = decompress_matrix_flatten_categorical(
-        i_comp, i_counts, i_unique, q * n, (n, q)
+        i_comp, i_counts, i_unique, q * n, (n, q), native=native
     )
+    entropy = time.perf_counter() - t1
+    chol_deq = codes * q_scale[None, :] + q_beta[None, :]
     colors = np.zeros((n, 3), np.float32)
     for s in range(q):
         colors += embed[s][idx[:, s]]
@@ -174,27 +189,53 @@ def decode_frame(
     raw = torch.from_numpy(xyz16.astype(np.float32) + side(p_xyz, 2))
     means = torch.tanh(raw).numpy()
     chol = chol_deq + np.asarray(CHOLESKY_BOUND, np.float32) + side(p_cholesky, 3)
-    return means, chol, colors + side(p_features_dc, 3)
+    out = means, chol, colors + side(p_features_dc, 3)
+    if times is not None:
+        times["entropy"] = times.get("entropy", 0.0) + entropy
+        times["unpack"] = times.get("unpack", 0.0) + time.perf_counter() - t0 - entropy
+    return out
 
 
-def render_decoded(means, chol, colors, cfg: FrameConfig,
-                   device="cpu") -> torch.Tensor:
-    """Render decoded splats on `device`: [H, W, 3] clamped to [0, 1]."""
+def _render(means, chol, colors, cfg: FrameConfig) -> torch.Tensor:
+    """The decoded splats' render: [H, W, 3] clamped to [0, 1]."""
     from gsvc_tpu_torch.ops.projection import project_gaussians_2d
     from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+    xys, depths, radii, conics, nth = project_gaussians_2d(
+        means, chol, cfg.H, cfg.W, cfg.tile_bounds, cfg.block_w, cfg.block_h,
+    )
+    opacity = torch.ones((xys.shape[0], 1), dtype=torch.float32, device=xys.device)
+    img = rasterize_gaussians_sum(
+        xys, depths, radii, conics, nth, colors, opacity,
+        cfg.H, cfg.W, cfg.block_h, cfg.block_w,
+        backend=cfg.backend, max_intersects=cfg.max_intersects,
+    )
+    return torch.clamp(img, 0.0, 1.0)
 
-    with torch.no_grad():
-        xys, depths, radii, conics, nth = project_gaussians_2d(
-            t(means), t(chol), cfg.H, cfg.W, cfg.tile_bounds,
-            cfg.block_w, cfg.block_h,
-        )
-        opacity = torch.ones((xys.shape[0], 1), dtype=torch.float32, device=device)
-        img = rasterize_gaussians_sum(
-            xys, depths, radii, conics, nth, t(colors), opacity,
-            cfg.H, cfg.W, cfg.block_h, cfg.block_w,
-            backend=cfg.backend, max_intersects=cfg.max_intersects,
-        )
-        return torch.clamp(img, 0.0, 1.0)
+
+def decoded_renderer(n: int, cfg: FrameConfig, device="cpu",
+                     graph: Optional[bool] = None) -> graphs.EagerRender:
+    """The render of `n` decoded splats on `device`, its inputs means [n, 2],
+    cholesky [n, 3] and colours [n, 3] float32 (`load` them, then call it).
+    Where `graphs.use_graph(device, graph)`, a RenderGraph from the
+    module's cache, keyed by `graphs.render_key`: each distinct splat count
+    and frame is captured once a process, and its output is overwritten by
+    its next replay. Else an eager render."""
+    def inputs():
+        return [torch.empty((n, k), dtype=torch.float32, device=device) for k in (2, 3, 3)]
+
+    fn = functools.partial(_render, cfg=cfg)
+    if not graphs.use_graph(device, graph):
+        return graphs.EagerRender(fn, inputs())
+    return _RENDERS.get(graphs.render_key(cfg, n, "image", device),
+                        lambda: graphs.RenderGraph(fn, inputs(), device))
+
+
+def render_decoded(means, chol, colors, cfg: FrameConfig, device="cpu",
+                   graph: Optional[bool] = None) -> torch.Tensor:
+    """Render decoded splats on `device`: [H, W, 3] clamped to [0, 1]
+    (`decoded_renderer`: on a CUDA device a graph replay, whose output the
+    next render of the same splat count and frame overwrites)."""
+    render = decoded_renderer(np.shape(means)[0], cfg, device, graph)
+    render.load(means, chol, colors)
+    return render()

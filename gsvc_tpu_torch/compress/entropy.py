@@ -1,13 +1,19 @@
-"""rANS entropy coding for categorical symbol streams (numpy).
+"""rANS entropy coding for categorical symbol streams.
 
-A copy of the numpy codec of gsvc_tpu/compress/entropy.py, so the port
-writes and reads the same bytes without importing the JAX package:
-streaming rANS, 64-bit state, 32-bit renormalised words, probabilities
-quantised to PRECISION=16 bits, encoded in reverse so decoding is a
-forward scan. The native C++ loader of the JAX package is not ported yet.
+The codec of gsvc_tpu/compress/entropy.py, so the port writes and reads
+the same bytes without importing the JAX package: streaming rANS, 64-bit
+state, 32-bit renormalised words, probabilities quantised to PRECISION=16
+bits, encoded in reverse so decoding is a forward scan. The public
+functions run the native C++ codec (native/rans.cpp, built with g++ at
+first use); `_encode` and `_decode`, a copy of the JAX package's numpy
+codec that runs one Python step a symbol, are its plain versions, taken
+only with `native=False`. A native failure raises: a word buffer too
+small (0 words) or a malformed stream (a non-zero return).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 
@@ -93,20 +99,61 @@ def _decode(words: np.ndarray, pmf_q: np.ndarray, n: int) -> np.ndarray:
     return out
 
 
-def compress_matrix_flatten_categorical(matrix):
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _encode_native(message: np.ndarray, pmf_q: np.ndarray) -> np.ndarray:
+    """`_encode` in C++ (native/rans.cpp): the same words."""
+    from gsvc_tpu_torch.native import rans_lib
+
+    msg = np.ascontiguousarray(message, np.int32)
+    pmf = np.ascontiguousarray(pmf_q, np.int64)
+    cap = msg.size + 16  # worst case ~1 word/symbol for a 2^16-quantized pmf
+    out = np.empty(cap, np.uint32)
+    n = rans_lib().rans_encode(_ptr(msg, ctypes.c_int32), msg.size,
+                               _ptr(pmf, ctypes.c_int64), pmf.size,
+                               _ptr(out, ctypes.c_uint32), cap)
+    if n == 0:
+        raise RuntimeError(f"rans_encode: {msg.size} symbols overflowed {cap} words")
+    return out[:n].copy()
+
+
+def _decode_native(words: np.ndarray, pmf_q: np.ndarray, n: int) -> np.ndarray:
+    """`_decode` in C++ (native/rans.cpp): the same symbols."""
+    from gsvc_tpu_torch.native import rans_lib
+
+    w = np.ascontiguousarray(words, np.uint32)
+    pmf = np.ascontiguousarray(pmf_q, np.int64)
+    out = np.empty(n, np.int32)
+    rc = rans_lib().rans_decode(_ptr(w, ctypes.c_uint32), w.size,
+                                _ptr(pmf, ctypes.c_int64), pmf.size,
+                                n, _ptr(out, ctypes.c_int32))
+    if rc != 0:
+        why = {1: "fewer than 2 words", 2: "a pmf that does not sum to 2^16"}
+        raise ValueError(f"rans_decode: malformed stream ({why.get(rc, rc)})")
+    return out
+
+
+def compress_matrix_flatten_categorical(matrix, native: bool = True):
     """Flat int sequence -> (compressed uint32 words, counts, unique values)
-    (reference quantize.py:152-168)."""
+    (reference quantize.py:152-168); `native=False` encodes with the plain
+    numpy codec, which writes the same words."""
     arr = np.asarray(matrix).flatten()
     unique, inverse, counts = np.unique(arr, return_inverse=True, return_counts=True)
     unique = unique.astype(judge_type(unique.min(), unique.max()))
     pmf_q = _quantize_pmf(counts)
-    return _encode(inverse.astype(np.int32).reshape(-1), pmf_q), counts, unique
+    encode = _encode_native if native else _encode
+    return encode(inverse.astype(np.int32).reshape(-1), pmf_q), counts, unique
 
 
 def decompress_matrix_flatten_categorical(
-    compressed, unique_counts, quant_symbol, symbol_length, symbol_shape
+    compressed, unique_counts, quant_symbol, symbol_length, symbol_shape,
+    native: bool = True,
 ):
-    """Inverse of compress_matrix_flatten_categorical (quantize.py:170-180)."""
+    """Inverse of compress_matrix_flatten_categorical (quantize.py:170-180);
+    `native=False` decodes with the plain numpy codec."""
     pmf_q = _quantize_pmf(np.asarray(unique_counts))
-    decoded = _decode(np.asarray(compressed, np.uint32), pmf_q, symbol_length)
+    decode = _decode_native if native else _decode
+    decoded = decode(np.asarray(compressed, np.uint32), pmf_q, symbol_length)
     return np.asarray(quant_symbol)[decoded].reshape(symbol_shape)

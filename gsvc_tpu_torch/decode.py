@@ -11,6 +11,12 @@ P-frames need `--model_path` (the representation checkpoint the compress
 stage read) for their previous-frame side information; K-frames decode
 standalone. `--device cuda` (the default) runs on the card and fails when
 there is none.
+
+On the card each frame's splats go from pinned host memory into the inputs
+of the render's CUDA graph (`compress.bitstream.decoded_renderer`, one
+capture a splat count), the graph replays, and the frame is converted to
+uint8 on the device (`to_uint8`, bitwise numpy's conversion) before its
+6 MB at 1080p come back. `STAGES` holds the last run's seconds by stage.
 """
 
 from __future__ import annotations
@@ -23,6 +29,48 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+# the last `main` run's seconds by stage, summed over its frames: the rANS
+# decode ("entropy") and the rest of decode_frame ("unpack") on the host
+# clock; the copy of the splats to the device ("h2d"), the render
+# ("render"; "capture" for the eager first render of a graph and its
+# capture) and the uint8 conversion with its copy back ("d2h"), each on
+# the device's clock where it is a card (CUDA events, the host's
+# elsewhere); the raw and PNG writes ("write") on the host clock; and
+# "frames"
+STAGES: dict = {}
+
+
+def to_uint8(img: torch.Tensor) -> torch.Tensor:
+    """A [0, 1] float32 image as uint8 levels on its device: float32
+    multiply, round half to even, as numpy's
+    `(np.clip(img, 0, 1) * 255.0).round().astype(np.uint8)`."""
+    return (torch.clamp(img, 0.0, 1.0) * 255.0).round().to(torch.uint8)
+
+
+class _Clock:
+    """Marks between a frame's stages: CUDA events on a card (read after the
+    frame's copy back has synchronised), the host clock elsewhere."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.marks: list = []
+
+    def mark(self, stage: str) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        else:
+            ev = time.perf_counter()
+        self.marks.append((stage, ev))
+
+    def add_to(self, stages: dict) -> None:
+        """Add the seconds from each mark to the next to the later mark's
+        stage, then forget the marks."""
+        for (_s, a), (stage, b) in zip(self.marks, self.marks[1:]):
+            secs = a.elapsed_time(b) / 1e3 if self.cuda else b - a
+            stages[stage] = stages.get(stage, 0.0) + secs
+        self.marks = []
 
 
 def parse_args(argv):
@@ -64,8 +112,8 @@ def main(argv=None) -> int:
     args = parse_args(sys.argv[1:] if argv is None else argv)
     from gsvc_tpu_torch.compress.bitstream import (
         decode_frame,
+        decoded_renderer,
         frame_type,
-        render_decoded,
     )
     from gsvc_tpu_torch.config import FrameConfig
     from gsvc_tpu_torch.drivers.common import load_gmodels, resolve_device
@@ -109,6 +157,7 @@ def main(argv=None) -> int:
     lines = []
     psnrs, msims = [], []
     t_start = time.time()
+    STAGES.clear()
 
     # Pass 1: decode every frame's params, then size ONE intersection
     # budget from the measured maximum (a too-small budget drops whole
@@ -130,7 +179,7 @@ def main(argv=None) -> int:
         else:
             pg = gmodels[f"frame_{frame_num - 1}"]
             side = (pg["_xyz"], pg["_cholesky"], pg["_features_dc"])
-        decoded.append((frame_num, len(blob)) + decode_frame(blob, *side))
+        decoded.append((frame_num, len(blob)) + decode_frame(blob, *side, times=STAGES))
 
     tb = ((args.width + 15) // 16, (args.height + 15) // 16, 1)
     with torch.no_grad():
@@ -143,6 +192,9 @@ def main(argv=None) -> int:
         )
     budget = int(np.ceil(n_isect * 1.1 / 8192)) * 8192
 
+    clock = _Clock(device)
+    host8 = torch.empty((args.height, args.width, 3), dtype=torch.uint8,
+                        pin_memory=device.type == "cuda")
     with open(out_dir / "decoded.rgb", "wb") as raw:
         for frame_num, nbytes, means, chol, colors in decoded:
             cfg = FrameConfig(
@@ -150,12 +202,24 @@ def main(argv=None) -> int:
                 max_num_points=means.shape[0], iterations=1,
                 backend=args.backend, max_intersects=budget,
             )
-            img_t = render_decoded(means, chol, colors, cfg, device=device)
-            img = img_t.cpu().numpy()
-            img8 = (np.clip(img, 0.0, 1.0) * 255.0).round().astype(np.uint8)
-            raw.write(img8.tobytes())
+            render = decoded_renderer(means.shape[0], cfg, device)
+            clock.mark("start")
+            render.load(means, chol, colors)
+            clock.mark("h2d")
+            stage = "capture" if render.capturing else "render"
+            img_t = render()  # a graph's output: read before the next frame's
+            clock.mark(stage)
+            host8.copy_(to_uint8(img_t), non_blocking=True)
+            clock.mark("d2h")
+            if device.type == "cuda":
+                torch.cuda.current_stream(device).synchronize()
+            clock.add_to(STAGES)
+            t_write = time.perf_counter()
+            img8 = host8.numpy()
+            raw.write(img8)  # host8 itself, no copy
             if png:
                 Image.fromarray(img8).save(out_dir / f"frame_{frame_num}.png")
+            STAGES["write"] = STAGES.get("write", 0.0) + time.perf_counter() - t_write
 
             line = (
                 f"Frame_{frame_num}: {args.height}x{args.width}, "
@@ -180,6 +244,7 @@ def main(argv=None) -> int:
             print(line)
             lines.append(line)
 
+    STAGES["frames"] = len(frames)
     summary = (
         f"Decoded {len(frames)} frames in {time.time() - t_start:.2f}s "
         f"-> {out_dir}"

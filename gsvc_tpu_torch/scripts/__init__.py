@@ -14,4 +14,8 @@ CPU their pieces run only through tests/test_torch_profiling.py.
 - profile_kernel_parts (P1): K4 with one part ablated or re-typed;
 - probe_transpose (P6): the transposes of K5's planar store;
 - profile_bwd_variants (P5): the job-based backward, variants A-E.
+
+Besides them: encoder_drift (chip_smoke.py phase 6's encode, its coded
+frames' hashes and launches) and decode_rate (the decoder CLI's frames
+per second and stages, on render graphs and eager).
 """

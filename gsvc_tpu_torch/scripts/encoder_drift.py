@@ -1,13 +1,16 @@
 """How far the coded frames of `chip_smoke.py`'s phase 6 move when only the
 order of K3's sums changes: the 4-frame 1080p/10k clip through the
-represent and compress CLIs, with K3 as its kernel or as its plain version
-(float64 sums), from one seed of the CLIs.
+represent, compress and decode CLIs, with K3 as its kernel or as its plain
+version (float64 sums), from one seed of the CLIs.
 
-    python -m gsvc_tpu_torch.scripts.encoder_drift [--seed 1] [--k3 kernel]
+    python -m gsvc_tpu_torch.scripts.encoder_drift [--seed 1] [--k3 kernel] [--eager]
 
 Prints each frame's represent and QAT PSNR, its bpp and the sha256 of its
-coded `frame_N.gsvc` (two encodes that agree to the bit agree there), then
-one JSON line of them. Run as a file with another tree's package first on
+coded `frame_N.gsvc` (two encodes that agree to the bit agree there), and
+the kernels' launches summed over the three CLIs, then one JSON line of
+them. `--eager` runs every fit step and render eagerly
+(`utils.graphs.eager`): the eager encoder whose launches and hashes phase 6
+holds its graphs to (`ENCODER_LAUNCHES`, `ENCODER_SHA256`). Run as a file with another tree's package first on
 PYTHONPATH, it encodes with that tree's kernels (its imports are the
 encoder's CLIs, `fill_cuda`'s two K3 functions and `scripts.common`'s
 scene). Card only: exits 1 without one.
@@ -36,8 +39,10 @@ H, W, N = 1080, 1920, 10000
 
 
 def rgb_to_i420(rgb: np.ndarray) -> bytes:
-    """uint8 [H, W, 3] -> one I420 frame: the exact inverse of the port's
-    BT.601 `io.yuv.yuv420_to_rgb` matrix, chroma averaged over 2x2."""
+    """uint8 [H, W, 3] -> one I420 frame: the inverse of the BT.601
+    video-range matrix with three-decimal coefficients (the reader,
+    `io.yuv.yuv420_to_rgb`, uses OpenCV's 20-bit fixed-point ones, which
+    differ in the third decimal), chroma averaged over 2x2."""
     m = np.array([[1.164, 0.0, 1.596], [1.164, -0.392, -0.813], [1.164, 2.017, 0.0]])
     ycc = rgb.astype(np.float64) @ np.linalg.inv(m).T + np.array([16.0, 128.0, 128.0])
     h, w = rgb.shape[:2]
@@ -119,6 +124,11 @@ class Run:
         self.compress = common + [
             "--iterations", str(QAT_ITERS), "--model_path", str(self.npz),
             "--k_frames_dir", str(self.ck), "--checkpoint_dir", str(self.cq)]
+        self.decoded = tmp / "decoded"
+        self.decode = [
+            "--bitstream", str(self.bitstream), "--height", str(H), "--width", str(W),
+            "--model_path", str(self.npz), "--k_frames", str(self.k_frames), "-d",
+            str(yuv), "--no_png", "--out", str(self.decoded), "--device", device]
 
 
 def main(argv=None) -> int:
@@ -127,12 +137,18 @@ def main(argv=None) -> int:
                     help="the CLIs' --seed (chip_smoke.py runs their default, 1)")
     ap.add_argument("--k3", choices=("kernel", "plain"), default="kernel")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--eager", action="store_true",
+                    help="every fit step and render eager (utils.graphs.eager)")
     args = ap.parse_args(argv)
 
+    import contextlib
+
+    from gsvc_tpu_torch import decode as decode_cli
     from gsvc_tpu_torch.drivers import compress as compress_cli
     from gsvc_tpu_torch.drivers import represent as represent_cli
     from gsvc_tpu_torch.ops import fill_cuda
     from gsvc_tpu_torch.scripts import common
+    from gsvc_tpu_torch.utils import graphs
 
     dev = common.cuda_device(args.device)
     if dev is None:
@@ -145,12 +161,18 @@ def main(argv=None) -> int:
         yuv = Path(tmp) / "clip.yuv"
         write_yuv(clip, yuv)
         run = Run(yuv, Path(tmp), H, W, N, len(clip), seed=args.seed, device=args.device)
+        counters = graphs.kernel_counters()
+        for c in counters:
+            c.launches = 0
         for name, cli, cli_argv in (("represent", represent_cli.main, run.represent),
-                                    ("compress", compress_cli.main, run.compress)):
-            rc = cli(cli_argv)
+                                    ("compress", compress_cli.main, run.compress),
+                                    ("decode", decode_cli.main, run.decode)):
+            with graphs.eager() if args.eager else contextlib.nullcontext():
+                rc = cli(cli_argv)
             if rc != 0:
                 print(f"encoder_drift: {name} returned {rc}", file=sys.stderr)
                 return 1
+        launches = {c.__name__: c.launches for c in counters}
         rep, enc = train_lines(run.rep_log), train_lines(run.qat_log)
         k_frames = [int(x) for x in run.k_frames.read_text().split()]
         sha = {f: hashlib.sha256((run.bitstream / f"frame_{f}.gsvc").read_bytes())
@@ -158,11 +180,14 @@ def main(argv=None) -> int:
     frames = {f: {"type": "K" if f in k_frames else "P", "represent_psnr": rep[f]["PSNR"],
                   "qat_psnr": enc[f]["PSNR"], "bpp": enc[f]["bpp"], "gsvc_sha256": sha[f]}
               for f in sorted(enc)}
+    how = f"seed {args.seed} K3 {args.k3}" + (" eager" if args.eager else "")
     for f, r in frames.items():
-        print(f"encoder_drift [{common.card_line()}] seed {args.seed} K3 {args.k3} frame {f} "
+        print(f"encoder_drift [{common.card_line()}] {how} frame {f} "
               f"{r['type']}: represent PSNR {r['represent_psnr']:.4f} dB, QAT PSNR "
               f"{r['qat_psnr']:.4f} dB, bpp {r['bpp']:.4f}, gsvc sha256 {r['gsvc_sha256']}")
-    print(json.dumps({"seed": args.seed, "k3": args.k3, "frames": frames}))
+    print(f"encoder_drift {how}: launches over the three CLIs {launches}")
+    print(json.dumps({"seed": args.seed, "k3": args.k3, "eager": args.eager,
+                      "frames": frames, "launches": launches}))
     return 0
 
 
