@@ -77,11 +77,21 @@ the first fault:
    within 1e-4 of K6's slots, F, which is K6's kernel, bitwise equal to
    K6, P6's transposes exactly), timed, then the
    six harnesses' mains (P3, P2, P4, P1, P6, P5) at 1080p/10k with a few
-   repetitions a stage.
+   repetitions a stage;
+8. a reduced RD point (`scripts.run_rd_point.run_point`, the RD ladder's
+   point): RD_FRAMES frames of its synthetic 1080p clip (a pan of 8 px a
+   frame) at RD_N splats, the represent (4000 its a frame, the removal
+   threshold, where P-frames keep the K-frame's count, as phase 6; K-frame
+   detection at the driver's defaults), compress (300 its) and decode
+   CLIs. It fails unless every frame decodes within 0.1 dB of its encoder
+   PSNR, the stream holds a P-frame, no CLI reports a budget overflow and
+   K1-K6 all launched; it prints
+   seconds a frame, the decoder's frames/s and each CLI's peak memory.
 
-Around each of phases 3 and 4, around each CLI of phase 6 and around the
-mains of phase 7, every launch counter is zeroed just before and read just
-after; each kernel of that path must have launched. The kernels' JSON
+Around each of phases 3 and 4, around each CLI of phase 6, around the
+mains of phase 7 and around phase 8's point, every launch counter is zeroed
+just before and read just after; each kernel of that path must have
+launched. The kernels' JSON
 reports phase 6's counts for K1-K6 and phase 7's for the harnesses'
 kernels, and each kernel's bound (`utils.work`, `utils.profiling.roofline_ms`)
 and library call (null where no single
@@ -116,6 +126,7 @@ TRAIN_ITERS = 300
 STEP_REPS = 40  # phase 5: timed steps, eager and replayed
 PROFILE_ITERS = 10  # phase 7: timed repetitions of each harness stage
 DECODE_FRAMES = 16  # phase 3's stream
+RD_N, RD_FRAMES = 20000, 3  # phase 8's RD point
 # phase 6's kernel launches and coded frames as the eager encoder made them
 # (`python -m gsvc_tpu_torch.scripts.encoder_drift --eager`: every fit step
 # and render eager, the same CLIs and seed): the graphs must launch the same
@@ -252,7 +263,7 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
         sys.stderr.write(err.getvalue())
         if rc != 0:
             fail(f"{name} returned {rc}")
-        if "WARNING" in err.getvalue():
+        if "overflow" in err.getvalue():  # a compress WARNING or a represent refit
             fail(f"{name} reported an intersection budget overflow")
         missing = [k for k in needed if launches[k] <= 0]
         if missing:
@@ -321,6 +332,47 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
               f"ms/step, PSNR {enc[f]['PSNR']:.4f} dB, bpp {enc[f]['bpp']:.4f}, eval "
               f"{enc[f]['FPS']:.1f} fps; decoded PSNR {dec[f]['PSNR']:.4f} dB")
     return total
+
+
+def rd_point_phase(torch, smi, counters, tmp: Path) -> None:
+    """Phase 8: a reduced RD point through `run_rd_point.run_point` (its
+    three CLIs), checked: every frame decoded within the point's tolerance
+    of its encoder PSNR, a P-frame in the stream, no budget overflow
+    reported, K1-K6 launched."""
+    import contextlib
+    import io
+
+    from gsvc_tpu_torch.scripts import run_rd_point as rd
+    from gsvc_tpu_torch.scripts.encoder_drift import ENC_ITERS, QAT_ITERS
+
+    err = io.StringIO()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        point = rd.run_point(tmp, RD_FRAMES, RD_N, ENC_ITERS, QAT_ITERS, width=W, height=H)
+    secs = time.perf_counter() - t0
+    sys.stderr.write(err.getvalue())
+    if "overflow" in err.getvalue():  # a compress WARNING or a represent refit
+        fail("the RD point reported an intersection budget overflow")
+    launches = {c.__name__: c.launches for c in counters}
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"kernels not launched by the RD point: {missing}; launches {launches}")
+    if point["max_decode_gap_db"] >= rd.DECODE_TOL_DB:
+        fail(f"RD point: decoded PSNR {point['frame_decoded_psnr']} vs encoder "
+             f"{point['frame_psnr']} (tol {rd.DECODE_TOL_DB} dB)")
+    if len(point["k_frames"]) >= RD_FRAMES:
+        fail(f"RD point: K-frames {point['k_frames']}, no P-frame in the stream")
+    print(f"phase 8 RD point [{smi}]: {W}x{H}, {RD_N} splats, {RD_FRAMES} frames, "
+          f"{ENC_ITERS} + {QAT_ITERS} its, K-frames {point['k_frames']}, splats kept "
+          f"{point['splats_kept']}: bpp {point['frame_bpp']}, PSNR {point['frame_psnr']}, "
+          f"decoded {point['frame_decoded_psnr']} (max gap {point['max_decode_gap_db']:.4f} "
+          f"dB); represent {point['represent_s_per_frame']:.2f} s a frame, QAT "
+          f"{point['qat_s_per_frame']:.2f} s a frame; decoder "
+          f"{point['decode_fps']:.2f} frames/s; peak GiB {point['peak_gib']}, allocated "
+          f"at start and end {point['held_gib']}; CLI seconds "
+          f"{point['cli_seconds']}; {secs:.2f} s in all; launches {launches}")
 
 
 def timed_row(smi, phase, name, src, replaces, counter, err, kern, plain, work,
@@ -1049,6 +1101,10 @@ def main() -> int:
 
     # -- phase 7: the profiling path ------------------------------------
     kernels += profiling_phase(torch, dev, smi, sc, v_rows, counters)
+
+    # -- phase 8: a reduced RD point ---------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        rd_point_phase(torch, smi, counters, Path(tmp))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

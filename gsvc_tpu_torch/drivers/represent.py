@@ -14,7 +14,10 @@ cuda; raises when there is no card). Per frame:
     (train_video_Represent.py:312-356), cached in K_frames.txt;
   - K-frames: fresh init + removal control (--is_rm);
   - P-frames: warm start from the previous frame's converged splats +
-    adaptive control (--is_ad) (train_video_Represent.py:358-366).
+    adaptive control (--is_ad) (train_video_Represent.py:358-366);
+  - a fit that overflows its intersection budget (the JAX driver warns and
+    keeps it) is fitted again with a larger budget, kept for the frames
+    after it (`train_within_budget`).
 
 The checkpoint keys are `frame_{n}/_xyz|_cholesky|_features_dc` with the
 colours premultiplied by rgb_W (train_video_Represent.py:109-113), so
@@ -34,6 +37,7 @@ import math
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -49,11 +53,13 @@ from gsvc_tpu_torch.io import generate_video, process_yuv_video
 from gsvc_tpu_torch.models.represent import (
     fit_frame_partial,
     init_train_state,
+    intersection_budget,
     pre_train_frame,
     render_frame,
     render_frame_pos,
     uses_kernels,
 )
+from gsvc_tpu_torch.ops.binning import default_max_intersects
 from gsvc_tpu_torch.parallel.multihost import NOT_PORTED, gop_spans
 from gsvc_tpu_torch.utils import graphs
 from gsvc_tpu_torch.utils.control import detect_outliers_mean_diff
@@ -130,6 +136,7 @@ class SimpleTrainer2d:
         device=None,
         uniforms=None,
         draws=None,
+        max_intersects: Optional[int] = None,
     ):
         if tile_shards and tile_shards > 1:
             raise NotImplementedError(f"--tile_shards {tile_shards} {NOT_PORTED}")
@@ -159,16 +166,11 @@ class SimpleTrainer2d:
             isremoval=isremoval,
             backend=backend,
         )
-        if args is not None and getattr(args, "budget_factor", 0):
-            from gsvc_tpu_torch.ops.binning import default_max_intersects
-
+        if max_intersects is None and args is not None and getattr(args, "budget_factor", 0):
             tbb = self.cfg.tile_bounds
-            self.cfg = dataclasses.replace(
-                self.cfg,
-                max_intersects=default_max_intersects(
-                    max_num_points, tbb[0] * tbb[1], factor=args.budget_factor,
-                ),
-            )
+            max_intersects = default_max_intersects(
+                max_num_points, tbb[0] * tbb[1], factor=args.budget_factor)
+        self.cfg = dataclasses.replace(self.cfg, max_intersects=max_intersects)
         gen = frame_generator(seed, frame_num)
         self.draws = gen if draws is None else draws
         if Trained_Model is not None:
@@ -193,14 +195,6 @@ class SimpleTrainer2d:
         train_time = time.time() - t0
         state = self.state
         num_points = int(state.alive.sum())
-        overflow = int(state.max_overflow)
-        if overflow > 0:
-            print(
-                f"WARNING: frame {self.frame_num}: intersection budget "
-                f"overflow — {overflow} intersections (whole splats) were "
-                "dropped from render AND gradients; raise max_intersects",
-                file=sys.stderr,
-            )
         psnr, msssim, combined_img, img = self.test(ispos)
         # render-only timing loop (train_video_Represent.py:101-106); on the
         # kernel path it times the planar [3, H, W] forward (K5), the
@@ -244,6 +238,27 @@ class SimpleTrainer2d:
         pos_u8 = (torch.clamp(pos, 0, 1) * 255).cpu().numpy().astype(np.uint8)
         combined = np.concatenate([pos_u8, img_u8], axis=1)
         return psnr, mss, combined, img_u8
+
+
+def train_within_budget(make_trainer, max_intersects: Optional[int] = None,
+                        ispos: bool = False):
+    """Fit a frame with `make_trainer(max_intersects)` and, while its fit
+    reports a budget overflow (whole splats dropped from its render and
+    gradients, which also ends it early through a noisy loss), fit it again
+    from the start with the budget raised to twice the intersections it
+    reached, in buckets of 8192. Returns (the trainer, its `train()`, the
+    budget of that fit)."""
+    while True:
+        trainer = make_trainer(max_intersects)
+        result = trainer.train(ispos)
+        overflow = int(trainer.state.max_overflow)
+        if overflow == 0:
+            return trainer, result, max_intersects
+        was = intersection_budget(trainer.cfg)
+        max_intersects = -(-2 * (was + overflow) // 8192) * 8192
+        print(f"frame {trainer.frame_num}: the fit overflowed its intersection budget "
+              f"{was} by {overflow} intersections (whole splats dropped from render and "
+              f"gradients); fitting it again with {max_intersects}", file=sys.stderr)
 
 
 def _save_png(path, img_u8: np.ndarray) -> None:
@@ -383,6 +398,8 @@ def main(argv):
     img_list = []
     combined_img_list = []
     img_dir = out_dir / "img"
+    # raised where a fit overflows it, kept for the frames after it
+    max_intersects = None
     for gop in gop_spans(k_frames, image_length):
         gmodel = None
         num_gaussian_points = args.num_points
@@ -393,19 +410,19 @@ def main(argv):
                           removal_rate=args.removal_rate, seed=args.seed,
                           backend=args.backend)
             if frame_num in k_frames:
-                trainer = SimpleTrainer2d(
-                    video_frames[i], frame_num, num_points=args.num_points,
-                    Trained_Model=None, isdensity=False, isremoval=args.is_rm,
-                    **common)
+                frame = dict(num_points=args.num_points, Trained_Model=None,
+                             isdensity=False, isremoval=args.is_rm)
             else:
-                trainer = SimpleTrainer2d(
-                    video_frames[i], frame_num, num_points=num_gaussian_points,
-                    Trained_Model=gmodel, isdensity=args.is_ad, isremoval=False,
-                    **common)
+                frame = dict(num_points=num_gaussian_points, Trained_Model=gmodel,
+                             isdensity=args.is_ad, isremoval=False)
+            trainer, result, max_intersects = train_within_budget(
+                lambda mi: SimpleTrainer2d(video_frames[i], frame_num, **frame, **common,
+                                           max_intersects=mi),
+                max_intersects, args.is_pos)
             (
                 psnr, msssim, train_time, eval_time, eval_fps,
                 gmodel, combined_img, img, num_gaussian_points, loss,
-            ) = trainer.train(args.is_pos)
+            ) = result
             img_list.append(img)
             if args.is_pos:
                 combined_img_list.append(combined_img)

@@ -65,7 +65,7 @@ from gsvc_tpu_torch.utils import graphs
 from gsvc_tpu_torch.utils.profiling import _sync
 
 CHOL_BITS = 6  # UniformQuantizer(bits=6), GaussianSplats_Compress.py:37
-SHARDING = "is not ported yet (ROADMAP Queue 1 item 5, the sharded trainer)"
+SHARDING = "is not ported yet (ROADMAP Queue 1 item 3, the sharded trainer)"
 
 
 @dataclasses.dataclass

@@ -417,6 +417,13 @@ def _assign_splats(dst: GaussianFrame, src: GaussianFrame) -> None:
         getattr(dst, name).copy_(getattr(src, name))
 
 
+def intersection_budget(cfg: FrameConfig) -> int:
+    """The intersection budget a fit with `cfg` bins into."""
+    tbb = cfg.tile_bounds
+    return (cfg.max_intersects if cfg.max_intersects is not None
+            else default_max_intersects(cfg.max_num_points, tbb[0] * tbb[1]))
+
+
 def make_train_step(cfg: FrameConfig, lambda_value: float = 0.0,
                     draws: Draws = None):
     """One reference train_iter: forward/loss/backward, splat control, Adan
@@ -428,9 +435,7 @@ def make_train_step(cfg: FrameConfig, lambda_value: float = 0.0,
     tile-row space. `twins` (`fit_twins`, made once a fit slice) holds the
     device copies of the host values the step reads; without them the step
     makes its own for this one step."""
-    num_tiles = cfg.tile_bounds[0] * cfg.tile_bounds[1]
-    mi = (cfg.max_intersects if cfg.max_intersects is not None
-          else default_max_intersects(cfg.max_num_points, num_tiles))
+    mi = intersection_budget(cfg)
 
     def step(state: TrainState, gt: torch.Tensor, rows_target=None,
              twins: Optional[graphs.Twins] = None) -> TrainState:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
-NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 5: the sharded "
+NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 3: the sharded "
               "trainer, then multi-host)")
 
 

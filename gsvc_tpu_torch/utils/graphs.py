@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import time
 from typing import Callable, Hashable, NamedTuple, Optional, Sequence, Tuple, TypeVar
 
@@ -43,6 +44,15 @@ import torch
 
 T = TypeVar("T")
 WARMUP = 3  # eager plain steps on a side stream before the capture
+
+
+@functools.lru_cache(maxsize=None)
+def side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one side stream of `device` that every warm-up and capture runs
+    on. PyTorch keeps a cuBLAS workspace (32 MiB on an H100) for each stream
+    a matmul ran on until the process ends, so a new stream a graph would
+    leave that much allocated once the graph is freed."""
+    return torch.cuda.Stream(device)
 
 
 class Twins(NamedTuple):
@@ -204,7 +214,7 @@ class StepGraph:
 
     def _on_side(self, step: Callable[[], T]) -> T:
         if self.side is None:
-            self.side = torch.cuda.Stream(self.device)
+            self.side = side_stream(self.device)
         main = torch.cuda.current_stream(self.device)
         self.side.wait_stream(main)
         with torch.cuda.stream(self.side):
@@ -387,7 +397,7 @@ class RenderGraph(EagerRender):
         out = super().__call__()
         with torch.no_grad():
             self.graph, self.output, self.counts, secs = _capture(
-                lambda: self.fn(*self.inputs), self.device, torch.cuda.Stream(self.device))
+                lambda: self.fn(*self.inputs), self.device, side_stream(self.device))
         RenderGraph.capture_seconds += secs
         RenderGraph.captures += 1
         return out

@@ -266,6 +266,39 @@ def _files(root: Path):
     return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
 
 
+def test_a_fit_over_its_budget_is_fitted_again_with_a_larger_one(capsys):
+    """The RD ladder's 10k point (ROADMAP Queue 3): a represent fit that
+    overflows its intersection budget (gsvc_tpu warns and keeps it) is
+    fitted again from the start with twice the intersections it reached,
+    in buckets of 8192; a fit within its budget is fitted once."""
+    gt = _frames(1, 1)[0]
+    args = _kd_args("cuda", device="cpu")
+    made = []
+
+    def make(max_intersects):
+        made.append(max_intersects)
+        return drv.SimpleTrainer2d(gt, 1, num_points=40, max_num_points=40, iterations=30,
+                                   args=args, isremoval=True, backend="cuda",
+                                   max_intersects=max_intersects)
+
+    over = make(16)
+    over.train()
+    assert int(over.state.max_overflow) > 0
+    made.clear()
+    trainer, result, max_intersects = drv.train_within_budget(make, 16)
+    assert made == [16, 8192] and max_intersects == 8192
+    assert int(trainer.state.max_overflow) == 0 and rep.intersection_budget(trainer.cfg) == 8192
+    assert "overflowed its intersection budget 16 by" in capsys.readouterr().err
+    fresh = make(8192).train()  # the second fit is a fresh one with that budget
+    assert result[0] == fresh[0] and result[-1] == fresh[-1]
+    for k in result[5]:
+        np.testing.assert_array_equal(result[5][k], fresh[5][k])
+    made.clear()
+    _trainer, _result, max_intersects = drv.train_within_budget(make, None)
+    assert made == [None] and max_intersects is None
+    assert "overflow" not in capsys.readouterr().err
+
+
 def test_represent_compress_decode_clis(tmp_path):
     """The port's three CLIs on a synthetic 3-frame YUV: the artifacts and
     train.txt lines of gsvc_tpu's test_represent_then_compress_e2e."""
@@ -335,7 +368,7 @@ def test_represent_compress_decode_clis(tmp_path):
     # the multi-chip modes are refused, never run on one device
     for main in (drv.main, cdrv.main):
         for extra in (["--tile_shards", "2"], ["--hosts", "2"]):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
                 main(common + ["--model_path", str(npz)] + extra)
 
 

@@ -33,6 +33,7 @@ its float32 reciprocal); the new eager fit equals the replaced step there.
 """
 
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -588,6 +589,25 @@ def test_graph_qat_fit_equals_eager(dev, delta):
         draws=torch.Generator().manual_seed(0), graph=graph))
     _assert_same_qat(a, eager)
     _assert_same_qat(b, eager)
+
+
+@pytest.mark.cuda
+def test_graph_qat_fits_leave_no_memory_allocated(dev):
+    """QAT fits on graphs, one after another, leave no device memory
+    allocated once the first has made what the process keeps (ROADMAP
+    Queue 3: a new side stream a graph kept 32 MiB of cuBLAS workspace,
+    so the compress CLI held ~0.78 GiB after 10 frames)."""
+    cfg = _cfg(**{**CARD, "cap": CARD["n"]}, iterations=60, lr=1e-3)
+    gt = _gt(256, 256, seed=3, device=dev)
+    g, _pg = _gmodels(CARD["n"], 4, False)
+    held = []
+    for _ in range(4):
+        comp.fit_compress(comp.init_compress_state(g, None, dev), gt, cfg,
+                          draws=torch.Generator().manual_seed(0))
+        gc.collect()
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated(dev))
+    assert held[1] == held[2] == held[3], held
 
 
 @pytest.mark.cuda
