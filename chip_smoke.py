@@ -21,12 +21,16 @@ the first fault:
    bench scene (bench.py's scene, seed 0, unit opacity), each against its
    plain PyTorch version on the card: keys, ids and K2's tile edges
    exactly, renders within max-abs 1e-4, the rows store exactly
-   image_to_rows of the image store,
+   image_to_rows of the image store; K1 and K2 also on wide keys (WIDE_N
+   splats, a 17-bit gauss field, `fill_cuda.key_layout`) at 1920x1080
+   (int32 keys) and 3840x2160 (int64), exactly, K2 at the cap of 256 and
+   at WIDE_CAP (runs past it: capped lanes, the 17-bit sentinel), with
+   `bin_gaussians`' kernel path equal to its plain one there,
    K6 / K3 and the autograd function's per-splat gradients (against
    autograd through the plain renderer) within 1e-4 of the largest entry;
    K3 also at the full budget with sparse flags, whose segments run over
-   several CTAs' spans; two launches of K2, K5, K4 rows, K6 (rows) and K3
-   (both cases) bitwise equal;
+   several CTAs' spans; two launches of K2 (also on both wide scenes), K5,
+   K4 rows, K6 (rows) and K3 (both cases) bitwise equal;
 3. serving slice: a stream of DECODE_FRAMES K-frames of the scene written
    with `pack_frame` (`scripts.decode_rate`), decoded by `python -m
    gsvc_tpu_torch.decode --no_png` (its `main`), its renders replays of one
@@ -48,7 +52,8 @@ the first fault:
    adaptive-control steps (the P-frame mode), which revive splats, a
    pre-train and a QAT fit, each with graphs and with graph=False, bitwise
    equal;
-5. times: each kernel beside its plain version, the eval render
+5. times: each kernel beside its plain version (K1 and K2 also on both
+   wide scenes, and `torch.sort` of the keys at each layout), the eval render
    (projection + binning + render + clip, "chw") in frames per second (a
    chained device loop, and 100 calls eager and as replays of its CUDA
    graph, whose frame must equal the eager one bitwise), and
@@ -86,15 +91,22 @@ the first fault:
    CLIs. It fails unless every frame decodes within 0.1 dB of its encoder
    PSNR, the stream holds a P-frame, no CLI reports a budget overflow and
    K1-K6 all launched; it prints
-   seconds a frame, the decoder's frames/s and each CLI's peak memory.
+   seconds a frame, the decoder's frames/s and each CLI's peak memory;
+9. wide RD points: phase 8's point at WIDE_N splats and RD_WIDE_FRAMES
+   frames at 1920x1080 (int32 wide keys) and at 3840x2160 (int64), each
+   with phase 8's checks, failing unless every frame kept at least 65,536
+   splats (so the fits, the decoder and their K1 / K2 ran on wide keys);
+   each prints the key layout, the eval fps, seconds a frame and each
+   CLI's peak memory.
 
 Around each of phases 3 and 4, around each CLI of phase 6, around the
-mains of phase 7 and around phase 8's point, every launch counter is zeroed
-just before and read just after; each kernel of that path must have
-launched. The kernels' JSON
-reports phase 6's counts for K1-K6 and phase 7's for the harnesses'
-kernels, and each kernel's bound (`utils.work`, `utils.profiling.roofline_ms`)
-and library call (null where no single
+mains of phase 7 and around each point of phases 8 and 9, every launch
+counter is zeroed just before and read just after; each kernel of that
+path must have launched. The kernels' JSON reports phase 6's counts for
+K1-K6, those of phase 9's point on the same grid for K1 and K2 on wide
+keys (1080p: int32, 4K UHD: int64) and phase 7's for the harnesses'
+kernels, and each kernel's bound (`utils.work`,
+`utils.profiling.roofline_ms`) and library call (null where no single
 PyTorch call computes the same function; for K2, the `searchsorted` of its
 tile edges).
 
@@ -127,6 +139,11 @@ STEP_REPS = 40  # phase 5: timed steps, eager and replayed
 PROFILE_ITERS = 10  # phase 7: timed repetitions of each harness stage
 DECODE_FRAMES = 16  # phase 3's stream
 RD_N, RD_FRAMES = 20000, 3  # phase 8's RD point
+# phases 2, 5 and 9: splats past 65,535, whose keys have a 17-bit gauss
+# field (int32 at 1080p, int64 at 4K UHD), phase 9's frames at each grid,
+# and the small cap phase 2 also holds K2 to on those keys
+WIDE_N, WIDE_GRIDS, RD_WIDE_FRAMES = 100000, ((1080, 1920), (2160, 3840)), 2
+WIDE_CAP = 4
 # phase 6's kernel launches and coded frames as the eager encoder made them
 # (`python -m gsvc_tpu_torch.scripts.encoder_drift --eager`: every fit step
 # and render eager, the same CLIs and seed): the graphs must launch the same
@@ -334,14 +351,18 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
     return total
 
 
-def rd_point_phase(torch, smi, counters, tmp: Path) -> None:
-    """Phase 8: a reduced RD point through `run_rd_point.run_point` (its
-    three CLIs), checked: every frame decoded within the point's tolerance
-    of its encoder PSNR, a P-frame in the stream, no budget overflow
-    reported, K1-K6 launched."""
+def rd_point_phase(torch, smi, counters, tmp: Path, phase: int, n: int, frames: int,
+                   min_kept: int = 0, width: int = W, height: int = H) -> dict:
+    """Phases 8 and 9: a reduced RD point of `n` splats and `frames` frames
+    of width x height through `run_rd_point.run_point` (its three CLIs),
+    checked: every frame decoded within the point's tolerance of its
+    encoder PSNR, a P-frame in the stream, no budget overflow reported,
+    K1-K6 launched, every frame keeping at least `min_kept` splats. Returns
+    the point's launches."""
     import contextlib
     import io
 
+    from gsvc_tpu_torch.ops.fill_cuda import key_layout
     from gsvc_tpu_torch.scripts import run_rd_point as rd
     from gsvc_tpu_torch.scripts.encoder_drift import ENC_ITERS, QAT_ITERS
 
@@ -350,29 +371,38 @@ def rd_point_phase(torch, smi, counters, tmp: Path) -> None:
         c.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
-        point = rd.run_point(tmp, RD_FRAMES, RD_N, ENC_ITERS, QAT_ITERS, width=W, height=H)
+        point = rd.run_point(tmp, frames, n, ENC_ITERS, QAT_ITERS, width=width,
+                             height=height)
     secs = time.perf_counter() - t0
     sys.stderr.write(err.getvalue())
     if "overflow" in err.getvalue():  # a compress WARNING or a represent refit
-        fail("the RD point reported an intersection budget overflow")
+        fail(f"the RD point of phase {phase} reported an intersection budget overflow")
     launches = {c.__name__: c.launches for c in counters}
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
-        fail(f"kernels not launched by the RD point: {missing}; launches {launches}")
+        fail(f"kernels not launched by the RD point of phase {phase}: {missing}; "
+             f"launches {launches}")
     if point["max_decode_gap_db"] >= rd.DECODE_TOL_DB:
-        fail(f"RD point: decoded PSNR {point['frame_decoded_psnr']} vs encoder "
-             f"{point['frame_psnr']} (tol {rd.DECODE_TOL_DB} dB)")
-    if len(point["k_frames"]) >= RD_FRAMES:
-        fail(f"RD point: K-frames {point['k_frames']}, no P-frame in the stream")
-    print(f"phase 8 RD point [{smi}]: {W}x{H}, {RD_N} splats, {RD_FRAMES} frames, "
-          f"{ENC_ITERS} + {QAT_ITERS} its, K-frames {point['k_frames']}, splats kept "
+        fail(f"RD point of phase {phase}: decoded PSNR {point['frame_decoded_psnr']} vs "
+             f"encoder {point['frame_psnr']} (tol {rd.DECODE_TOL_DB} dB)")
+    if len(point["k_frames"]) >= frames:
+        fail(f"RD point of phase {phase}: K-frames {point['k_frames']}, no P-frame")
+    if len(point["splats_kept"]) != frames or min(point["splats_kept"]) < min_kept:
+        fail(f"RD point of phase {phase}: splats kept {point['splats_kept']}, want "
+             f"{frames} frames of at least {min_kept}")
+    layout = key_layout(((width + 15) // 16) * ((height + 15) // 16), n)
+    print(f"phase {phase} RD point [{smi}]: {width}x{height}, {n} splats (keys: a "
+          f"{layout.gauss_bits}-bit gauss field, {str(layout.dtype)[6:]}), {frames} "
+          f"frames, {ENC_ITERS} + {QAT_ITERS} its, K-frames {point['k_frames']}, splats kept "
           f"{point['splats_kept']}: bpp {point['frame_bpp']}, PSNR {point['frame_psnr']}, "
           f"decoded {point['frame_decoded_psnr']} (max gap {point['max_decode_gap_db']:.4f} "
           f"dB); represent {point['represent_s_per_frame']:.2f} s a frame, QAT "
-          f"{point['qat_s_per_frame']:.2f} s a frame; decoder "
+          f"{point['qat_s_per_frame']:.2f} s a frame; eval fps represent "
+          f"{point['represent_eval_fps']:.1f}, QAT {point['qat_eval_fps']:.1f}; decoder "
           f"{point['decode_fps']:.2f} frames/s; peak GiB {point['peak_gib']}, allocated "
           f"at start and end {point['held_gib']}; CLI seconds "
           f"{point['cli_seconds']}; {secs:.2f} s in all; launches {launches}")
+    return launches
 
 
 def timed_row(smi, phase, name, src, replaces, counter, err, kern, plain, work,
@@ -624,7 +654,7 @@ def main() -> int:
     from gsvc_tpu_torch.scripts.common import scene
     from gsvc_tpu_torch.utils import graphs, sass, work
     from gsvc_tpu_torch.utils.graphs import RenderGraph, StepGraph
-    from gsvc_tpu_torch.utils.profiling import device_loop_time
+    from gsvc_tpu_torch.utils.profiling import device_loop_time, event_ms
 
     # -- phase 1: build --------------------------------------------------
     t0 = time.perf_counter()
@@ -690,6 +720,50 @@ def main() -> int:
     print(f"phase 2 kernels: intersections {n_isect}, budget {budget}; K1 keys, K2 "
           f"ids and {ki.num_tiles + 1} tile edges exact; forward max-abs image "
           f"{errs['image']:.3g} chw {errs['chw']:.3g} (tol {RENDER_TOL}); rows exact")
+
+    # K1 and K2 on wide keys: WIDE_N splats at 1080p (int32) and 4K UHD (int64)
+    wide = {}
+    for wh, ww in WIDE_GRIDS:
+        wsc = scene(WIDE_N, wh, ww, dev)
+        wki = key_inputs(wsc.xys, wsc.radii, wsc.nth, wsc.tb, 16, 16, wsc.budget)
+        wlayout = fill_cuda.key_layout(wki.num_tiles, WIDE_N)
+        tag = f"{ww}x{wh}/{WIDE_N}, {wlayout.gauss_bits}-bit, {str(wlayout.dtype)[6:]}"
+        wkeys = fill_cuda.fill_decode_keys(*wki.k1)
+        if wkeys.dtype != wlayout.dtype or not torch.equal(
+                wkeys, fill_cuda.fill_decode_keys_torch(*wki.k1)):
+            fail(f"K1 on wide keys ({tag}) differs from its plain version")
+        wskeys = torch.sort(wkeys).values
+        # the cap of 256 and WIDE_CAP, which every tile run longer than it
+        # passes (K2's capped lanes and the 17-bit sentinel)
+        for cap in (256, WIDE_CAP):
+            got = fill_cuda.rank_cap_decode(wskeys, cap, WIDE_N, wki.num_tiles)
+            want = fill_cuda.rank_cap_decode_torch(wskeys, cap, WIDE_N, wki.num_tiles)
+            for name, a, b in zip(("tile ids", "gauss ids", "tile edges"), got, want):
+                if not torch.equal(a, b):
+                    fail(f"K2 on wide keys ({tag}, cap {cap}): {name} differ from the "
+                         f"plain version at {int((a != b).sum())} entries")
+            if not torch.equal(torch.cat(got), torch.cat(
+                    fill_cuda.rank_cap_decode(wskeys, cap, WIDE_N, wki.num_tiles))):
+                fail(f"K2 on wide keys ({tag}, cap {cap}): two launches on the same "
+                     "inputs differ")
+        capped = int((wsc.binned.tile_counts - WIDE_CAP).clamp(min=0).sum())
+        if capped <= 0:
+            fail(f"wide keys ({tag}): no tile run passes the cap of {WIDE_CAP}")
+        wplain = bin_gaussians(wsc.xys, wsc.radii, wsc.nth, wsc.tb, 16, 16, wsc.budget,
+                               kernels=False)
+        for name in wsc.binned._fields:
+            if not torch.equal(getattr(wsc.binned, name), getattr(wplain, name)):
+                fail(f"binning field {name} on wide keys ({tag}) differs between the "
+                     "kernel and the plain path")
+        if int(wsc.binned.overflow) != 0:
+            fail(f"wide keys ({tag}): budget {wsc.budget} overflowed")
+        wide[tag] = ((wh, ww), wsc, wki, wkeys, wskeys, want[0])
+        print(f"phase 2 kernels, wide keys ({tag}): intersections {int(wsc.nth.sum())}, "
+              f"budget {wsc.budget}, tiles {wki.num_tiles}, the longest tile run "
+              f"{int(wsc.binned.tile_counts.max())} lanes, {capped} lanes past a cap of "
+              f"{WIDE_CAP}; K1 keys, K2 ids and tile edges exact at caps 256 and "
+              f"{WIDE_CAP}, two K2 launches bitwise equal, bin_gaussians' kernel path = "
+              "plain")
 
     # K6 in each layout and K3 on its slots, against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1039,6 +1113,39 @@ def main() -> int:
     library = {"K2 rank_cap_decode": lambda: torch.searchsorted(tiles, tile_range)}
     kernels = [timed_row(smi, 5, *row, bounds[row[0]], library.get(row[0]))
                for row in timed]
+    # K1 and K2 on the wide scenes, (grid, row); their launches are phase
+    # 9's point on the same grid
+    wide_rows = []
+    for tag, (grid, wsc, wki, _wkeys, wskeys, wtiles) in wide.items():
+        wwork = work.key_work(wsc)
+        wrange = torch.arange(wki.num_tiles + 1, dtype=torch.int32, device=dev)
+        wide_rows += [(grid, row) for row in (
+            timed_row(smi, 5, f"K1 fill_decode_keys, wide keys {tag}",
+                      "gsvc_tpu_torch/csrc/fill.cu", "gsvc_tpu/ops/fill_pallas.py:57",
+                      "fill_decode_keys", 0.0,
+                      lambda wki=wki: fill_cuda.fill_decode_keys(*wki.k1),
+                      lambda wki=wki: fill_cuda.fill_decode_keys_torch(*wki.k1),
+                      wwork["K1 fill_decode_keys"]),
+            timed_row(smi, 5, f"K2 rank_cap_decode, wide keys {tag}",
+                      "gsvc_tpu_torch/csrc/fill.cu", "gsvc_tpu/ops/fill_pallas.py:242",
+                      "rank_cap_decode", 0.0,
+                      lambda k=wskeys, t=wki.num_tiles: fill_cuda.rank_cap_decode(
+                          k, 256, WIDE_N, t),
+                      lambda k=wskeys, t=wki.num_tiles: fill_cuda.rank_cap_decode_torch(
+                          k, 256, WIDE_N, t),
+                      wwork["K2 rank_cap_decode"],
+                      lambda t=wtiles, r=wrange: torch.searchsorted(t, r)))]
+    # the key sort at each layout: the bench scene's 16-bit keys, the wide
+    # scenes' keys, and the 1080p wide keys as int64
+    sort_keys = {f"{W}x{H}/{N}, 16-bit, {str(keys.dtype)[6:]}": keys}
+    for tag, (_g, _wsc, _wki, wkeys, _s, _t) in wide.items():
+        sort_keys[tag] = wkeys
+        if wkeys.dtype == torch.int32:
+            sort_keys[f"{tag} keys as int64"] = wkeys.to(torch.int64)
+    print(f"phase 5 time [{smi}]: torch.sort of the keys, device ms (CUDA events over "
+          "50 sorts behind a spin kernel): " + "; ".join(
+              f"{name} [{k.numel()}] {event_ms(lambda k=k: torch.sort(k), 50):.4f}"
+              for name, k in sort_keys.items()))
     print(f"phase 5 time [{smi}]: eval render 1080p/10k chw fps: kernel path "
           f"{fps['cuda']}, plain path {fps['torch']} (a chained device loop; order "
           f"plain, kernel, kernel, plain); 100 calls, CUDA events: eager "
@@ -1104,7 +1211,18 @@ def main() -> int:
 
     # -- phase 8: a reduced RD point ---------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        rd_point_phase(torch, smi, counters, Path(tmp))
+        rd_point_phase(torch, smi, counters, Path(tmp), 8, RD_N, RD_FRAMES)
+
+    # -- phase 9: wide RD points, every frame past 65,535 splats -----------
+    wide_launches = {}
+    for wh, ww in WIDE_GRIDS:
+        with tempfile.TemporaryDirectory() as tmp:
+            wide_launches[(wh, ww)] = rd_point_phase(
+                torch, smi, counters, Path(tmp), 9, WIDE_N, RD_WIDE_FRAMES,
+                min_kept=1 << 16, width=ww, height=wh)
+    for grid, k in wide_rows:
+        k["launches"] = wide_launches[grid][k["launches"]]
+        kernels.append(k)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

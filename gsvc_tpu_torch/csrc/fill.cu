@@ -4,9 +4,13 @@
 // `_rank_kernel` / `rank_cap_decode`. The Python side, with the plain PyTorch
 // versions and the design note, is gsvc_tpu_torch/ops/fill_cuda.py.
 //
-// Keys are (tile << 16 | gauss), int32 while num_tiles <= 32767 (the
-// sentinel (num_tiles << 16 | 0xFFFF) then fits 31 bits) and int64 above;
-// both kernels are templates on the key type.
+// Keys are (tile << gauss_bits | gauss), laid out by fill_cuda.key_layout:
+// the gauss field is max(16, bit length of n) bits, its all-ones value the
+// sentinel of a slot past the kept total (>= n, never a real id), and the
+// keys int32 where the sentinel key (num_tiles << gauss_bits | sentinel) fits
+// 31 bits, int64 above. Both kernels are templates on the key type and take
+// the field's width at run time; below 65,536 splats it is 16, the JAX
+// package's uint32 keys.
 //
 // K1 is one launch, one CTA per block of kSlots consecutive output slots;
 // what bounds it is bytes (16 n + 4 + 4 S at int32 keys, 0.15 us) and, far
@@ -113,8 +117,8 @@ template <typename Key>
 __global__ void __launch_bounds__(kThreads)
     fill_keys_kernel(const int* __restrict__ starts, const int* __restrict__ tmin_x,
                      const int* __restrict__ tmin_y, const int* __restrict__ bbox_w,
-                     const int* __restrict__ total_kept, int n, int tb_x, Key sentinel,
-                     long long count, Key* __restrict__ keys) {
+                     const int* __restrict__ total_kept, int n, int tb_x, int gauss_bits,
+                     Key sentinel, long long count, Key* __restrict__ keys) {
   __shared__ int s_start[kWindow];
   __shared__ int s_tx[kWindow];
   __shared__ int s_ty[kWindow];
@@ -162,7 +166,7 @@ __global__ void __launch_bounds__(kThreads)
         const int bw = s_bw[k];
         const int q = rel / bw;
         const int tile = (s_ty[k] + q) * tb_x + s_tx[k] + (rel - q * bw);
-        key[j] = (static_cast<Key>(tile) << 16) | static_cast<Key>(w0 + k);
+        key[j] = (static_cast<Key>(tile) << gauss_bits) | static_cast<Key>(w0 + k);
       }
     }
   }
@@ -199,8 +203,8 @@ __device__ __forceinline__ void load_keys<long long>(const long long* __restrict
 }
 
 template <typename Key>
-__device__ __forceinline__ int tile_of(Key key) {
-  return static_cast<int>(key >> 16);
+__device__ __forceinline__ int tile_of(Key key, int gauss_bits) {
+  return static_cast<int>(key >> gauss_bits);  // -1 for key -1
 }
 
 constexpr int kShortGap = 4;  // edges a thread writes alone; longer gaps: its warp
@@ -211,8 +215,8 @@ constexpr int kShortGap = 4;  // edges a thread writes alone; longer gaps: its w
 // votes), so no thread returns early.
 template <typename Key>
 __global__ void __launch_bounds__(kThreads)
-    rank_cap_kernel(const Key* __restrict__ keys, int count, int cap, int n,
-                    int num_tiles, bool vec, int* __restrict__ tile_ids,
+    rank_cap_kernel(const Key* __restrict__ keys, int count, int gauss_bits, int cap,
+                    int n, int num_tiles, bool vec, int* __restrict__ tile_ids,
                     int* __restrict__ gauss_ids, int* __restrict__ edges) {
   const int lane = threadIdx.x & 31;
   const int i0 = (blockIdx.x * kThreads + threadIdx.x) * kPer;
@@ -234,19 +238,21 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   // the tile before lane i0: the previous thread's last, or a load at a warp's start
-  const int before = (lane == 0 && i0 > 0 && i0 <= count) ? tile_of(keys[i0 - 1]) : -1;
+  const int before =
+      (lane == 0 && i0 > 0 && i0 <= count) ? tile_of(keys[i0 - 1], gauss_bits) : -1;
   int tile[kPer];
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) tile[j] = tile_of(key[j]);
+  for (int j = 0; j < kPer; ++j) tile[j] = tile_of(key[j], gauss_bits);
   const int left = __shfl_up_sync(kFull, tile[kPer - 1], 1);
   const int prev = lane == 0 ? before : left;
 
+  const Key mask = (Key(1) << gauss_bits) - 1;  // the gauss field and its sentinel
   int gid[kPer];
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
-    const int gauss = static_cast<int>(key[j] & 0xFFFF);
-    const bool capped = b0 + j >= 0 && tile_of(back[j]) == tile[j];
-    gid[j] = (capped || gauss == 0xFFFF) ? n : gauss;
+    const Key gauss = key[j] & mask;
+    const bool capped = b0 + j >= 0 && tile_of(back[j], gauss_bits) == tile[j];
+    gid[j] = (capped || gauss == mask) ? n : static_cast<int>(gauss);
   }
   if (whole && vec) {
     *reinterpret_cast<int4*>(tile_ids + i0) = make_int4(tile[0], tile[1], tile[2], tile[3]);
@@ -294,46 +300,60 @@ __global__ void __launch_bounds__(kThreads)
 template <typename Key>
 void launch_fill(const void* starts, const void* tmin_x, const void* tmin_y,
                  const void* bbox_w, const void* total_kept, int n, int tb_x,
-                 int num_tiles, long long num_slots, void* keys, cudaStream_t s) {
-  const Key sentinel = (static_cast<Key>(num_tiles) << 16) | 0xFFFF;
+                 int num_tiles, int gauss_bits, long long num_slots, void* keys,
+                 cudaStream_t s) {
+  const Key sentinel =
+      (static_cast<Key>(num_tiles) << gauss_bits) | ((Key(1) << gauss_bits) - 1);
   const long long blocks = (num_slots + kSlots - 1) / kSlots;
   fill_keys_kernel<Key><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       static_cast<const int*>(starts), static_cast<const int*>(tmin_x),
       static_cast<const int*>(tmin_y), static_cast<const int*>(bbox_w),
-      static_cast<const int*>(total_kept), n, tb_x, sentinel, num_slots,
+      static_cast<const int*>(total_kept), n, tb_x, gauss_bits, sentinel, num_slots,
       static_cast<Key*>(keys));
 }
 
 template <typename Key>
-void launch_rank(const void* sorted_keys, int count, int cap, int n, int num_tiles,
-                 bool vec, void* tile_ids, void* gauss_ids, void* tile_edges,
-                 cudaStream_t s) {
+void launch_rank(const void* sorted_keys, int count, int gauss_bits, int cap, int n,
+                 int num_tiles, bool vec, void* tile_ids, void* gauss_ids,
+                 void* tile_edges, cudaStream_t s) {
   const int blocks = count > 0 ? (count + kSlots - 1) / kSlots : 1;
   rank_cap_kernel<Key><<<blocks, kThreads, 0, s>>>(
-      static_cast<const Key*>(sorted_keys), count, cap, n, num_tiles, vec,
+      static_cast<const Key*>(sorted_keys), count, gauss_bits, cap, n, num_tiles, vec,
       static_cast<int*>(tile_ids), static_cast<int*>(gauss_ids),
       static_cast<int*>(tile_edges));
 }
 
+// Whether keys of key_bytes bytes hold the layout of n splats on num_tiles
+// tiles in a gauss field of gauss_bits bits (16 to 23: ids below 2^23).
+bool layout_ok(int key_bytes, int gauss_bits, int n, int num_tiles) {
+  if (key_bytes != 4 && key_bytes != 8) return false;
+  if (gauss_bits < 16 || gauss_bits > 23 || n < 0 || num_tiles < 0) return false;
+  const long long mask = (1ll << gauss_bits) - 1;
+  if (n > mask) return false;
+  const long long sentinel = (static_cast<long long>(num_tiles) << gauss_bits) | mask;
+  return key_bytes == 8 || sentinel <= INT_MAX;
+}
+
 }  // namespace
 
-// key_bytes 4 (int32 keys, num_tiles <= 32767) or 8 (int64); keys 16-byte
-// aligned.
+// key_bytes 4 (int32 keys, where the layout's sentinel key fits 31 bits) or
+// 8 (int64); keys 16-byte aligned.
 GSVC_EXPORT int fill_decode_keys(const void* starts, const void* tmin_x,
                                  const void* tmin_y, const void* bbox_w,
                                  const void* total_kept, int n, int tb_x,
                                  int num_tiles, long long num_slots, int key_bytes,
-                                 void* keys, void* stream) {
-  if (key_bytes != 4 && key_bytes != 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (key_bytes == 4 && num_tiles > 32767) return static_cast<int>(cudaErrorInvalidValue);
+                                 int gauss_bits, void* keys, void* stream) {
+  if (!layout_ok(key_bytes, gauss_bits, n, num_tiles)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (num_slots <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (key_bytes == 4) {
     launch_fill<int>(starts, tmin_x, tmin_y, bbox_w, total_kept, n, tb_x, num_tiles,
-                     num_slots, keys, s);
+                     gauss_bits, num_slots, keys, s);
   } else {
     launch_fill<long long>(starts, tmin_x, tmin_y, bbox_w, total_kept, n, tb_x,
-                           num_tiles, num_slots, keys, s);
+                           num_tiles, gauss_bits, num_slots, keys, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -341,10 +361,13 @@ GSVC_EXPORT int fill_decode_keys(const void* starts, const void* tmin_x,
 // Sorted keys [count] -> tile ids, gauss ids [count] and tile edges
 // [num_tiles + 1], all int32; one launch, also at count 0 (edges all 0).
 GSVC_EXPORT int rank_cap_decode(const void* sorted_keys, long long count, int key_bytes,
-                                int cap, int n, int num_tiles, void* tile_ids,
-                                void* gauss_ids, void* tile_edges, void* stream) {
-  if (key_bytes != 4 && key_bytes != 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (count < 0 || count > INT_MAX - kSlots || cap < 0 || num_tiles < 0) {
+                                int gauss_bits, int cap, int n, int num_tiles,
+                                void* tile_ids, void* gauss_ids, void* tile_edges,
+                                void* stream) {
+  if (!layout_ok(key_bytes, gauss_bits, n, num_tiles)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (count < 0 || count > INT_MAX - kSlots || cap < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
@@ -352,11 +375,11 @@ GSVC_EXPORT int rank_cap_decode(const void* sorted_keys, long long count, int ke
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c = static_cast<int>(count);
   if (key_bytes == 4) {
-    launch_rank<int>(sorted_keys, c, cap, n, num_tiles, vec, tile_ids, gauss_ids,
-                     tile_edges, s);
+    launch_rank<int>(sorted_keys, c, gauss_bits, cap, n, num_tiles, vec, tile_ids,
+                     gauss_ids, tile_edges, s);
   } else {
-    launch_rank<long long>(sorted_keys, c, cap, n, num_tiles, vec, tile_ids, gauss_ids,
-                           tile_edges, s);
+    launch_rank<long long>(sorted_keys, c, gauss_bits, cap, n, num_tiles, vec, tile_ids,
+                           gauss_ids, tile_edges, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

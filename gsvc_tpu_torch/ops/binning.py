@@ -1,9 +1,11 @@
 """Tile binning: per-tile splat lists (CSR) sorted by (tile, gaussian).
 
 PyTorch port of gsvc_tpu/ops/binning.py. Each gaussian/tile intersection
-becomes one key (tile << 16 | gauss) written by K1
-(ops/fill_cuda.fill_decode_keys), int32 on grids of up to 32,767 tiles
-and int64 above; one `torch.sort` orders them; K2
+becomes one key (tile << gauss_bits | gauss) written by K1
+(ops/fill_cuda.fill_decode_keys), laid out by
+`fill_cuda.key_layout(num_tiles, n)`: a 16-bit gauss field below 65,536
+splats, as wide as n needs above, in int32 where the keys fit 31 bits and
+int64 beyond; one `torch.sort` orders them; K2
 (`rank_cap_decode`) splits the sorted keys into tile and gaussian ids,
 applies the per-tile cap (forward.cu:613) and finds each tile's run, whose
 edges give `tile_bin_start` and `tile_counts`. No host sync: the intersection
@@ -12,7 +14,9 @@ budget `max_intersects` is static and the kept total stays on the device.
 The port matches the JAX package's outputs, not its TPU layout: the
 row-superblock padding to LANE_ALIGN lanes is not reproduced, so the sorted
 arrays hold exactly `max_intersects` lanes and `tile_bin_start` is the
-exclusive prefix of `tile_counts`.
+exclusive prefix of `tile_counts`. gsvc_tpu sorts (tile, gauss) pairs with
+a stable sort where its 16-bit key does not reach (n >= 65,535); the wider
+key gives the port the same (tile, gauss) order at every n below 2^23.
 
 If the budget overflows, whole gaussians are dropped from the tail
 (highest indices) and `overflow` counts the lost intersections.
@@ -38,9 +42,9 @@ class BinnedSplats(NamedTuple):
     tile_counts: [T] int32 intersections of each tile (before the cap).
     num_intersects: [] int32 kept intersections.
     overflow: [] int32 intersections dropped by the budget.
-    sorted_keys: [I] sorted (tile << 16 | gauss) keys, before the cap:
-      int32 on grids of up to 32,767 tiles, int64 above
-      (`fill_cuda.key_dtype`).
+    sorted_keys: [I] sorted (tile << gauss_bits | gauss) keys, before the
+      cap, laid out by `fill_cuda.key_layout(num_tiles, n)` (int32 or
+      int64).
     gauss_slot_start: [N+1] int32 exclusive prefix of kept per-gaussian
       counts (gaussian g owns slots [start[g], start[g+1]) in gauss order).
     bbox_pack: [N] int32 (bbox_w << 16 | tmin_y << 8 | tmin_x).
@@ -102,10 +106,9 @@ def key_inputs(
     no tile shares its successor's start, and the budget drops whole splats
     from the tail, each starting at or after total_kept: the owner of a slot
     below total_kept is the last splat whose start is at or below it, all
-    that K1 needs. The keys K1 makes are int32 where num_tiles = tb_x * tb_y
-    is at most 32,767 (every grid up to 3840x2160 at 16-pixel tiles) and
-    int64 above: the key type follows from num_tiles alone
-    (`fill_cuda.key_dtype`)."""
+    that K1 needs. The keys K1 makes follow `fill_cuda.key_layout(num_tiles,
+    n)`: int32 for every grid up to 3840x2160 at 16-pixel tiles below 65,536
+    splats, and at 1080p up to 262,143 splats; int64 beyond."""
     n = xys.shape[0]
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
     if tb_x > 255 or tb_y > 255:
@@ -119,11 +122,6 @@ def key_inputs(
         raise ValueError(
             f"max_intersects {max_intersects} exceeds the 23-bit start-slot "
             "packing of the seed rows"
-        )
-    if n >= 0xFFFF:
-        raise NotImplementedError(
-            f"{n} splats: the wide-key binning path (n >= 65535) is not "
-            "ported yet"
         )
     tmin_x, tmin_y, tmax_x, _tmax_y = _tile_bbox(
         xys, radii.to(xys.dtype), tile_bounds, block_w, block_h

@@ -1,11 +1,18 @@
 """Tile-binning index kernels K1 and K2 (csrc/fill.cu) and the segmented
 cumsum K3 (csrc/segsum.cu), with their plain PyTorch versions.
 
-Keys are (tile << 16 | gauss), the JAX package's uint32 values, in the
-dtype `key_dtype(num_tiles)` gives: int32 while num_tiles <= 32,767, where
-the sentinel (num_tiles << 16 | 0xFFFF) fits 31 bits (8,160 tiles at 1080p,
-32,400 at 3840x2160), int64 above (PyTorch sorts no uint32). The int32 sort
-is the cheaper one.
+Keys are (tile << gauss_bits | gauss), laid out by `key_layout(num_tiles,
+n)`: the gauss field is max(16, n.bit_length()) bits wide, its sentinel
+(2**gauss_bits - 1, at least n) marks slots past the kept total, and the
+keys are int32 where the sentinel key (num_tiles << gauss_bits | that
+sentinel) fits 31 bits, int64 above (PyTorch sorts no uint32). Below
+65,536 splats the field is 16 bits, the JAX package's uint32 keys; 1080p
+(8,160 tiles) keeps int32 keys up to 262,143 splats, 3840x2160 (32,400
+tiles) up to 65,535. The int32 sort is the cheaper one. gsvc_tpu packs
+16-bit keys only below 65,535 splats and sorts (tile, gauss) pairs with a
+stable sort above; one key a slot of the width the splat count needs gives
+that order with one `torch.sort`, whose keys are unique for real slots and
+equal for sentinels.
 
 K1 `fill_decode_keys` replaces `_fill_kernel` / `fill_decode_keys` of
 gsvc_tpu/ops/fill_pallas.py. The TPU scatters one seed per gaussian and
@@ -54,41 +61,50 @@ launched it.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from gsvc_tpu_torch import _build
 
-_SENT_GAUSS = 0xFFFF
-KEY32_MAX_TILES = 32767  # (32767 << 16 | 0xFFFF) = 2**31 - 1
+
+class KeyLayout(NamedTuple):
+    """How K1 packs a (tile, gauss) pair into one sort key."""
+
+    dtype: torch.dtype  # int32 or int64
+    gauss_bits: int  # the gauss field's width: key = tile << gauss_bits | gauss
+    sentinel: int  # the key of a slot past the kept total
+
+    @property
+    def gauss_mask(self) -> int:
+        """The gauss field's mask, also its sentinel (>= n)."""
+        return (1 << self.gauss_bits) - 1
 
 
-def _sentinel(num_tiles: int) -> int:
-    return (num_tiles << 16) | _SENT_GAUSS
-
-
-def key_dtype(num_tiles: int) -> torch.dtype:
-    """The keys' dtype on a grid of `num_tiles` tiles: int32 up to
-    KEY32_MAX_TILES, int64 above."""
-    return torch.int32 if num_tiles <= KEY32_MAX_TILES else torch.int64
+def key_layout(num_tiles: int, n: int) -> KeyLayout:
+    """The keys' layout for `n` splats on a grid of `num_tiles` tiles."""
+    gauss_bits = max(16, int(n).bit_length())
+    sentinel = (int(num_tiles) << gauss_bits) | ((1 << gauss_bits) - 1)
+    return KeyLayout(torch.int32 if sentinel < 2**31 else torch.int64, gauss_bits,
+                     sentinel)
 
 
 def fill_decode_keys_torch(
     starts, tmin_x, tmin_y, bbox_w, total_kept,
     num_slots: int, tb_x: int, num_tiles: int,
 ) -> torch.Tensor:
-    """Plain version of K1: per-gaussian bbox data -> [num_slots] keys of
-    `key_dtype(num_tiles)`.
+    """Plain version of K1: per-gaussian bbox data -> [num_slots] keys laid
+    out by `key_layout(num_tiles, n)`.
 
     Slot i < total_kept belongs to the last gaussian g with starts[g] <= i
     (starts is non-decreasing from 0); its rank j = i - starts[g] inside g's
     tile bbox decodes row-major to tile (tmin_y + j // bw, tmin_x + j % bw).
-    Slots from total_kept on get the sentinel (num_tiles << 16 | 0xFFFF).
+    Slots from total_kept on get the layout's sentinel.
     """
     dev = starts.device
     n = starts.shape[0]
-    dtype = key_dtype(num_tiles)
-    sentinel = torch.full((num_slots,), _sentinel(num_tiles), dtype=dtype, device=dev)
+    layout = key_layout(num_tiles, n)
+    sentinel = torch.full((num_slots,), layout.sentinel, dtype=layout.dtype, device=dev)
     if n == 0:
         return sentinel
     i = torch.arange(num_slots, dtype=torch.int64, device=dev)
@@ -99,7 +115,7 @@ def fill_decode_keys_torch(
     bw = bbox_w.to(torch.int64)[g].clamp(min=1)
     ty = tmin_y.to(torch.int64)[g] + j // bw
     tx = tmin_x.to(torch.int64)[g] + j % bw
-    keys = (((ty * tb_x + tx) << 16) | g).to(dtype)
+    keys = (((ty * tb_x + tx) << layout.gauss_bits) | g).to(layout.dtype)
     return torch.where(valid, keys, sentinel)
 
 
@@ -108,8 +124,9 @@ def fill_decode_keys(
     num_slots: int, tb_x: int, num_tiles: int,
 ) -> torch.Tensor:
     """K1: [N] int32 per-gaussian start slots and tile bboxes, [] int32
-    total_kept -> [num_slots] (tile << 16 | gauss) keys of
-    `key_dtype(num_tiles)` (`binning.KeyInputs.k1` holds these arguments)."""
+    total_kept -> [num_slots] (tile << gauss_bits | gauss) keys laid out by
+    `key_layout(num_tiles, n)` (`binning.KeyInputs.k1` holds these
+    arguments)."""
     if not starts.is_cuda:
         return fill_decode_keys_torch(
             starts, tmin_x, tmin_y, bbox_w, total_kept, num_slots, tb_x, num_tiles,
@@ -123,13 +140,14 @@ def fill_decode_keys(
             raise ValueError("fill_decode_keys: per-gaussian inputs must be "
                              f"contiguous int32 [{n}] on {dev}")
     total = total_kept.to(device=dev, dtype=torch.int32).reshape(1).contiguous()
-    keys = torch.empty((num_slots,), dtype=key_dtype(num_tiles), device=dev)
+    layout = key_layout(num_tiles, n)
+    keys = torch.empty((num_slots,), dtype=layout.dtype, device=dev)
     lib = _fill_lib()
     with torch.cuda.device(dev):
         rc = lib.fill_decode_keys(
             *(_build.ptr(t) for t in ints), _build.ptr(total),
-            n, tb_x, num_tiles, num_slots, keys.element_size(), _build.ptr(keys),
-            _build.stream_ptr(dev),
+            n, tb_x, num_tiles, num_slots, keys.element_size(), layout.gauss_bits,
+            _build.ptr(keys), _build.stream_ptr(dev),
         )
     _build.check(lib, rc, "fill_decode_keys")
     fill_decode_keys.launches += 1
@@ -141,20 +159,22 @@ fill_decode_keys.launches = 0
 
 def rank_cap_decode_torch(sorted_keys: torch.Tensor, cap: int, n: int,
                           num_tiles: int):
-    """Plain version of K2: sorted int32 or int64 keys -> (tile ids, gauss
-    ids, tile edges), all int32. Ids are [S]; lanes ranked >= cap in their
-    tile run, and sentinel lanes, get gauss id n. Edges are [num_tiles + 1]:
-    edge u is the first lane whose tile is >= u, so edge num_tiles is the
-    first sentinel lane (S when there is none)."""
-    tile = (sorted_keys >> 16).to(torch.int32)
-    gauss = (sorted_keys & _SENT_GAUSS).to(torch.int32)
+    """Plain version of K2: sorted int32 or int64 keys laid out by
+    `key_layout(num_tiles, n)` -> (tile ids, gauss ids, tile edges), all
+    int32. Ids are [S]; lanes ranked >= cap in their tile run, and sentinel
+    lanes, get gauss id n. Edges are [num_tiles + 1]: edge u is the first
+    lane whose tile is >= u, so edge num_tiles is the first sentinel lane (S
+    when there is none)."""
+    layout = key_layout(num_tiles, n)
+    tile = (sorted_keys >> layout.gauss_bits).to(torch.int32)
+    gauss = sorted_keys & layout.gauss_mask
     lane = torch.arange(sorted_keys.shape[0], dtype=torch.int64,
                         device=sorted_keys.device)
     change = torch.ones_like(tile, dtype=torch.bool)
     change[1:] = tile[1:] != tile[:-1]
     run_start = torch.cummax(torch.where(change, lane, 0), 0).values
     rank = lane - run_start
-    gauss_ids = torch.where((rank < cap) & (gauss != _SENT_GAUSS), gauss, n)
+    gauss_ids = torch.where((rank < cap) & (gauss != layout.gauss_mask), gauss, n)
     edges = torch.searchsorted(
         tile, torch.arange(num_tiles + 1, dtype=torch.int32, device=tile.device)
     ).to(torch.int32)
@@ -163,9 +183,9 @@ def rank_cap_decode_torch(sorted_keys: torch.Tensor, cap: int, n: int,
 
 def rank_cap_decode(sorted_keys: torch.Tensor, cap: int, n: int,
                     num_tiles: int):
-    """K2: sorted int32 or int64 keys whose tiles are <= num_tiles ->
-    (tile ids [S], gauss ids [S], tile edges [num_tiles + 1]), all int32,
-    with the per-tile cap applied; one launch."""
+    """K2: sorted keys laid out by `key_layout(num_tiles, n)`, in its dtype
+    or int64 -> (tile ids [S], gauss ids [S], tile edges [num_tiles + 1]),
+    all int32, with the per-tile cap applied; one launch."""
     if not sorted_keys.is_cuda:
         return rank_cap_decode_torch(sorted_keys, cap, n, num_tiles)
     if sorted_keys.dtype not in (torch.int32, torch.int64) or sorted_keys.dim() != 1:
@@ -174,6 +194,10 @@ def rank_cap_decode(sorted_keys: torch.Tensor, cap: int, n: int,
     if cap < 0 or num_tiles < 0:
         raise ValueError(f"rank_cap_decode: cap {cap} and num_tiles {num_tiles} "
                          "must be >= 0")
+    layout = key_layout(num_tiles, n)
+    if sorted_keys.dtype.itemsize < layout.dtype.itemsize:
+        raise ValueError(f"rank_cap_decode: {n} splats on {num_tiles} tiles need "
+                         f"{layout.dtype} keys, got {sorted_keys.dtype}")
     dev = sorted_keys.device
     keys = sorted_keys.contiguous()
     s = keys.shape[0]
@@ -183,8 +207,8 @@ def rank_cap_decode(sorted_keys: torch.Tensor, cap: int, n: int,
     lib = _fill_lib()
     with torch.cuda.device(dev):
         rc = lib.rank_cap_decode(
-            _build.ptr(keys), s, keys.element_size(), cap, n, num_tiles,
-            _build.ptr(tile_ids), _build.ptr(gauss_ids), _build.ptr(edges),
+            _build.ptr(keys), s, keys.element_size(), layout.gauss_bits, cap, n,
+            num_tiles, _build.ptr(tile_ids), _build.ptr(gauss_ids), _build.ptr(edges),
             _build.stream_ptr(dev),
         )
     _build.check(lib, rc, "rank_cap_decode")
@@ -254,8 +278,8 @@ def _fill_lib() -> ctypes.CDLL:
     if not getattr(lib, "_gsvc_bound", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.fill_decode_keys.restype = i32
-        lib.fill_decode_keys.argtypes = [vp] * 5 + [i32, i32, i32, i64, i32, vp, vp]
+        lib.fill_decode_keys.argtypes = [vp] * 5 + [i32, i32, i32, i64, i32, i32, vp, vp]
         lib.rank_cap_decode.restype = i32
-        lib.rank_cap_decode.argtypes = [vp, i64, i32, i32, i32, i32, vp, vp, vp, vp]
+        lib.rank_cap_decode.argtypes = [vp, i64] + [i32] * 5 + [vp] * 4
         lib._gsvc_bound = True
     return lib

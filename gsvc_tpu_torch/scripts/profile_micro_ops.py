@@ -18,10 +18,12 @@ tiles of min(count, 256), of which those past the alpha gate do the
 gated part of the work. `+pack` of the TPU harness has no counterpart:
 `_pack_lanes` is folded into K4's load (ops/rasterize_cuda.py:12-13).
 
-Beside the ops: the sort of the port's keys (int32 below 32,768 tiles)
-and of the same keys as int64; an empty kernel, the floor under every
-kernel's time; K3 by itself, on K6's slots, over rows and lanes, and as
-the whole reduction (segment flags, K3, gather) beside `index_add_`;
+Beside the ops: the sort of the port's keys (`fill_cuda.key_layout`:
+int32 at 1080p and 4K below 65,536 splats) and of the same keys as int64,
+and the sort of wide keys (a 17-bit gauss field: the bench scene at
+WIDE_SORT_N splats at 1080p, int32 and as int64, and at 4K UHD, int64);
+an empty kernel, the floor under every kernel's time; K3 by itself, on
+K6's slots, over rows and lanes, and as the whole reduction (segment flags, K3, gather) beside `index_add_`;
 `searchsorted` of the tile edges, K2's library call; and the device
 kernels each of K1, K2, K3 and `bin_gaussians` launches, with their busy
 ms a call (`--split-only` prints only these; run as a file with another
@@ -59,6 +61,10 @@ LAUNCHES_PER_STEP = {
 # The one PyTorch call computing the same function, where there is one (a
 # row of the ops table).
 LIBRARY = {"K2 rank_cap_decode": "searchsorted tile edges [T+1]"}
+
+# The bench scene's splats and grids (H, W) whose keys' sort is also timed
+# at the wide layout
+WIDE_SORT_N, WIDE_SORT_GRIDS = 100000, ((1080, 1920), (2160, 3840))
 
 
 def kernel_split(sc, dev, reps: int) -> None:
@@ -128,6 +134,18 @@ def main(argv=None) -> int:
             keys64 = keys.to(torch.int64)
             t("sort int64 [S] (same keys)", lambda: torch.sort(keys64),
               "the earlier port's key width; the same order")
+        for wh, ww in WIDE_SORT_GRIDS:
+            wsc = common.scene(WIDE_SORT_N, wh, ww, dev)
+            wki = key_inputs(wsc.xys, wsc.radii, wsc.nth, wsc.tb, 16, 16, wsc.budget)
+            wkeys = fill_cuda.fill_decode_keys(*wki.k1)
+            tag, note = f"{ww}x{wh}/{WIDE_SORT_N // 1000}k", f"[{wsc.budget}] keys"
+            t(f"sort {str(wkeys.dtype)[6:]} wide {tag}", lambda k=wkeys: torch.sort(k),
+              f"{note}, a {fill_cuda.key_layout(wki.num_tiles, wsc.n).gauss_bits}-bit "
+              "gauss field")
+            if wkeys.dtype == torch.int32:
+                wkeys64 = wkeys.to(torch.int64)
+                t(f"sort int64 wide {tag}", lambda k=wkeys64: torch.sort(k),
+                  f"{note}, the same as int64")
         t("empty kernel (the floor)", lambda: _build.empty_launch(dev),
           "one launch of a kernel that does nothing")
         idx = torch.cumsum(sc.nth, 0) - sc.nth
@@ -153,7 +171,8 @@ def main(argv=None) -> int:
                            b.bbox_pack[:, None].float(), b.gauss_slot_start[:-1, None].float()],
                           1)
         table = torch.cat([table, torch.zeros((1, 11), device=dev)])
-        gidx = torch.clamp(b.sorted_keys & 0xFFFF, max=n).long()
+        gauss_mask = fill_cuda.key_layout(tb[0] * tb[1], n).gauss_mask
+        gidx = torch.clamp(b.sorted_keys & gauss_mask, max=n).long()
         t("lane gather [S,11]", lambda: table[gidx])
         t("bin_gaussians", lambda: bin_gaussians(sc.xys, sc.radii, sc.nth, tb, 16, 16, s))
         tmin_x, tmin_y, tmax_x, tmax_y = _tile_bbox(sc.xys, sc.radii.float(), tb, 16, 16)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from gsvc_tpu_torch.ops.fill_cuda import key_dtype
+from gsvc_tpu_torch.ops.fill_cuda import key_layout
 from gsvc_tpu_torch.ops.rasterize_binned import TILE_CHUNK, tile_lane_ids, zrow
 from gsvc_tpu_torch.ops.rasterize_dense import ALPHA_CUTOFF
 
@@ -121,22 +121,33 @@ def backward_bytes(sc) -> int:
 
 
 def key_bytes(sc) -> int:
-    """Bytes of one of the scene's sort keys (`fill_cuda.key_dtype`)."""
-    return key_dtype(sc.tb[0] * sc.tb[1]).itemsize
+    """Bytes of one of the sort keys of the scene's sc.n splats on its grid
+    (`fill_cuda.key_layout`)."""
+    return key_layout(sc.tb[0] * sc.tb[1], sc.n).dtype.itemsize
+
+
+def key_work(sc) -> dict:
+    """{kernel: (bytes, operations)} of K1 and K2 on the scene's sc.n splats
+    and sc.budget slots. K1 reads 16 bytes a splat (start slot and tile
+    bbox) and the kept total and writes a key a slot; K2 reads a key and
+    writes two int32 ids a slot, and writes the T + 1 int32 tile edges:
+    (kb + 8) S + 4 (T + 1), kb the bytes of a key (`key_bytes`)."""
+    n, s = sc.n, sc.budget
+    kb, num_tiles = key_bytes(sc), sc.tb[0] * sc.tb[1]
+    return {
+        "K1 fill_decode_keys": (16 * n + 4 + kb * s, K1_OPS * s),
+        "K2 rank_cap_decode": ((kb + 8) * s + 4 * (num_tiles + 1), K2_OPS * s),
+    }
 
 
 def kernel_work(sc, valid: int, k3_rows: int) -> dict:
     """{kernel: (bytes, operations)} of K1-K6 on the scene; `valid` pairs
-    pass the alpha gate, K3 scans `k3_rows` rows of the budget's slots. K1
-    reads 16 bytes a splat (start slot and tile bbox) and the kept total and
-    writes a key a slot; K2 reads a key and writes two int32 ids a slot,
-    and writes the T + 1 int32 tile edges: (kb + 8) S + 4 (T + 1)."""
-    n, s, every = sc.n, sc.budget, pairs(sc)
-    kb, num_tiles = key_bytes(sc), sc.tb[0] * sc.tb[1]
+    pass the alpha gate, K3 scans `k3_rows` rows of the budget's slots; K1
+    and K2 as `key_work`."""
+    s, every = sc.budget, pairs(sc)
     fwd_ops = K4_OPS["full"][0] * every + K4_OPS["full"][1] * valid
     return {
-        "K1 fill_decode_keys": (16 * n + 4 + kb * s, K1_OPS * s),
-        "K2 rank_cap_decode": ((kb + 8) * s + 4 * (num_tiles + 1), K2_OPS * s),
+        **key_work(sc),
         "K3 segmented_cumsum": (8 * k3_rows * s + 4 * s, K3_OPS * k3_rows * s),
         "K4 forward image": (forward_bytes(sc, "image"), fwd_ops),
         "K4 forward rows": (forward_bytes(sc, "rows"), fwd_ops),

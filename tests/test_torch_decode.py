@@ -124,6 +124,44 @@ def test_pack_frame_bytes_match_encode_frame(delta):
                              np.zeros((1, 1)), "B")
 
 
+def test_wide_frame_packs_decodes_and_renders_as_jax():
+    """One K-frame of 70,000 splats (a 17-bit gauss field in the port's
+    binning; gsvc_tpu bins by its pair sort): pack_frame's bytes are
+    encode_frame's, the decoded codes and colours equal, and the decoded
+    render within ATOL of gsvc_tpu's. The colours are small, so that the
+    capped sums of 256 lanes a tile stay below the clip at 1."""
+    n = 70000
+    rng = np.random.default_rng(6)
+    gmodel = {"_xyz": rng.normal(0, 0.5, (n, 2)).astype(np.float32),
+              "_cholesky": rng.uniform(0, 1, (n, 3)).astype(np.float32),
+              "_features_dc": rng.uniform(0, 0.05, (n, 3)).astype(np.float32)}
+    state = init_compress_state(jax.random.key(0), gmodel, None)
+    embed = np.random.default_rng(7).uniform(0, 0.05, (2, 8, 3)).astype(np.float32)
+    state = dataclasses.replace(
+        state, vq=dataclasses.replace(state.vq, embed=jnp.asarray(embed)))
+    kw = dict(H=H, W=W, num_points=n, max_num_points=n, iterations=1,
+              max_intersects=6 * n)  # 6 tiles: no splat can overflow it
+    blob = jbs.encode_frame(state, JFrameConfig(**kw))
+    p = state.params
+    _deq, codes = uniform_quantize(p.cholesky, UniformQuantParams(p.q_scale, p.q_beta),
+                                   bitstream.CHOL_BITS)
+    _q, idx, _l, _s = residual_vq_forward(p.features_dc, state.vq, jax.random.key(0),
+                                          False)
+    assert blob == bitstream.pack_frame(
+        np.asarray(p.xyz, np.float32).astype(np.float16), np.asarray(p.q_scale),
+        np.asarray(p.q_beta), np.asarray(codes), np.asarray(state.vq.embed),
+        np.asarray(idx), "K")
+    jm, jc, jcol = jbs.decode_frame(blob)
+    tm, tc, tcol = bitstream.decode_frame(blob)
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_array_equal(tcol, jcol)
+    np.testing.assert_array_max_ulp(tm, jm, maxulp=4)
+    jimg = np.asarray(jbs.render_decoded(jm, jc, jcol, JFrameConfig(**kw, backend="binned")))
+    timg = bitstream.render_decoded(tm, tc, tcol, FrameConfig(**kw)).numpy()
+    assert 0.05 < jimg.max() < 1.0  # unclipped
+    np.testing.assert_allclose(timg, jimg, rtol=0, atol=ATOL)
+
+
 def test_render_frame_matches_jax_on_a_checkpoint():
     gmodel = _gmodel(3)
     alive = np.random.default_rng(4).uniform(size=N) > 0.1

@@ -5,11 +5,12 @@ CPU mode). On the card they build csrc/ with nvcc on first use. Run them
 with `python -m pytest tests/test_torch_kernels.py -m cuda` on a GPU
 machine; `python3 chip_smoke.py` does the same at 1080p/10k.
 
-Tolerances: K1/K2 exact (integer index work), at int32 keys (grids of up
-to 32,767 tiles) and int64 keys (above), K2's three outputs (tile ids,
-gauss ids, tile edges) also bitwise across two launches and one device
-kernel a call; the forward kernel atol
-1e-5 against the plain render (f32 sums in another order); the rows store
+Tolerances: K1/K2 exact (integer index work), at int32 and int64 keys,
+with a 16-bit gauss field and a 17-bit one (70,000 splats at 1080p and at
+4080x2080, `fill_cuda.key_layout`), K2's three outputs (tile ids, gauss
+ids, tile edges) also bitwise across two launches and one kernel launch a
+call (the host's launch records; every device record K2's kernel); the
+forward kernel atol 1e-5 against the plain render (f32 sums in another order); the rows store
 exactly `image_to_rows` of the image store (the same sums); two launches
 of a kernel on the same inputs bitwise equal (a fixed order, no float
 atomics); K6's per-slot
@@ -110,9 +111,9 @@ def _check_k1_k2(ki, cap=256):
     at both key widths, one launch a call, two launches bitwise equal."""
     keys = fill_cuda.fill_decode_keys(*ki.k1)
     torch.cuda.synchronize()
-    assert keys.dtype == fill_cuda.key_dtype(ki.num_tiles)
-    assert torch.equal(keys, fill_cuda.fill_decode_keys_torch(*ki.k1))
     n = ki.starts.shape[0]
+    assert keys.dtype == fill_cuda.key_layout(ki.num_tiles, n).dtype
+    assert torch.equal(keys, fill_cuda.fill_decode_keys_torch(*ki.k1))
     skeys = torch.sort(keys).values
     want = fill_cuda.rank_cap_decode_torch(skeys, cap, n, ki.num_tiles)
     for k in (skeys, skeys.to(torch.int64)):  # K2 reads keys of either width
@@ -123,17 +124,22 @@ def _check_k1_k2(ki, cap=256):
         assert fill_cuda.rank_cap_decode.launches == before + 2
         for a, b, c in zip(got, want, again):
             assert torch.equal(a, b) and torch.equal(a, c)
-    return skeys
+    return skeys, want
 
 
 @pytest.mark.parametrize("n,hw,budget", [
     (300, (64, 96), None), (300, (64, 96), 64), (0, (48, 64), 1024),
-    (400, (2080, 4080), None), (400, (2080, 4080), 512)])
+    (400, (2080, 4080), None), (400, (2080, 4080), 512),
+    (70000, (1080, 1920), None), (70000, (2080, 4080), None)])
 def test_key_kernels_at_both_key_widths(dev, n, hw, budget):
     """A grid of <= 32,767 tiles (int32 keys) and 4080x2080's 33,150 (int64
-    keys); budget overflow, no splats, and splats that hit no tile. K2 is
-    one device kernel a call."""
-    from gsvc_tpu_torch.utils.profiling import device_events, profile_device
+    keys), at a 16-bit gauss field and, at 70,000 splats, a 17-bit one
+    (int32 keys at 1080p, int64 at 4080x2080); budget overflow, no splats,
+    and splats that hit no tile. K2 is one kernel launch a call: the host's
+    launch records count exactly 3 in 3 calls, and every device record the
+    profiler keeps is K2's kernel (CUPTI drops a device record now and
+    then, never the launch's host record)."""
+    from gsvc_tpu_torch.utils.profiling import device_events, launches, profile_device
 
     H, W = hw
     tb, _t, (xys, _d, radii, _c, nth) = _scene(dev, n, H, W, 8)
@@ -145,36 +151,54 @@ def test_key_kernels_at_both_key_widths(dev, n, hw, budget):
         assert (ki.nth == 0).any()
     if budget < 1000:
         assert int(ki.nth.sum()) > int(ki.total_kept)
-    skeys = _check_k1_k2(ki)
+    if n > 65535:
+        layout = fill_cuda.key_layout(ki.num_tiles, n)
+        assert layout.gauss_bits == 17
+        assert layout.dtype == (torch.int32 if hw == (1080, 1920) else torch.int64)
+    skeys, _want = _check_k1_k2(ki)
     _busy, events = profile_device(
         lambda: fill_cuda.rank_cap_decode(skeys, 256, n, ki.num_tiles), 3)
-    assert sum(e.count for e in device_events(events)) == 3
+    assert launches(events) == 3
+    recorded = device_events(events)
+    assert recorded and all("rank_cap_kernel" in e.key for e in recorded), \
+        [e.key for e in recorded]
     binned = bin_gaussians(xys, radii, nth, tb, 16, 16, budget)
     plain = bin_gaussians(xys, radii, nth, tb, 16, 16, budget, kernels=False)
     for name in binned._fields:
         assert torch.equal(getattr(binned, name), getattr(plain, name)), name
 
 
-@pytest.mark.parametrize("tb,budget,cap,y_range", [
-    ((120, 68), 20480, 256, None), ((120, 68), 4096, 256, None),
-    ((120, 68), 20000, 256, None), ((255, 200), 20480, 256, None),
-    ((255, 200), 4096, 256, None), ((255, 200), 20000, 256, None),
-    ((120, 68), "exact", 256, None),  # no sentinel lane
-    ((120, 68), 20480, 1, (10, 12)),  # empty tile rows at both ends, cap 1
-    ((255, 200), 20480, 4, (100, 104)),  # int64 keys, gaps, runs past the cap
+@pytest.mark.parametrize("n,tb,budget,cap,y_range", [
+    (6000, (120, 68), 20480, 256, None), (6000, (120, 68), 4096, 256, None),
+    (6000, (120, 68), 20000, 256, None), (6000, (255, 200), 20480, 256, None),
+    (6000, (255, 200), 4096, 256, None), (6000, (255, 200), 20000, 256, None),
+    (6000, (120, 68), "exact", 256, None),  # no sentinel lane
+    (6000, (120, 68), 20480, 1, (10, 12)),  # empty tile rows at both ends, cap 1
+    (6000, (255, 200), 20480, 4, (100, 104)),  # int64 keys, gaps, runs past the cap
+    # a 17-bit gauss field, runs past the cap and a budget that drops the
+    # tail: int32 keys at 1080p, int64 on 255 x 200 tiles
+    (70000, (120, 68), 1 << 20, 4, None), (70000, (255, 200), 1 << 20, 4, None),
 ])
-def test_key_kernels_on_hard_inputs(dev, tb, budget, cap, y_range):
+def test_key_kernels_on_hard_inputs(dev, n, tb, budget, cap, y_range):
     """`synthetic_key_inputs`, on which tests/test_torch_binning.py holds
     the plain versions to gsvc_tpu."""
     if budget == "exact":  # the budget ends where a kept splat's tiles end
-        nth = synthetic_key_inputs(6000, tb, 1 << 22, seed=0, device=dev).nth
-        budget = int(torch.cumsum(nth, 0)[3000])
-        ki = synthetic_key_inputs(6000, tb, budget, seed=0, device=dev)
+        nth = synthetic_key_inputs(n, tb, 1 << 22, seed=0, device=dev).nth
+        budget = int(torch.cumsum(nth, 0)[n // 2])
+        ki = synthetic_key_inputs(n, tb, budget, seed=0, device=dev)
         assert int(ki.total_kept) == budget
     else:
-        ki = synthetic_key_inputs(6000, tb, budget, seed=budget, device=dev,
+        ki = synthetic_key_inputs(n, tb, budget, seed=budget, device=dev,
                                   y_range=y_range)
-    _check_k1_k2(ki, cap)
+    _skeys, (_tiles, gauss, edges) = _check_k1_k2(ki, cap)
+    if n > 65535:
+        layout = fill_cuda.key_layout(ki.num_tiles, n)
+        assert layout.gauss_bits == 17
+        assert layout.dtype == (torch.int32 if tb == (120, 68) else torch.int64)
+        assert int(ki.nth.sum()) > int(ki.total_kept) > 0  # the tail dropped
+        assert int(torch.diff(edges).max()) > cap  # capped lanes
+        assert int(edges[-1]) < budget  # sentinel lanes
+        assert int((gauss == n).sum()) > budget - int(edges[-1])
 
 
 def _segsum_flags(rng, s, mode):

@@ -330,6 +330,29 @@ def test_fit_frame_stops_where_jax_stops():
     np.testing.assert_allclose(res.image.numpy(), np.asarray(jres.image), atol=1e-5)
 
 
+def test_fit_frame_at_wide_keys_matches_jax():
+    """Six steps of fit_frame at 70,000 splats on a 48x32 frame (a 17-bit
+    gauss field; gsvc_tpu bins by its pair sort), the port on the kernels'
+    plain versions: the iteration, the loss (1e-4 relative, the multi-step
+    bound above) and the image (atol 1e-5, test_fit_frame_stops_where_jax_stops's)
+    as gsvc_tpu's; no budget overflow."""
+    n, h, w = 70000, 32, 48
+    kw = dict(H=h, W=w, num_points=n, max_num_points=n, iterations=6, lr=0.01,
+              max_intersects=6 * n)  # 6 tiles: no splat can overflow it
+    jcfg, cfg = JConfig(**kw, backend="binned"), FrameConfig(**kw, backend="cuda")
+    jstate = jrep.init_train_state(jax.random.PRNGKey(0), jcfg)
+    gt = np.random.default_rng(1).uniform(0, 1, (h, w, 3)).astype(np.float32)
+    jres = jrep.fit_frame(jstate, jnp.asarray(gt), jcfg)
+    state = train_state_from_numpy(jstate)
+    first = rep.render_frame(state.params, state.alive, cfg)
+    res = rep.fit_frame(state, torch.from_numpy(gt), cfg)
+    assert res.state.it == int(jres.state.it) == 6
+    assert int(res.state.max_overflow) == int(jres.state.max_overflow) == 0
+    np.testing.assert_allclose(float(res.state.loss), float(jres.state.loss), rtol=1e-4)
+    np.testing.assert_allclose(res.image.numpy(), np.asarray(jres.image), atol=1e-5)
+    assert np.abs(res.image.numpy() - first.numpy()).max() > 1e-3  # the fit moved
+
+
 def test_fit_frame_and_pre_train_run_on_both_backends():
     gt = torch.from_numpy(_gt(3))
     finals = []
@@ -381,20 +404,21 @@ def _scene_np(n, seed):
     return means, L, colors, opacity
 
 
-@pytest.mark.parametrize("cap", [256, 24])
-def test_plain_k6_and_reduction_match_jax_vjp(cap):
-    """Plain K6 into the expansion slots, then the K3 reduction, against
-    jax.vjp of gsvc_tpu's binned render w.r.t. (xys, conics, colors,
-    opacity). cap 24 puts lanes past the cap: their slots must stay exactly
-    zero (the invariant of test_fast_grad_reduction_matches_segment_sum[24])."""
-    means, L, colors, opacity = _scene_np(200, 13)
+def _k6_and_reduction_against_jax_vjp(n, seed, budget, cap) -> int:
+    """Plain K6 into the expansion slots (each image layout, bitwise equal),
+    then the K3 reduction, against jax.vjp of gsvc_tpu's binned render
+    w.r.t. (xys, conics, colors, opacity), both with `budget`
+    intersections and the per-tile `cap`; the slots of lanes past the cap
+    must stay exactly zero. Returns how many such lanes there are."""
+    means, L, colors, opacity = _scene_np(n, seed)
     tb = ((W + 15) // 16, (H + 15) // 16, 1)
-    v_img = np.random.default_rng(14).normal(size=(H, W, 3)).astype(np.float32)
+    v_img = np.random.default_rng(seed + 1).normal(size=(H, W, 3)).astype(np.float32)
 
     def jax_vjp(m, l, col, o, v):
         x, d, r, c, nth = jproject(m, l, H, W, tb)
         return jax.vjp(lambda x, c, col, o: jrz.rasterize_gaussians_sum(
-            x, d, r, c, nth, col, o, H, W, backend="binned"), x, c, col, o)[1](v)
+            x, d, r, c, nth, col, o, H, W, backend="binned", max_intersects=budget),
+            x, c, col, o)[1](v)
 
     old_cap = jrz.TILE_CAP
     jrz.TILE_CAP = cap  # read while tracing
@@ -406,7 +430,8 @@ def test_plain_k6_and_reduction_match_jax_vjp(cap):
 
     xys, _d, radii, conics, nth = project_gaussians_2d(
         torch.from_numpy(means), torch.from_numpy(L), H, W, tb)
-    binned = bin_gaussians(xys, radii, nth, tb, 16, 16, 4096, cap=cap)
+    assert 0 < int(nth.sum()) <= budget
+    binned = bin_gaussians(xys, radii, nth, tb, 16, 16, budget, cap=cap)
     args = (binned, xys, conics, torch.from_numpy(colors), torch.from_numpy(opacity))
     slots = {}
     v = torch.from_numpy(v_img)
@@ -419,24 +444,37 @@ def test_plain_k6_and_reduction_match_jax_vjp(cap):
     got = rasterize_cuda.reduce_slot_grads(slots["image"], binned.gauss_slot_start)
     for name, g, w in zip(("xys", "conics", "colors", "opacity"), got, want):
         _assert_grads_close(g.numpy(), w, name)
+        assert np.abs(np.asarray(w)).max() > 0, name
 
-    # every slot past the cap holds exact zeros
-    counts = binned.tile_counts.numpy()
-    if cap == 24:
-        assert (counts > cap).any()
-    keys = binned.sorted_keys.numpy()
-    starts = binned.tile_bin_start.numpy()
-    gss = binned.gauss_slot_start.numpy()
-    pack = binned.bbox_pack.numpy()
-    capped = 0
-    for t, (s0, c) in enumerate(zip(starts, counts)):
-        for lane in range(s0 + cap, s0 + c):
-            g = int(keys[lane] & 0xFFFF)
-            bw, ty0, tx0 = pack[g] >> 16, (pack[g] >> 8) & 0xFF, pack[g] & 0xFF
-            slot = gss[g] + (t // tb[0] - ty0) * bw + (t % tb[0] - tx0)
-            assert not slots["image"][:, slot].any()
-            capped += 1
+    # every slot past the cap holds exact zeros; a lane's splat is its
+    # sorted key's gauss field (`fill_cuda.key_layout`)
+    counts = binned.tile_counts.numpy().astype(np.int64)
+    past = np.maximum(counts - cap, 0)
+    t = np.repeat(np.arange(len(counts)), past)
+    first = binned.tile_bin_start.numpy().astype(np.int64) + cap
+    rank = np.arange(past.sum()) - np.repeat(np.cumsum(past) - past, past)
+    lane = np.repeat(first, past) + rank
+    g = binned.sorted_keys.numpy()[lane] & fill_cuda.key_layout(tb[0] * tb[1], n).gauss_mask
+    pack = binned.bbox_pack.numpy().astype(np.int64)[g]
+    bw, ty0, tx0 = pack >> 16, (pack >> 8) & 0xFF, pack & 0xFF
+    slot = binned.gauss_slot_start.numpy()[g] + (t // tb[0] - ty0) * bw + (t % tb[0] - tx0)
+    assert not slots["image"][:, slot].any()
+    return len(lane)
+
+
+@pytest.mark.parametrize("cap", [256, 24])
+def test_plain_k6_and_reduction_match_jax_vjp(cap):
+    """cap 24 puts lanes past the cap: their slots must stay exactly zero
+    (the invariant of test_fast_grad_reduction_matches_segment_sum[24])."""
+    capped = _k6_and_reduction_against_jax_vjp(200, 13, 4096, cap)
     assert capped > 0 or cap == 256
+
+
+def test_plain_k6_and_reduction_match_jax_vjp_at_wide_keys():
+    """The same at 70,000 splats (a 17-bit gauss field; gsvc_tpu bins by its
+    pair sort): every tile holds more than the cap of 256 lanes."""
+    assert fill_cuda.key_layout(12, 70000).gauss_bits == 17
+    assert _k6_and_reduction_against_jax_vjp(70000, 17, 212992, 256) > 100000
 
 
 def test_rasterize_sum_backward_matches_autograd_of_plain_render():
