@@ -97,15 +97,41 @@ the first fault:
    with phase 8's checks, failing unless every frame kept at least 65,536
    splats (so the fits, the decoder and their K1 / K2 ran on wide keys);
    each prints the key layout, the eval fps, seconds a frame and each
-   CLI's peak memory.
+   CLI's peak memory;
+10. the tile-sharded trainer (`parallel/sharded.py`), its ranks spawned by
+   `parallel.launch` (gloo), SHARD_RANKS of them sharing the card:
+   (a) K4 rows / image, K5 and K6 at every tile-row span of 2, 3 and 4
+   shards of the bench scene (68 tile rows; the last spans partial or
+   wholly past the grid): bitwise the same rows of the full-grid launch
+   (K6: the slots of a full-grid K6 whose gradient is zero outside the
+   span, so every other slot is 0), zero past the image, within 1e-4 of
+   their plain versions, two launches bitwise equal, the per-splat
+   gradients summed over the spans within 1e-4 of the whole grid's; K4
+   rows and image, K5 and K6 timed at the first span of 2 shards; (b)
+   phase 4's removal-control fit through `fit_frame_sharded` and 5
+   adaptive-control steps through `make_sharded_train_step`, (c) a
+   SHARD_QAT_ITERS QAT fit through `fit_compress_sharded`: the ranks'
+   final states bitwise equal, PSNR within PSNR_TOL_DB of the
+   single-process fit with graph=False, no overflow; prints the sharded
+   step ms (eager) beside the single process's eager step and the step's
+   all_reduce alone; (d) SHARD_CLI_FRAMES frames of phase 6's clip through
+   the represent (SHARD_CLI_ITERS its, --is_rm), compress and decode CLIs
+   at --tile_shards 2 (the ranks the CLI's main() spawns, launched here
+   with a deadline so that each returns its launch counts) and at 1
+   (main()): every CLI returns 0, the sharded CLIs
+   write the unsharded ones' files (rank 0 alone writes), each decoded
+   PSNR within 0.1 dB of its compress PSNR and the sharded and unsharded
+   PSNR a frame within 0.1 dB; prints bpp, PSNR and seconds a frame.
 
 Around each of phases 3 and 4, around each CLI of phase 6, around the
-mains of phase 7 and around each point of phases 8 and 9, every launch
-counter is zeroed just before and read just after; each kernel of that
-path must have launched. The kernels' JSON reports phase 6's counts for
+mains of phase 7, around each point of phases 8 and 9 and around each of
+phase 10's fits and CLIs (in each rank), every launch counter is zeroed
+just before and read just after; each kernel of that path must have
+launched. The kernels' JSON reports phase 6's counts for
 K1-K6, those of phase 9's point on the same grid for K1 and K2 on wide
-keys (1080p: int32, 4K UHD: int64) and phase 7's for the harnesses'
-kernels, and each kernel's bound (`utils.work`,
+keys (1080p: int32, 4K UHD: int64), phase 7's for the harnesses'
+kernels and phase 10b's (rank 0) for K4 rows / image and K6 at the
+2-shard span, and each kernel's bound (`utils.work`,
 `utils.profiling.roofline_ms`) and library call (null where no single
 PyTorch call computes the same function; for K2, the `searchsorted` of its
 tile edges).
@@ -139,6 +165,11 @@ STEP_REPS = 40  # phase 5: timed steps, eager and replayed
 PROFILE_ITERS = 10  # phase 7: timed repetitions of each harness stage
 DECODE_FRAMES = 16  # phase 3's stream
 RD_N, RD_FRAMES = 20000, 3  # phase 8's RD point
+# phase 10: the tile-sharded trainer's ranks (gloo, sharing the card), the
+# shard counts of its span checks, its QAT fit's and its CLIs' cut
+SHARD_RANKS, SPAN_SHARDS = 2, (2, 3, 4)
+SHARD_QAT_ITERS, SHARD_CLI_FRAMES, SHARD_CLI_ITERS = 300, 2, 1000
+PSNR_TOL_DB = 0.05  # a sharded fit against the single-process one
 # phases 2, 5 and 9: splats past 65,535, whose keys have a 17-bit gauss
 # field (int32 at 1080p, int64 at 4K UHD), phase 9's frames at each grid,
 # and the small cap phase 2 also holds K2 to on those keys
@@ -602,6 +633,382 @@ def profile_steps(np, torch, dev, smi) -> None:
                       f"us x{e.count / 20:.1f} a step")
 
 
+def _digest(torch, state) -> str:
+    """sha256 of a represent or QAT state: its host counters and every
+    tensor it holds (bitwise equality across ranks)."""
+    import hashlib
+
+    from gsvc_tpu_torch.utils.profiling import tensors
+
+    h = hashlib.sha256(repr([getattr(state, k, None) for k in ("it", "lr_frozen", "grace")]
+                            + [state.opt.step, sorted(state.opt.fresh.items())]).encode())
+    params = state.params.parameters() if isinstance(state.params, torch.nn.Module) else ()
+    for t in (*params, *tensors(state)):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sharded_rank(rank: int, world_size: int, device: str = "cuda", size=(H, W, N),
+                 iters=(TRAIN_ITERS, SHARD_QAT_ITERS)) -> dict:
+    """Phase 10b and 10c in one rank (`parallel.launch`; every rank on
+    cuda:0): the removal-control fit of phase 4 through
+    `fit_frame_sharded`, the all_reduce of its step alone, 5 adaptive-control
+    steps through `make_sharded_train_step`, then a SHARD_QAT_ITERS QAT fit
+    through `fit_compress_sharded`, each with the launch counters zeroed
+    just before and read just after. Returns digests, PSNRs, seconds and
+    launches. (`device`, `size` (H, W, N) and `iters` shrink it to a
+    rehearsal on the CPU.)"""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gsvc_tpu_torch.config import FrameConfig
+    from gsvc_tpu_torch.core import CHOLESKY_BOUND
+    from gsvc_tpu_torch.models import compress
+    from gsvc_tpu_torch.models.represent import init_train_state, render_frame
+    from gsvc_tpu_torch.ops import rasterize_cuda
+    from gsvc_tpu_torch.parallel import sharded
+    from gsvc_tpu_torch.parallel.launch import rank_device
+    from gsvc_tpu_torch.scripts.common import scene
+    from gsvc_tpu_torch.utils import graphs
+
+    H, W, N = size
+    train_iters, qat_iters = iters
+    dev = rank_device(rank, device)
+    on_card = dev.type == "cuda"
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    sc = scene(N, H, W, dev)
+    with torch.no_grad():
+        gt = torch.clamp(rasterize_cuda.forward_image(*sc.rargs), 0.0, 1.0)
+    mesh = sharded.tile_mesh(world_size)
+
+    def psnr_of(img) -> float:
+        return float(10.0 * torch.log10(1.0 / torch.mean((img - gt) ** 2)))
+
+    def zero() -> None:
+        for c in graphs.kernel_counters():
+            c.launches = 0
+
+    out = {}
+    kcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=train_iters,
+                       isremoval=True)
+    state = init_train_state(kcfg, generator=torch.Generator().manual_seed(0), device=dev)
+    psnr0 = psnr_of(render_frame(state.params, state.alive, kcfg))
+    zero()
+    sync()
+    t0 = time.perf_counter()
+    res = sharded.fit_frame_sharded(state, gt, kcfg, mesh,
+                                    draws=torch.Generator(device=dev).manual_seed(1))
+    sync()
+    out["fit"] = {"seconds": time.perf_counter() - t0, "launches": graphs.launch_counts(),
+                  "digest": _digest(torch, res.state), "psnr0": psnr0,
+                  "psnr": psnr_of(res.image), "it": res.state.it,
+                  "overflow": int(res.state.max_overflow),
+                  "image": bool(res.image.shape == (H, W, 3)
+                                and torch.isfinite(res.image).all())}
+    # the step's all_reduce alone: loss, squared error and the 9 N gradients
+    flat = torch.randn(2 + 9 * N, device=dev, generator=torch.Generator(dev).manual_seed(2))
+    for _ in range(5):
+        dist.all_reduce(flat)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        dist.all_reduce(flat)
+    sync()
+    out["all_reduce_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+    dcfg = FrameConfig(H=H, W=W, num_points=N * 9 // 10, max_num_points=N, iterations=5,
+                       isdensity=True)
+    step = sharded.make_sharded_train_step(mesh, dcfg,
+                                           draws=torch.Generator(device=dev).manual_seed(4))
+    states = [init_train_state(dcfg, generator=torch.Generator().manual_seed(3), device=dev)]
+    zero()
+    for _ in range(dcfg.iterations):
+        states = step(states, gt[None])
+    out["adaptive"] = {"digest": _digest(torch, states[0]),
+                       "alive": int(states[0].alive.sum()),
+                       "launches": graphs.launch_counts()}
+    qcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=qat_iters)
+    gmodel = {"_xyz": np.arctanh(sc.means.cpu().numpy()),
+              "_cholesky": sc.L.cpu().numpy() - np.asarray(CHOLESKY_BOUND, np.float32),
+              "_features_dc": sc.colors.cpu().numpy()}
+    qstate = compress.init_compress_state(gmodel, None, dev)
+    zero()
+    sync()
+    t0 = time.perf_counter()
+    qstate = sharded.fit_compress_sharded(qstate, gt, qcfg, mesh,
+                                          draws=torch.Generator().manual_seed(0))
+    sync()
+    out["qat"] = {"seconds": time.perf_counter() - t0, "launches": graphs.launch_counts(),
+                  "digest": _digest(torch, qstate), "best_psnr": float(qstate.best_psnr),
+                  "overflow": int(compress.compress_overflow(qstate, qcfg))}
+    return out
+
+
+def span_phase(torch, smi, sc, v_rows) -> list:
+    """Phase 10a: K4 (rows, image), K5 and K6 at every span of SPAN_SHARDS
+    shards of the bench scene's 68 tile rows: each equal to the same rows
+    of the full-grid launch bitwise (K6's slots: those of a full-grid
+    launch whose gradient is zero outside the span, so every other slot is
+    0), within RENDER_TOL / GRAD_TOL of its plain version at the span, two
+    launches bitwise equal; the per-splat gradients summed over a shard
+    count's spans within GRAD_TOL of the full grid's. Then K4 rows and
+    image, K5 and K6 timed at the first span of 2 shards. Returns the
+    kernels JSON rows of K4 rows, K4 image and K6 at that span (launches:
+    the counter's name)."""
+    from gsvc_tpu_torch.ops import rasterize_cuda as rc
+    from gsvc_tpu_torch.ops.rasterize_binned import span_height
+    from gsvc_tpu_torch.utils import work
+
+    tb_x, tb_y = sc.tb[0], sc.tb[1]
+    r_out = rc.round8(3 * tb_x)
+    rargs, geom = sc.rargs, (sc.H, sc.W, sc.tb, 16, 16, 256)
+    bargs = (sc.binned, sc.xys, sc.conics, sc.colors, sc.opacity)
+    gss = sc.binned.gauss_slot_start
+    full = {"rows": rc.forward_rows(*rargs), "image": rc.forward_image(*rargs),
+            "chw": rc.forward_chw(*rargs)}
+    whole = rc.reduce_slot_grads(rc.backward_slots(*bargs, v_rows, *geom, layout="rows"), gss)
+    extra = max(s * -(-tb_y // s) for s in SPAN_SHARDS) - tb_y  # span rows past the grid
+    v_pad = torch.cat([v_rows, v_rows.new_zeros((extra * r_out, v_rows.shape[1]))])
+    worst = {"fwd": 0.0, "k6": 0.0, "sum": 0.0}
+    t0 = time.perf_counter()
+    for shards in SPAN_SHARDS:
+        rows_per = -(-tb_y // shards)
+        summed = [torch.zeros_like(g) for g in whole]
+        for i in range(shards):
+            span = (i * rows_per, rows_per)
+            row0, inside = span[0], max(0, min(rows_per, tb_y - span[0]))
+            valid = max(0, min(span_height(span, tb_y, sc.H), sc.H - 16 * row0))
+            rows = rc.forward_rows(*rargs, tile_rows=span)
+            image = rc.forward_image(*rargs, tile_rows=span)
+            chw = rc.forward_chw(*rargs, tile_rows=span)
+            px = slice(16 * row0, 16 * row0 + valid)
+            if not (torch.equal(rows[:inside * r_out],
+                                full["rows"][row0 * r_out:(row0 + inside) * r_out])
+                    and not rows[inside * r_out:].any()
+                    and torch.equal(image[:valid], full["image"][px])
+                    and not image[valid:].any()
+                    and torch.equal(chw[:, :valid], full["chw"][:, px])
+                    and not chw[:, valid:].any()):
+                fail(f"K4 / K5 at the span {span} of {shards} shards differ from the same "
+                     "rows of the full-grid launch")
+            for layout, got in (("rows", rows), ("image", image), ("chw", chw)):
+                plain = rc.rasterize_forward_torch(*rargs, layout=layout, tile_rows=span)
+                err = errors(got, plain)[0]
+                worst["fwd"] = max(worst["fwd"], err)
+                if not (torch.isfinite(got).all() and err <= RENDER_TOL):
+                    fail(f"{layout} at the span {span}: max-abs {err} against its plain "
+                         "version")
+            v_span = v_pad[row0 * r_out:(row0 + rows_per) * r_out]
+            slots = rc.backward_slots(*bargs, v_span, *geom, layout="rows", tile_rows=span)
+            v_masked = torch.zeros_like(v_rows)
+            v_masked[row0 * r_out:(row0 + inside) * r_out] = \
+                v_rows[row0 * r_out:(row0 + inside) * r_out]
+            if not torch.equal(slots, rc.backward_slots(*bargs, v_masked, *geom,
+                                                        layout="rows")):
+                fail(f"K6 at the span {span} of {shards} shards differs from the full-grid "
+                     "K6 of the span's gradient")
+            rel = errors(slots, rc.rasterize_backward_torch(*bargs, v_span, *geom,
+                                                            layout="rows", tile_rows=span))[1]
+            worst["k6"] = max(worst["k6"], rel)
+            if not (torch.isfinite(slots).all() and rel <= GRAD_TOL):
+                fail(f"K6 at the span {span}: rel {rel} against its plain version")
+            for name, launch in (
+                    ("K4 rows", lambda: rc.forward_rows(*rargs, tile_rows=span)),
+                    ("K5", lambda: rc.forward_chw(*rargs, tile_rows=span)),
+                    ("K6", lambda: rc.backward_slots(*bargs, v_span, *geom, layout="rows",
+                                                     tile_rows=span))):
+                if not torch.equal(launch(), launch()):
+                    fail(f"{name} at the span {span}: two launches differ")
+            for acc, g in zip(summed, rc.reduce_slot_grads(slots, gss)):
+                acc += g
+        for name, got, want in zip(("xys", "conics", "colors", "opacity"), summed, whole):
+            rel = errors(got, want)[1]
+            worst["sum"] = max(worst["sum"], rel)
+            if rel > GRAD_TOL:
+                fail(f"per-splat {name} gradients summed over {shards} spans: rel {rel}")
+    print(f"phase 10a spans: K4 rows / image, K5 and K6 at every span of {SPAN_SHARDS} "
+          f"shards ({tb_y} tile rows) bitwise the full-grid launch's rows, zero past the "
+          f"image and the grid, two launches bitwise equal; max-abs against the plain "
+          f"versions {worst['fwd']:.3g} (tol {RENDER_TOL}), K6 rel {worst['k6']:.3g}, "
+          f"per-splat grads summed over the spans rel {worst['sum']:.3g} (tol {GRAD_TOL}); "
+          f"{time.perf_counter() - t0:.2f} s")
+    span = (0, -(-tb_y // 2))
+    swork = work.span_work(sc, work.gated_pairs(sc, tile_rows=span), span)
+    v_span = v_rows[:span[1] * r_out]
+    rows = []
+    for name, counter, kern, plain in (
+            ("K4 forward rows", "forward_rows",
+             lambda: rc.forward_rows(*rargs, tile_rows=span),
+             lambda: rc.rasterize_forward_torch(*rargs, layout="rows", tile_rows=span)),
+            ("K4 forward image", "forward_image",
+             lambda: rc.forward_image(*rargs, tile_rows=span),
+             lambda: rc.rasterize_forward_torch(*rargs, layout="image", tile_rows=span)),
+            ("K5 forward chw", "forward_chw",
+             lambda: rc.forward_chw(*rargs, tile_rows=span),
+             lambda: rc.rasterize_forward_torch(*rargs, layout="chw", tile_rows=span)),
+            ("K6 backward", "backward_slots",
+             lambda: rc.backward_slots(*bargs, v_span, *geom, layout="rows", tile_rows=span),
+             lambda: rc.rasterize_backward_torch(*bargs, v_span, *geom, layout="rows",
+                                                 tile_rows=span))):
+        src = "gsvc_tpu_torch/csrc/" + ("rasterize_bwd.cu" if name.startswith("K6")
+                                        else "rasterize_fwd.cu")
+        line = {"K4": "428", "K5": "523", "K6": "676"}[name[:2]]
+        row = timed_row(smi, 10, f"{name}, 2-shard span {span}", src,
+                        f"gsvc_tpu/ops/rasterize_pallas.py:{line}", counter,
+                        worst["k6" if name.startswith("K6") else "fwd"], kern, plain,
+                        swork[name])
+        if not name.startswith("K5"):  # K5 renders no span on the sharded fits
+            rows.append(row)
+    return rows
+
+
+def sharded_phase(torch, smi, counters, fit_psnr, eager_s, qat_psnr, qat_eager_s) -> dict:
+    """Phases 10b and 10c: `sharded_rank` on SHARD_RANKS ranks sharing the
+    card, checked: the ranks' final states bitwise equal, PSNR rises and
+    within PSNR_TOL_DB of the single-process fit with graph=False
+    (`fit_psnr`, `qat_psnr`), no overflow, K4 rows, K6 and K3 launched on
+    every rank. Prints the sharded step ms (eager) beside the single
+    process's eager step (`eager_s`, `qat_eager_s`). Returns rank 0's
+    launches of 10b."""
+    from gsvc_tpu_torch.parallel.launch import launch
+
+    t0 = time.perf_counter()
+    results = launch(sharded_rank, SHARD_RANKS, timeout=900)
+    secs = time.perf_counter() - t0
+    need = ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
+            "segmented_cumsum")
+    for part in ("fit", "adaptive", "qat"):
+        if len({r[part]["digest"] for r in results}) != 1:
+            fail(f"phase 10 {part}: the ranks' final states differ")
+        for rank, r in enumerate(results):
+            missing = [k for k in need if r[part]["launches"][k] <= 0]
+            if missing:
+                fail(f"phase 10 {part}: rank {rank} launched none of {missing}")
+    fit, adaptive, qat = results[0]["fit"], results[0]["adaptive"], results[0]["qat"]
+    if not (fit["image"] and fit["it"] == TRAIN_ITERS and fit["psnr"] > fit["psnr0"]
+            and abs(fit["psnr"] - fit_psnr) < PSNR_TOL_DB and fit["overflow"] == 0):
+        fail(f"phase 10b sharded fit: it {fit['it']}, PSNR {fit['psnr0']:.3f} -> "
+             f"{fit['psnr']:.4f} dB against the single process's {fit_psnr:.4f} (tol "
+             f"{PSNR_TOL_DB}), overflow {fit['overflow']}")
+    if adaptive["alive"] != N:
+        fail(f"phase 10b adaptive control: {adaptive['alive']} alive after the revive")
+    if not (abs(qat["best_psnr"] - qat_psnr) < PSNR_TOL_DB and qat["overflow"] == 0):
+        fail(f"phase 10c sharded QAT: best PSNR {qat['best_psnr']:.4f} against "
+             f"{qat_psnr:.4f} (tol {PSNR_TOL_DB}), overflow {qat['overflow']}")
+    print(f"phase 10b sharded fit [{smi}]: {SHARD_RANKS} ranks on one card, fit_frame_sharded "
+          f"{TRAIN_ITERS} its (removal control, rows L2): ranks bitwise equal; PSNR "
+          f"{fit['psnr0']:.3f} -> {fit['psnr']:.4f} dB, single process {fit_psnr:.4f}; "
+          f"step ms eager: sharded {1e3 * fit['seconds'] / TRAIN_ITERS:.3f}, single process "
+          f"{1e3 * eager_s / TRAIN_ITERS:.3f}; the step's all_reduce ({2 + 9 * N} floats, "
+          f"gloo) {results[0]['all_reduce_ms']:.4f} ms, rank 1 "
+          f"{results[1]['all_reduce_ms']:.4f}; 5 adaptive-control steps revived to "
+          f"{adaptive['alive']}, ranks bitwise equal; launches rank 0 {fit['launches']}, "
+          f"rank 1 {results[1]['fit']['launches']}")
+    print(f"phase 10c sharded QAT [{smi}]: fit_compress_sharded {SHARD_QAT_ITERS} its: ranks "
+          f"bitwise equal; best PSNR {qat['best_psnr']:.4f} dB, single process "
+          f"{qat_psnr:.4f}; step ms eager: sharded "
+          f"{1e3 * qat['seconds'] / SHARD_QAT_ITERS:.3f}, single process "
+          f"{1e3 * qat_eager_s / SHARD_QAT_ITERS:.3f}; launches rank 0 {qat['launches']}; "
+          f"phase 10b + 10c {secs:.2f} s with the ranks' start")
+    return fit["launches"]
+
+
+def sharded_cli_phase(torch, smi, counters, clip, tmp: Path, device: str = "cuda") -> None:
+    """Phase 10d: SHARD_CLI_FRAMES frames of phase 6's clip through the
+    represent (SHARD_CLI_ITERS its, --is_rm: P-frames keep the K-frame's
+    count for the delta compress), compress (SHARD_QAT_ITERS) and decode
+    CLIs at --tile_shards SHARD_RANKS and at 1. Fails unless every CLI
+    returns 0, the sharded run wrote the files the unsharded one did (each
+    once: rank 0), every rank launched K1-K6's training kernels, each
+    decoded PSNR is within 0.1 dB of its compress PSNR and the sharded and
+    unsharded PSNR a frame within 0.1 dB; prints bpp, PSNR and seconds a
+    frame of both."""
+    from gsvc_tpu_torch import decode as decode_cli
+    from gsvc_tpu_torch.drivers import compress as compress_cli
+    from gsvc_tpu_torch.drivers import represent as represent_cli
+    from gsvc_tpu_torch.parallel.launch import launch
+    from gsvc_tpu_torch.scripts.encoder_drift import train_lines, write_yuv
+
+    yuv = tmp / "clip.yuv"
+    write_yuv(clip[:SHARD_CLI_FRAMES], yuv)
+    need = ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
+            "segmented_cumsum") if device == "cuda" else ()  # the CPU launches none
+    logs = {}
+    for shards in (SHARD_RANKS, 1):
+        ck, cq = tmp / f"ck{shards}", tmp / f"cq{shards}"
+        common = ["-d", str(yuv), "--data_name", "smoke", "--width", str(W), "--height",
+                  str(H), "--image_length", str(SHARD_CLI_FRAMES), "--num_points", str(N),
+                  "--tile_shards", str(shards), "--device", device]
+        rep_dir = f"GaussianVideo_{SHARD_CLI_ITERS}_{N}"
+        npz = ck / "models" / "smoke" / rep_dir / "gmodels_state_dict.npz"
+        qat_dir = cq / "result" / "smoke" / f"GaussianVideo_{SHARD_QAT_ITERS}_{N}"
+        t0 = time.perf_counter()
+        # --tile_shards > 1: the ranks main() would spawn, launched here with
+        # a deadline, each returning its launch counts (a fresh checkpoint
+        # directory: no K-frame cache for the represent CLI to hand them)
+        for name, cli, argv, rank_args in (
+                ("represent", represent_cli, common + [
+                    "--iterations", str(SHARD_CLI_ITERS), "--kdetect_iterations", "100",
+                    "--is_rm", "--checkpoint_dir", str(ck)], (None,)),
+                ("compress", compress_cli, common + [
+                    "--iterations", str(SHARD_QAT_ITERS), "--model_path", str(npz),
+                    "--k_frames_dir", str(ck), "--checkpoint_dir", str(cq)], ())):
+            for c in counters:
+                c.launches = 0
+            if shards > 1:
+                per_rank = launch(cli._rank_main, shards, (argv, *rank_args), timeout=600)
+            else:
+                rc = cli.main(argv)
+                if rc != 0:
+                    fail(f"phase 10d {name} --tile_shards 1 returned {rc}")
+                per_rank = [{c.__name__: c.launches for c in counters}]
+            for rank, launches in enumerate(per_rank):
+                missing = [k for k in need if launches[k] <= 0]
+                if missing:
+                    fail(f"phase 10d {name} --tile_shards {shards}: rank {rank} launched "
+                         f"none of {missing}")
+        secs = time.perf_counter() - t0
+        qat_models = cq / "models" / "smoke" / f"GaussianVideo_{SHARD_QAT_ITERS}_{N}"
+        rc = decode_cli.main([
+            "--bitstream", str(qat_models / "bitstream"), "--height", str(H), "--width",
+            str(W), "--model_path", str(npz), "--k_frames",
+            str(ck / "result" / "smoke" / "K_frames.txt"), "-d", str(yuv), "--no_png",
+            "--out", str(tmp / f"dec{shards}"), "--device", device])
+        if rc != 0:
+            fail(f"phase 10d decode of the --tile_shards {shards} streams returned {rc}")
+        logs[shards] = (train_lines(ck / "result" / "smoke" / rep_dir / "train.txt"),
+                        train_lines(qat_dir / "train.txt"),
+                        train_lines(tmp / f"dec{shards}" / "decode.txt"), secs,
+                        sorted(str(p.relative_to(d)) for d in (ck, cq)
+                               for p in d.rglob("*") if p.is_file()))
+    (rep_s, enc_s, dec_s, secs_s, files_s), (rep_1, enc_1, dec_1, secs_1, files_1) = (
+        logs[SHARD_RANKS], logs[1])
+    if files_s != files_1:
+        fail(f"phase 10d: the sharded CLIs wrote {files_s}, the unsharded {files_1}")
+    frames = list(range(1, SHARD_CLI_FRAMES + 1))
+    for f in frames:
+        for what, enc, dec in (("sharded", enc_s, dec_s), ("unsharded", enc_1, dec_1)):
+            if abs(dec[f]["PSNR"] - enc[f]["PSNR"]) >= 0.1:
+                fail(f"phase 10d {what} frame {f}: decoded PSNR {dec[f]['PSNR']} vs "
+                     f"encoder {enc[f]['PSNR']}")
+        for what, a, b in (("represent", rep_s, rep_1), ("QAT", enc_s, enc_1)):
+            if abs(a[f]["PSNR"] - b[f]["PSNR"]) >= 0.1:
+                fail(f"phase 10d frame {f}: {what} PSNR sharded {a[f]['PSNR']} vs "
+                     f"unsharded {b[f]['PSNR']}")
+    for shards, (rep, enc, dec, secs, _files) in logs.items():
+        print(f"phase 10d CLIs [{smi}] --tile_shards {shards}: {SHARD_CLI_FRAMES} frames, "
+              f"{SHARD_CLI_ITERS} + {SHARD_QAT_ITERS} its, represent + compress "
+              f"{secs:.2f} s; " + "; ".join(
+                  f"frame {f}: represent PSNR {rep[f]['PSNR']:.4f} dB in "
+                  f"{rep[f]['Training']:.2f} s, QAT PSNR {enc[f]['PSNR']:.4f} in "
+                  f"{enc[f]['Training']:.2f} s, bpp {enc[f]['bpp']:.4f}, decoded "
+                  f"{dec[f]['PSNR']:.4f}" for f in frames))
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if argv not in ([], ["--profile"]):
@@ -1022,6 +1429,14 @@ def main() -> int:
     for name, (a, b) in (("pre-train", pre), ("QAT fit", qat)):
         if not same_fit(torch, a, b):
             fail(f"{name}: the fit with graphs differs from graph=False")
+    # phase 10c's single-process QAT, graph=False
+    t0 = time.perf_counter()
+    qat_ref = compress.fit_compress(
+        compress.init_compress_state(gmodel, None, dev), gt,
+        dataclasses.replace(qcfg, iterations=SHARD_QAT_ITERS),
+        draws=torch.Generator().manual_seed(0), graph=False)
+    torch.cuda.synchronize()
+    qat_ref_s = time.perf_counter() - t0
     print(f"phase 4 training slice: fit_frame {TRAIN_ITERS} its (removal "
           f"control) on graphs in {fit_s:.2f} s (capture {capture_s:.3f} s), with "
           f"graph=False in {eager_s:.2f} s: bitwise equal; PSNR {psnr0:.3f} -> "
@@ -1223,6 +1638,17 @@ def main() -> int:
     for grid, k in wide_rows:
         k["launches"] = wide_launches[grid][k["launches"]]
         kernels.append(k)
+
+    # -- phase 10: the tile-sharded trainer, ranks sharing the card ---------
+    with torch.no_grad():
+        span_rows = span_phase(torch, smi, sc, v_rows)
+    shard_launches = sharded_phase(torch, smi, counters, psnr1, eager_s,
+                                   float(qat_ref.best_psnr), qat_ref_s)
+    for k in span_rows:
+        k["launches"] = shard_launches[k["launches"]]
+        kernels.append(k)
+    with tempfile.TemporaryDirectory() as tmp:
+        sharded_cli_phase(torch, smi, counters, clip, Path(tmp))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -261,7 +261,8 @@ GSVC_EXPORT int backward_jobs(
   if (variant == kF || variant == kG) {
     const gsvc_bwd::Args k6{a.tile_bin_start, a.tile_counts, a.gauss_ids, a.gauss_slot_start,
                             a.bbox_pack, a.xys, a.conics, a.colors, a.opacity, a.v_rows,
-                            n, img_h, img_w, tb_x, cap, r_out, num_slots, a.out};
+                            n, img_h, img_w, tb_x, cap, r_out, num_slots, a.out,
+                            0, tb_y, img_h};
     return variant == kF ? gsvc_bwd::launch_backward<gsvc_bwd::kRows, 32>(k6, tb_y, s)
                          : gsvc_bwd::launch_backward<gsvc_bwd::kRows, 16>(k6, tb_y, s);
   }

@@ -55,6 +55,7 @@ GSVC_EXPORT int forward_parts(const void* tile_bin_start, const void* tile_count
                img_h,                                   img_w,
                tb_x,                                    tb_x * tb_y,
                cap,                                     r_out,
-               static_cast<float*>(out)};
+               static_cast<float*>(out),                0,
+               tb_x * tb_y,                             img_h};
   return kPartsLaunches[variant](a, grid, static_cast<cudaStream_t>(stream));
 }

@@ -69,6 +69,10 @@ struct Args {
   int n, img_h, img_w, tb_x, cap, r_out;
   long long num_slots;
   float* out;
+  // the span of tile rows the gradient covers, [row0, row0 + gridDim.y)
+  // of the tb_y grid rows, and the pixel rows of its image / chw layout
+  // (the whole grid: 0, img_h)
+  int row0, tb_y, out_h;
 };
 
 template <int kLayout, int kSplit>
@@ -81,29 +85,31 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) backward_kernel(Args a) 
   float* const sv = reinterpret_cast<float*>(smem);  // [3][256]: the tile's gradient
   Lane* const lanes = reinterpret_cast<Lane*>(smem + 3 * kPixels / 4);  // [cap]
   const int tx = blockIdx.x;
-  const int ty = blockIdx.y;
+  const int ly = blockIdx.y;     // the tile's row in the span (the gradient's)
+  const int ty = a.row0 + ly;    // and in the grid
+  if (ty >= a.tb_y) return;      // a span's row past the grid holds no lanes
   const int tile = ty * a.tb_x + tx;
   const int start = a.tile_bin_start[tile];
   const int count = min(a.tile_counts[tile], a.cap);
 
   for (int p = threadIdx.x; p < kPixels; p += kThreads) {
     const int px = tx * kTile + p % kTile;
-    const int py = ty * kTile + p / kTile;
+    const int py = ly * kTile + p / kTile;  // the gradient's pixel row
     float v0 = 0.0f, v1 = 0.0f, v2 = 0.0f;
-    if (px < a.img_w && py < a.img_h) {
+    if (px < a.img_w && ty * kTile + p / kTile < a.img_h) {
       if (kLayout == kImage) {
         const long long i = 3LL * (static_cast<long long>(py) * a.img_w + px);
         v0 = a.v_out[i];
         v1 = a.v_out[i + 1];
         v2 = a.v_out[i + 2];
       } else if (kLayout == kChw) {
-        const long long plane = static_cast<long long>(a.img_h) * a.img_w;
+        const long long plane = static_cast<long long>(a.out_h) * a.img_w;
         const long long i = static_cast<long long>(py) * a.img_w + px;
         v0 = a.v_out[i];
         v1 = a.v_out[plane + i];
         v2 = a.v_out[2 * plane + i];
       } else {
-        const long long i = (static_cast<long long>(ty) * a.r_out + 3 * tx) * kPixels + p;
+        const long long i = (static_cast<long long>(ly) * a.r_out + 3 * tx) * kPixels + p;
         v0 = a.v_out[i];
         v1 = a.v_out[i + kPixels];
         v2 = a.v_out[i + 2 * kPixels];
@@ -199,16 +205,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) backward_kernel(Args a) 
   }
 }
 
-// Launch backward_kernel<kLayout, kSplit>, one CTA a tile; the caller
-// zero-fills out, so slots of lanes past the cap stay exactly 0. Returns
-// cudaGetLastError().
+// Launch backward_kernel<kLayout, kSplit>, one CTA a tile of the span's
+// num_rows rows (the whole grid: a.row0 = 0, num_rows = a.tb_y); the caller
+// zero-fills out, so slots of lanes past the cap, and of tiles outside the
+// span, stay exactly 0. Returns cudaGetLastError().
 template <int kLayout, int kSplit>
-int launch_backward(const Args& a, int tb_y, cudaStream_t stream) {
-  if (a.tb_x <= 0 || tb_y <= 0 || a.num_slots <= 0) {
+int launch_backward(const Args& a, int num_rows, cudaStream_t stream) {
+  if (a.tb_x <= 0 || num_rows <= 0 || a.num_slots <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = sizeof(float) * 3 * kPixels + sizeof(Lane) * static_cast<size_t>(a.cap);
-  backward_kernel<kLayout, kSplit><<<dim3(a.tb_x, tb_y), kThreads, smem, stream>>>(a);
+  backward_kernel<kLayout, kSplit><<<dim3(a.tb_x, num_rows), kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,6 +56,10 @@ struct __align__(16) Lane {
   float4 c;
 };
 
+// The kernel renders a span of tile rows, [row0, row0 + num_tiles / tb_x)
+// of the grid's; a tile's index is its place in the span (local), its
+// grid tile (row0 + local row) * tb_x + x. The whole grid is row0 = 0,
+// num_tiles = grid_tiles, out_h = img_h.
 struct Args {
   const int* tile_bin_start;
   const int* tile_counts;
@@ -66,6 +70,9 @@ struct Args {
   const float* opacity;
   int n, img_h, img_w, tb_x, num_tiles, cap, r_out;
   float* out;
+  int row0;        // the span's first tile row
+  int grid_tiles;  // tb_x * tb_y: a grid tile at or past it is empty
+  int out_h;       // pixel rows of the image / chw store (img_h for the grid)
 };
 
 // 4 bytes global -> shared, asynchronously; src_bytes 0 writes a zero.
@@ -105,12 +112,14 @@ struct Chunk {
   __device__ bool last() const { return k0 + kChunk >= count; }
 };
 
-// The tile's run; a tile past the grid is {tile, 0, 0, 0}.
+// The run of the span's tile `tile`; a tile past the span, or one whose
+// grid tile lies past the grid (a span's rows past tb_y), is {tile, 0, 0, 0}.
 __device__ __forceinline__ Chunk first_chunk(const Args& a, int tile) {
   Chunk c{tile, 0, 0, 0};
-  if (tile < a.num_tiles) {
-    c.start = a.tile_bin_start[tile];
-    c.count = min(a.tile_counts[tile], a.cap);
+  const int grid_tile = a.row0 * a.tb_x + tile;
+  if (tile < a.num_tiles && grid_tile < a.grid_tiles) {
+    c.start = a.tile_bin_start[grid_tile];
+    c.count = min(a.tile_counts[grid_tile], a.cap);
   }
   return c;
 }
@@ -184,13 +193,15 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(Args a) {
       if (cur.last()) __syncthreads();
     }
 
+    // ty: the tile's row in the span (the store's), gy: in the grid
     const int tx = cur.tile % a.tb_x, ty = cur.tile / a.tb_x;
+    const int gy = a.row0 + ty;
     const float ox = static_cast<float>(tx * kTile);
-    const float oy = static_cast<float>(ty * kTile);
+    const float oy = static_cast<float>(gy * kTile);
     const float fx = static_cast<float>(tx * kTile + lx);
     float fy[kPix];
 #pragma unroll
-    for (int j = 0; j < kPix; ++j) fy[j] = static_cast<float>(ty * kTile + ly + j * kRowStep);
+    for (int j = 0; j < kPix; ++j) fy[j] = static_cast<float>(gy * kTile + ly + j * kRowStep);
     for (int k = 0; k < count; ++k) {
       const float4 l0 = lanes[k].a;  // x y c1 c2
       const float4 l1 = lanes[k].b;  // c3 opac r g
@@ -248,28 +259,33 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(Args a) {
         }
         const int row = ly + j * kRowStep;
         const int px = tx * kTile + lx;
-        const int py = ty * kTile + row;
-        const bool inside = px < a.img_w && py < a.img_h;
+        const int py = ty * kTile + row;  // the store's pixel row
+        // zero past the image edge (the grid's pixel row gy * 16 + row),
+        // as image_to_rows pads; for the grid, the store's rows past img_h
+        // are not stored at all
+        const bool inside = px < a.img_w && gy * kTile + row < a.img_h;
         if (kLayout == kRows) {
-          // row ty*r_out + 3*tx + c, column row*16 + lx; zero past the
-          // image edge, as image_to_rows pads
+          // row ty*r_out + 3*tx + c, column row*16 + lx
           constexpr long long kNpix = kTile * kTile;
           const long long base =
               (static_cast<long long>(ty) * a.r_out + 3 * tx) * kNpix + row * kTile + lx;
           a.out[base] = inside ? acc[j][0] : 0.0f;
           a.out[base + kNpix] = inside ? acc[j][1] : 0.0f;
           a.out[base + 2 * kNpix] = inside ? acc[j][2] : 0.0f;
-        } else if (inside) {
+        } else if (px < a.img_w && py < a.out_h) {
           const long long pix = static_cast<long long>(py) * a.img_w + px;
+          const float r = inside ? acc[j][0] : 0.0f;
+          const float g = inside ? acc[j][1] : 0.0f;
+          const float b = inside ? acc[j][2] : 0.0f;
           if (kLayout == kChw) {
-            const long long plane = static_cast<long long>(a.img_h) * a.img_w;
-            a.out[pix] = acc[j][0];
-            a.out[plane + pix] = acc[j][1];
-            a.out[2 * plane + pix] = acc[j][2];
+            const long long plane = static_cast<long long>(a.out_h) * a.img_w;
+            a.out[pix] = r;
+            a.out[plane + pix] = g;
+            a.out[2 * plane + pix] = b;
           } else {
-            a.out[3 * pix] = acc[j][0];
-            a.out[3 * pix + 1] = acc[j][1];
-            a.out[3 * pix + 2] = acc[j][2];
+            a.out[3 * pix] = r;
+            a.out[3 * pix + 1] = g;
+            a.out[3 * pix + 2] = b;
           }
         }
         acc[j][0] = acc[j][1] = acc[j][2] = wsum[j] = 0.0f;

@@ -16,6 +16,12 @@ cuda; raises when there is no card).
 A P-frame's side information is the previous frame's REPRESENTATION
 checkpoint, not its compressed version (train_video_Compress.py:51-72):
 the decoder's P-frame path reads the same checkpoint.
+
+`--tile_shards N` > 1 runs the CLI as N spawned ranks of one gloo group
+(`drivers.common.launch_ranks`): each runs this driver on the same frames,
+its QAT fits split by tile rows (`parallel.sharded.fit_compress_sharded`,
+eager steps); rank 0 alone writes the logs, the checkpoint, the
+bitstream and the video.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from gsvc_tpu_torch.config import FrameConfig
 from gsvc_tpu_torch.drivers.common import (
     check_single_host,
     frame_generator,
+    launch_ranks,
     load_gmodels,
     resolve_device,
 )
@@ -47,6 +54,8 @@ from gsvc_tpu_torch.models.compress import (
 )
 from gsvc_tpu_torch.models.represent import uses_kernels
 from gsvc_tpu_torch.ops.binning import default_max_intersects
+from gsvc_tpu_torch.parallel.launch import rank_device
+from gsvc_tpu_torch.parallel.sharded import fit_compress_sharded, tile_mesh
 from gsvc_tpu_torch.utils import graphs
 from gsvc_tpu_torch.utils.logwriter import LogWriter
 from gsvc_tpu_torch.utils.metrics import ms_ssim
@@ -82,7 +91,8 @@ def parse_args(argv):
     # footprints (6-bit covariances + delta offsets), so the compress stage
     # takes twice the representation stage's default of 16
     p.add_argument("--budget_factor", type=int, default=32)
-    # multi-chip tile sharding: not ported (raises for N > 1)
+    # N > 1: N ranks (spawned processes, gloo), each QAT fit's tile rows
+    # split over them (parallel/sharded.py); rank 0 writes
     p.add_argument("--tile_shards", type=int, default=0)
     # fit each frame in slices of at most N iterations (the same trajectory,
     # models.compress.fit_compress_chunked)
@@ -101,14 +111,32 @@ def main(argv):
     args = parse_args(argv)
     check_single_host(args)
     device = resolve_device(args.device)
+    if args.tile_shards > 1:
+        return launch_ranks(_rank_main, args, list(argv))
+    return _run(args, device)
 
+
+def _rank_main(rank: int, world_size: int, argv) -> dict:
+    """Rank `rank` of a --tile_shards run: this CLI on its device,
+    writing only on rank 0. Returns the rank's kernel launch counts."""
+    args = parse_args(argv)
+    _run(args, rank_device(rank, args.device), writer=rank == 0)
+    return graphs.launch_counts()
+
+
+def _run(args, device: torch.device, writer: bool = True) -> int:
+    """The CLI's work after its arguments; a rank of a --tile_shards run
+    that is not the `writer` writes nothing."""
+    mesh = tile_mesh(args.tile_shards) if args.tile_shards > 1 else None
     base = Path(args.checkpoint_dir)
     run_name = f"{args.model_name}_{args.iterations}_{args.num_points}"
     out_dir = base / args.savdir / args.data_name / run_name
-    out_dir.mkdir(parents=True, exist_ok=True)
     model_dir = base / args.savdir_m / args.data_name / run_name
-    model_dir.mkdir(parents=True, exist_ok=True)
-    logwriter = LogWriter(out_dir)
+    bs_dir = model_dir / "bitstream"
+    if writer:
+        for d in (out_dir, bs_dir):
+            d.mkdir(parents=True, exist_ok=True)
+    log = LogWriter(out_dir).write if writer else (lambda text: None)
 
     video_frames = process_yuv_video(
         args.dataset, args.width, args.height, limit=args.image_length
@@ -122,8 +150,6 @@ def main(argv):
     psnrs, msims, bpps, t_train, t_eval, fpses = [], [], [], [], [], []
     out_state = {}
     img_list = []
-    bs_dir = model_dir / "bitstream"
-    bs_dir.mkdir(parents=True, exist_ok=True)
     for frame_num in range(1, image_length + 1):
         i = frame_num - 1
         gt = torch.as_tensor(video_frames[i].astype(np.float32) / 255.0, device=device)
@@ -143,13 +169,16 @@ def main(argv):
         draws = frame_generator(args.seed, frame_num)
         state = init_compress_state(gmodel, p_gmodel, device)
         t0 = time.time()
-        # slices of --fit_chunk iterations (one slice by default)
-        state = fit_compress_chunked(state, gt, cfg, args.fit_chunk or args.iterations,
-                                     draws=draws)
+        if mesh is not None:  # every step eager; --fit_chunk unused, as gsvc_tpu
+            state = fit_compress_sharded(state, gt, cfg, mesh, draws=draws)
+        else:
+            # slices of --fit_chunk iterations (one slice by default)
+            state = fit_compress_chunked(state, gt, cfg, args.fit_chunk or args.iterations,
+                                         draws=draws)
         _sync(state.params.xyz)
         train_time = time.time() - t0
         overflow = int(compress_overflow(state, cfg))
-        if overflow > 0:
+        if overflow > 0 and writer:
             print(
                 f"WARNING: frame {frame_num}: intersection budget overflow "
                 f"— {overflow} intersections (whole splats) dropped from "
@@ -160,8 +189,9 @@ def main(argv):
         bits, img = measure_bits(state, cfg)
         # the frame's bitstream: the bytes the bpp accounting counts,
         # decodable standalone by python -m gsvc_tpu_torch.decode
-        (bs_dir / f"frame_{frame_num}.gsvc").write_bytes(
-            encode_frame(state, cfg, "K" if is_k else "P"))
+        if writer:
+            (bs_dir / f"frame_{frame_num}.gsvc").write_bytes(
+                encode_frame(state, cfg, "K" if is_k else "P"))
         mse = float(torch.mean((img - gt) ** 2))
         psnr = 10 * math.log10(1.0 / mse)
         mss = float(ms_ssim(img.permute(2, 0, 1)[None], gt.permute(2, 0, 1)[None]))
@@ -195,7 +225,7 @@ def main(argv):
         for k in ("xyz", "cholesky", "features_dc"):
             out_state[f"frame_{frame_num}/_{k}"] = (
                 getattr(state.params, k).detach().cpu().numpy())
-        logwriter.write(
+        log(
             "Frame_{}: {}x{}, PSNR:{:.4f}, MS-SSIM:{:.4f}, bpp:{:.4f}, "
             "Training:{:.4f}s, Eval:{:.8f}s, FPS:{:.4f}".format(
                 frame_num, H, W, psnr, mss, bits["bpp"], train_time,
@@ -203,8 +233,10 @@ def main(argv):
             )
         )
 
+    if not writer:
+        return 0
     np.savez(model_dir / "gmodels_state_dict.npz", **out_state)
-    logwriter.write(
+    log(
         "Average: {}x{}, PSNR:{:.4f}, MS-SSIM:{:.4f}, Bpp:{:.4f}, "
         "Training:{:.4f}s, Eval:{:.8f}s, FPS:{:.4f}".format(
             args.height, args.width, float(np.mean(psnrs)),

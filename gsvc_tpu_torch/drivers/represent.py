@@ -19,6 +19,14 @@ cuda; raises when there is no card). Per frame:
     keeps it) is fitted again with a larger budget, kept for the frames
     after it (`train_within_budget`).
 
+`--tile_shards N` > 1 runs the CLI as N spawned ranks of one gloo group
+(`drivers.common.launch_ranks`; several may share a card): each runs
+this driver on the same frames, K-frame detection included, with its
+represent fits split by tile rows (`models.represent.fit_frame_partial`
+with the rank's `shard` on its `parallel.sharded.shard_target`, eager
+steps, the fits' all_reduces the only collectives); rank 0 alone
+writes the logs, K_frames.txt, the checkpoint and the video.
+
 The checkpoint keys are `frame_{n}/_xyz|_cholesky|_features_dc` with the
 colours premultiplied by rgb_W (train_video_Represent.py:109-113), so
 either package's compress stage reads either package's checkpoint.
@@ -47,6 +55,7 @@ from gsvc_tpu_torch.core import GaussianFrame
 from gsvc_tpu_torch.drivers.common import (
     check_single_host,
     frame_generator,
+    launch_ranks,
     resolve_device,
 )
 from gsvc_tpu_torch.io import generate_video, process_yuv_video
@@ -60,7 +69,9 @@ from gsvc_tpu_torch.models.represent import (
     uses_kernels,
 )
 from gsvc_tpu_torch.ops.binning import default_max_intersects
-from gsvc_tpu_torch.parallel.multihost import NOT_PORTED, gop_spans
+from gsvc_tpu_torch.parallel.multihost import gop_spans
+from gsvc_tpu_torch.parallel.launch import rank_device
+from gsvc_tpu_torch.parallel.sharded import shard_target, tile_mesh
 from gsvc_tpu_torch.utils import graphs
 from gsvc_tpu_torch.utils.control import detect_outliers_mean_diff
 from gsvc_tpu_torch.utils.logwriter import LogWriter
@@ -114,7 +125,10 @@ class SimpleTrainer2d:
     (train_video_Represent.py:17-202).
 
     `uniforms` (the init draws, see `init_splats`) and `draws` (the revive
-    draws, see `make_train_step`) override the frame's generator."""
+    draws, see `make_train_step`) override the frame's generator.
+    tile_shards > 1 (in a rank of a torch.distributed group of that size)
+    fits the frame tile-sharded: each rank fits its span of tile rows
+    (`parallel.sharded`); the image is rendered whole by `test()`."""
 
     def __init__(
         self,
@@ -138,8 +152,6 @@ class SimpleTrainer2d:
         draws=None,
         max_intersects: Optional[int] = None,
     ):
-        if tile_shards and tile_shards > 1:
-            raise NotImplementedError(f"--tile_shards {tile_shards} {NOT_PORTED}")
         if device is None:
             device = getattr(args, "device", "cuda") if args is not None else "cuda"
         self.device = resolve_device(device) if isinstance(device, str) else device
@@ -150,6 +162,11 @@ class SimpleTrainer2d:
                                   device=self.device)  # [H, W, 3]
         self.H, self.W = image.shape[0], image.shape[1]
         self.frame_num = frame_num
+        # multi-rank: the frame's tile rows over a 1D mesh of ranks
+        # (parallel/sharded.py); 0 / 1: an unsharded fit
+        self.mesh = None
+        if tile_shards and tile_shards > 1:
+            self.mesh = tile_mesh(tile_shards)
         self.cfg = FrameConfig(
             H=self.H,
             W=self.W,
@@ -185,12 +202,18 @@ class SimpleTrainer2d:
 
     def train(self, ispos: bool = False):
         t0 = time.time()
-        # slices of --fit_chunk iterations (one slice by default); chained
-        # slices are one fit_frame, early stop included
-        chunk = max(self.fit_chunk or self.cfg.iterations, 1)
-        for hi in range(chunk, self.cfg.iterations + chunk, chunk):
-            self.state = fit_frame_partial(self.state, self.gt, hi, self.cfg,
-                                           draws=self.draws)
+        if self.mesh is not None:  # every step eager; --fit_chunk unused, as gsvc_tpu
+            shard = self.mesh.shard
+            self.state = fit_frame_partial(self.state, shard_target(self.gt, self.cfg, shard),
+                                           self.cfg.iterations, self.cfg, draws=self.draws,
+                                           shard=shard)
+        else:
+            # slices of --fit_chunk iterations (one slice by default); chained
+            # slices are one fit_frame, early stop included
+            chunk = max(self.fit_chunk or self.cfg.iterations, 1)
+            for hi in range(chunk, self.cfg.iterations + chunk, chunk):
+                self.state = fit_frame_partial(self.state, self.gt, hi, self.cfg,
+                                               draws=self.draws)
         _sync(self.state.params.xyz)
         train_time = time.time() - t0
         state = self.state
@@ -270,14 +293,23 @@ def _save_png(path, img_u8: np.ndarray) -> None:
         np.save(str(path) + ".npy", img_u8)
 
 
-def detect_k_frames(video_frames, args, out_dir: Path, loss_type: str,
-                    uniforms=None) -> list:
-    """K-frame detection (train_video_Represent.py:312-356), cached in
-    K_frames.txt. `uniforms(frame_num)` overrides the init draws of the
-    frame's two pre-train trainers."""
+def read_k_frames(out_dir: Path) -> Optional[list]:
+    """The K-frames cached in out_dir/K_frames.txt, or None."""
     kfile = out_dir / "K_frames.txt"
-    if kfile.exists():
-        return [int(line.strip()) for line in kfile.read_text().splitlines()]
+    if not kfile.exists():
+        return None
+    return [int(line.strip()) for line in kfile.read_text().splitlines()]
+
+
+def detect_k_frames(video_frames, args, out_dir: Path, loss_type: str,
+                    uniforms=None, cached: bool = True, write: bool = True) -> list:
+    """K-frame detection (train_video_Represent.py:312-356), cached in
+    K_frames.txt (read when `cached`; loss_list.txt and K_frames.txt
+    written when `write`). `uniforms(frame_num)` overrides the init draws
+    of the frame's two pre-train trainers."""
+    kfile = out_dir / "K_frames.txt"
+    if cached and kfile.exists():
+        return read_k_frames(out_dir)
     loss_list = []
     gmodel = None
     n = len(video_frames)
@@ -309,14 +341,15 @@ def detect_k_frames(video_frames, args, out_dir: Path, loss_type: str,
         norm = [vals[0]] + list((vals[1:] - lo) / max(hi - lo, 1e-12))
     else:
         norm = list(vals)
-    with open(out_dir / "loss_list.txt", "w") as f:
-        for idx, v in enumerate(norm, start=1):
-            f.write(f"Frame {idx}: {v}\n")
     outliers = detect_outliers_mean_diff(norm)
     k_frames = sorted(set([1] + [int(x + 1) for x in outliers]))
-    with open(kfile, "w") as f:
-        for fr in k_frames:
-            f.write(f"{fr}\n")
+    if write:
+        with open(out_dir / "loss_list.txt", "w") as f:
+            for idx, v in enumerate(norm, start=1):
+                f.write(f"Frame {idx}: {v}\n")
+        with open(kfile, "w") as f:
+            for fr in k_frames:
+                f.write(f"{fr}\n")
     return k_frames
 
 
@@ -353,7 +386,8 @@ def parse_args(argv):
     # split each frame's fit into slices of at most N iterations (0 = one);
     # the same trajectory (models.represent.fit_frame_partial)
     p.add_argument("--fit_chunk", type=int, default=0)
-    # multi-chip tile sharding: not ported (raises for N > 1)
+    # N > 1: N ranks (spawned processes, gloo), each fit's tile rows split
+    # over them (parallel/sharded.py); rank 0 writes
     p.add_argument("--tile_shards", type=int, default=0)
     # K-frame detection pre-train size (the reference hardcodes 5000 splats
     # and 500 + 100 iterations, train_video_Represent.py:322-330)
@@ -368,18 +402,44 @@ def parse_args(argv):
     return p.parse_args(argv)
 
 
+def _k_dir(args) -> Path:
+    return Path(args.checkpoint_dir) / args.savdir / args.data_name
+
+
 def main(argv):
     args = parse_args(argv)
     check_single_host(args)
     resolve_device(args.device)
+    if args.tile_shards > 1:
+        # the ranks share one K-frame cache read, taken before rank 0 can write it
+        return launch_ranks(_rank_main, args, list(argv), read_k_frames(_k_dir(args)))
+    return _run(args)
 
+
+def _rank_main(rank: int, world_size: int, argv, k_frames) -> dict:
+    """Rank `rank` of a --tile_shards run: this CLI on its device, with
+    the K-frames the launching CLI read (None: detect them), writing
+    only on rank 0. Returns the rank's kernel launch counts."""
+    args = parse_args(argv)
+    args.device = str(rank_device(rank, args.device))
+    _run(args, writer=rank == 0, k_frames=k_frames)
+    return graphs.launch_counts()
+
+
+def _run(args, writer: bool = True, k_frames: Optional[list] = None) -> int:
+    """The CLI's work after its arguments. A rank of a --tile_shards run
+    takes the K-frames its launcher read (`k_frames`, None: detect them
+    without the cache) and, unless it is the `writer`, writes nothing."""
+    sharded = args.tile_shards > 1
     base = Path(args.checkpoint_dir)
     run_name = f"{args.model_name}_{args.iterations}_{args.num_points}"
     out_dir = base / args.savdir / args.data_name / run_name
-    out_dir.mkdir(parents=True, exist_ok=True)
     model_dir = base / args.savdir_m / args.data_name / run_name
-    model_dir.mkdir(parents=True, exist_ok=True)
-    logwriter = LogWriter(out_dir)
+    k_dir = _k_dir(args)
+    if writer:
+        for d in (out_dir, model_dir, k_dir):
+            d.mkdir(parents=True, exist_ok=True)
+    log = LogWriter(out_dir).write if writer else (lambda text: None)
 
     video_frames = process_yuv_video(
         args.dataset, args.width, args.height, limit=args.image_length
@@ -387,10 +447,11 @@ def main(argv):
     image_length = min(args.image_length, len(video_frames))
     video_frames = video_frames[:image_length]
 
-    k_dir = base / args.savdir / args.data_name
-    k_dir.mkdir(parents=True, exist_ok=True)
-    k_frames = detect_k_frames(video_frames, args, k_dir, args.loss_type)
-    print("K-frames:", k_frames)
+    if k_frames is None:
+        k_frames = detect_k_frames(video_frames, args, k_dir, args.loss_type,
+                                   cached=not sharded, write=writer)
+    if writer:
+        print("K-frames:", k_frames)
 
     psnrs, ms_ssims, t_train, t_eval, fpses = [], [], [], [], []
     gnum_by_frame = {}
@@ -408,7 +469,7 @@ def main(argv):
             common = dict(loss_type=args.loss_type, max_num_points=args.num_points,
                           iterations=args.iterations, args=args,
                           removal_rate=args.removal_rate, seed=args.seed,
-                          backend=args.backend)
+                          backend=args.backend, tile_shards=args.tile_shards)
             if frame_num in k_frames:
                 frame = dict(num_points=args.num_points, Trained_Model=None,
                              isdensity=False, isremoval=args.is_rm)
@@ -428,9 +489,9 @@ def main(argv):
                 combined_img_list.append(combined_img)
             # PNG dumps (train_video_Represent.py:146-160): every frame with
             # --save_everyimgs, frame 1 and every 100th with --save_imgs
-            if args.save_everyimgs or (
+            if writer and (args.save_everyimgs or (
                 args.save_imgs and (i == 0 or (i + 1) % 100 == 0)
-            ):
+            )):
                 img_dir.mkdir(parents=True, exist_ok=True)
                 _save_png(img_dir / f"{frame_num}_fitting.png", img)
                 if args.is_pos:
@@ -444,7 +505,7 @@ def main(argv):
             gnum_by_frame[frame_num] = num_gaussian_points
             for k, v in gmodel.items():
                 gmodels_state[f"frame_{frame_num}/{k}"] = v
-            logwriter.write(
+            log(
                 "Frame_{}: {}x{}, PSNR:{:.4f}, MS-SSIM:{:.4f}, "
                 "Training:{:.4f}s, Eval:{:.8f}s, FPS:{:.4f}, "
                 "Loss:{:.4f}".format(
@@ -453,6 +514,8 @@ def main(argv):
                 )
             )
 
+    if not writer:
+        return 0
     ckpt = model_dir / "gmodels_state_dict.npz"
     np.savez(ckpt, **gmodels_state)
     with open(out_dir / "num_gaussian_points.txt", "w") as f:
@@ -460,7 +523,7 @@ def main(argv):
             f.write(f"frame_{fr}: {gnum_by_frame[fr]}\n")
 
     file_size = ckpt.stat().st_size
-    logwriter.write(
+    log(
         "Average: {}x{}, PSNR:{:.4f}, MS-SSIM:{:.4f}, Training:{:.4f}s, "
         "Eval:{:.8f}s, FPS:{:.4f}, Size:{:.4f}, Gaussian_number:{:.4f}".format(
             args.height, args.width, float(np.mean(psnrs)),

@@ -56,7 +56,15 @@ from gsvc_tpu_torch.compress.quantizers import (
 )
 from gsvc_tpu_torch.config import FrameConfig
 from gsvc_tpu_torch.core import cholesky_bound
-from gsvc_tpu_torch.models.represent import _clip01, _rows_target_for, step_twins
+from gsvc_tpu_torch.models.represent import (
+    TileShard,
+    _clip01,
+    _rows_target_for,
+    _sharded_graph,
+    shard_tile_rows,
+    shard_valid_h,
+    step_twins,
+)
 from gsvc_tpu_torch.ops.binning import budget_overflow, default_max_intersects
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
 from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
@@ -65,7 +73,6 @@ from gsvc_tpu_torch.utils import graphs
 from gsvc_tpu_torch.utils.profiling import _sync
 
 CHOL_BITS = 6  # UniformQuantizer(bits=6), GaussianSplats_Compress.py:37
-SHARDING = "is not ported yet (ROADMAP Queue 1 item 3, the sharded trainer)"
 
 
 @dataclasses.dataclass
@@ -168,10 +175,9 @@ def forward_quantize(
 
     Frame mode (p_* all zeros) mirrors GaussianSplats_Compress.py:71-84,
     delta mode :165-179. layout "rows" renders the tile-row blocks the rows
-    loss reads, "chw" the planar [3, H, W]. `draws` picks the k-means rows
-    of a training forward on an un-initialised VQ."""
-    if tile_rows is not None:
-        raise NotImplementedError(f"tile_rows {SHARDING}")
+    loss reads, "chw" the planar [3, H, W]; tile_rows=(row0, num_rows) only
+    that span of tile rows (image sharding, parallel/sharded.py). `draws`
+    picks the k-means rows of a training forward on an un-initialised VQ."""
     means, chol, chol_codes = _quantized_geometry(params, p_xyz, p_cholesky)
     colors, _idx, l_vqc, new_vq = residual_vq_forward(
         params.features_dc, vq, training, draws=draws)
@@ -183,6 +189,7 @@ def forward_quantize(
         xys, depths, radii, conics, nth, colors, opacity,
         cfg.H, cfg.W, cfg.block_h, cfg.block_w,
         backend=cfg.backend, max_intersects=cfg.max_intersects, layout=layout,
+        tile_rows=tile_rows,
     )
     img = _clip01(img) if img.requires_grad else torch.clamp(img, 0.0, 1.0)
     return img, l_vqc, chol_codes, new_vq
@@ -213,26 +220,44 @@ def _assign(dst, src, where: Optional[torch.Tensor] = None) -> None:
 
 
 def _loss_and_grads(state: CompressState, gt: torch.Tensor, cfg: FrameConfig,
-                    rows_target=None, draws: VQDraws = None):
+                    rows_target=None, draws: VQDraws = None,
+                    shard: Optional[TileShard] = None):
     """One training forward and backward: (recon, vq_loss, grads keyed like
-    CompressParams, new_vq); recon and vq_loss detached."""
+    CompressParams, new_vq); recon and vq_loss detached.
+
+    With `shard`, gt (and rows_target) are the shard's target slice: the
+    rank differentiates its share recon_local + vq_loss / num_shards (the
+    shares sum to the loss; the VQ term, the same on every rank, would
+    otherwise count once a rank), then recon and the gradients are summed
+    over the ranks (gsvc_tpu/models/compress.py:224-268)."""
     tr = {k: v.detach().requires_grad_() for k, v in _p2d(state.params).items()}
     layout = "image" if rows_target is None else "rows"
+    tile_rows = None if shard is None else shard_tile_rows(cfg, shard)
     img, vq_loss, _codes, new_vq = forward_quantize(
         CompressParams(**tr), state.vq, state.p_xyz, state.p_cholesky,
-        state.p_features_dc, cfg, training=True, layout=layout, draws=draws,
+        state.p_features_dc, cfg, training=True, layout=layout,
+        tile_rows=tile_rows, draws=draws,
     )
     if rows_target is None:
         diff = img - gt
+        valid_h = None if shard is None else shard_valid_h(cfg, shard, tile_rows[0])
+        if valid_h is not None:  # the padding rows of a ragged height
+            ridx = torch.arange(diff.shape[0], device=diff.device)[:, None, None]
+            diff = torch.where(ridx < valid_h, diff, 0.0)
     else:
         gt_rows, mask = rows_target
         diff = (img - gt_rows) * mask  # mask zeroes tile-padding pixels
     recon = torch.sum(diff * diff) / (cfg.H * cfg.W * 3)
-    grads = torch.autograd.grad(recon + vq_loss, list(tr.values()))
-    return recon.detach(), vq_loss.detach(), dict(zip(tr, grads)), new_vq
+    shards = 1 if shard is None else shard.num_shards
+    grads = torch.autograd.grad(recon + vq_loss / shards, list(tr.values()))
+    recon = recon.detach()
+    if shard is not None:
+        recon, *grads = shard.all_reduce(recon, *grads)
+    return recon, vq_loss.detach(), dict(zip(tr, grads)), new_vq
 
 
-def make_train_step_quantize(cfg: FrameConfig, shard=None, draws: VQDraws = None):
+def make_train_step_quantize(cfg: FrameConfig, shard: Optional[TileShard] = None,
+                             draws: VQDraws = None):
     """train_iter_quantize (GaussianSplats_Compress.py:86-98): loss =
     L2(recon) + vq_loss; Adan step; StepLR; best-PSNR snapshot.
 
@@ -243,15 +268,18 @@ def make_train_step_quantize(cfg: FrameConfig, shard=None, draws: VQDraws = None
     made once a fit slice) holds the device copies of the host values the
     step reads; without them the step makes its own for this one step.
     `draws` picks the k-means rows of the first step (see
-    compress.quantizers)."""
-    if shard is not None:
-        raise NotImplementedError(f"shard {SHARDING}")
+    compress.quantizers). With `shard` (models.represent.TileShard) the
+    step renders the rank's tile-row span against gt / rows_target, the
+    shard's target slice, and sums the recon term and the gradients over
+    the ranks (`_loss_and_grads`); the VQ codebook's EMA update depends on
+    the replicated features alone and stays replicated."""
 
     def step(state: CompressState, gt: torch.Tensor, rows_target=None,
              twins: Optional[graphs.Twins] = None) -> CompressState:
         if twins is None:
             twins = step_twins(state.opt, state.it, state.it + 1, cfg, state.psnr.device)
-        recon, vq_loss, grads, new_vq = _loss_and_grads(state, gt, cfg, rows_target, draws)
+        recon, vq_loss, grads, new_vq = _loss_and_grads(state, gt, cfg, rows_target, draws,
+                                                        shard)
         with torch.no_grad():
             psnr = 10.0 * torch.log10(1.0 / torch.clamp(recon, min=1e-20))
             opt = adan_step_(_p2d(state.params), grads, state.opt, twins.scalars,
@@ -287,12 +315,12 @@ def _after_plain(state: CompressState) -> CompressState:
 
 
 def qat_plan(state: CompressState, gt: torch.Tensor, cfg: FrameConfig,
-             draws: VQDraws = None) -> graphs.FitPlan:
+             draws: VQDraws = None, shard: Optional[TileShard] = None) -> graphs.FitPlan:
     """The QAT slice of cfg.iterations steps from state.it: its runs, its
     step on the slice's twins and rows target, the host fields after a
-    plain step."""
-    step = make_train_step_quantize(cfg, draws=draws)
-    rows_target = _rows_target_for(gt, cfg)
+    plain step. With `shard`, gt is the shard's target slice."""
+    step = make_train_step_quantize(cfg, shard, draws)
+    rows_target = _rows_target_for(gt, cfg, shard)
     limit = state.it + cfg.iterations
     twins = step_twins(state.opt, state.it, limit, cfg, state.psnr.device)
     return graphs.FitPlan(plan_steps(state.it, limit, state.vq.initted),
@@ -306,14 +334,18 @@ def _reload_best(state: CompressState) -> CompressState:
 
 def fit_compress(state: CompressState, gt: torch.Tensor, cfg: FrameConfig,
                  reload_best: bool = True, draws: VQDraws = None,
-                 graph: Optional[bool] = None) -> CompressState:
+                 graph: Optional[bool] = None,
+                 shard: Optional[TileShard] = None) -> CompressState:
     """cfg.iterations QAT steps, then the best-PSNR snapshot
     (train_video_Compress.py:89-102). reload_best=False leaves the last
     state, so the fit can be resumed (`fit_compress_chunked`). graph None
     (the default) runs the plain steps as CUDA-graph replays on a CUDA
     device and eagerly on the CPU; False runs every step eagerly, with the
-    same bits; True on the CPU raises."""
-    state = graphs.run_fit(state, qat_plan(state, gt, cfg, draws), gt.device, graph)
+    same bits; True on the CPU raises. With `shard` (gt the shard's target
+    slice) every step runs eagerly and graph=True raises."""
+    graph = _sharded_graph(graph, shard)
+    state = graphs.run_fit(state, qat_plan(state, gt, cfg, draws, shard), gt.device,
+                           graph)
     return _reload_best(state) if reload_best else state
 
 

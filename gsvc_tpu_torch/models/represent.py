@@ -36,6 +36,11 @@ as features_dc * rgb_W with no activation.
 Random draws of `_revive` are injected: a step takes a `torch.Generator`
 or a callable n -> (u_xyz [n,2] in U(-1,1), u_chol [n,3], u_feat [n,3]),
 so parity tests feed both packages the same numbers.
+
+With a `TileShard`, a step renders only its rank's span of tile rows and
+all-reduces the loss, the squared error and the per-splat gradients over
+the shard's process group (parallel/sharded.py runs it); such a step runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gsvc_tpu_torch.config import FrameConfig
 from gsvc_tpu_torch.core import GaussianFrame, cholesky_bound, init_splats
@@ -64,6 +70,71 @@ from gsvc_tpu_torch.utils import graphs
 from gsvc_tpu_torch.utils.losses import loss_fn
 
 Draws = Union[None, torch.Generator, Callable[[int], tuple]]
+
+
+@dataclasses.dataclass(frozen=True)
+class TileShard:
+    """Image-space sharding context of a train step (gsvc_tpu's `TileShard`).
+
+    This rank is tile shard `index` of `num_shards` over the process group
+    `group` (torch.distributed; None: the default group): it renders tile
+    rows [index * rows_per, (index + 1) * rows_per) (`shard_tile_rows`) of
+    the frame against its slice of the target, and its loss, squared error
+    and per-splat gradients are its span's alone. `all_reduce` sums them
+    over the group after backward, outside autograd (the collective
+    counterpart of the reference backward's atomicAdd into shared
+    per-splat slots, backward.cu:843-858); a collective inside the
+    differentiated function would count the gradient once a rank, which
+    Adan's scale invariance would all but hide. Everything else (splat
+    control, early stopping, Adan, the draws) is replicated: every reduced
+    value holds the same bits on every rank (gloo's ring), so the ranks'
+    states stay bitwise equal."""
+
+    num_shards: int
+    index: int = 0
+    group: object = None
+
+    def all_reduce(self, *tensors: torch.Tensor) -> list:
+        """The tensors summed over the group: one all_reduce of their
+        concatenation."""
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, group=self.group)
+        out, i = [], 0
+        for t in tensors:
+            out.append(flat[i:i + t.numel()].view_as(t))
+            i += t.numel()
+        return out
+
+
+def shard_rows_per(cfg: FrameConfig, num_shards: int) -> int:
+    """Tile rows a shard: ceil, so every shard is equal-sized. When
+    num_shards does not divide the grid's rows (68 at 1920x1080 over 3
+    shards), the last shard's span reaches past the grid: the rasterizer
+    renders those rows empty and the loss masks them (`shard_valid_h`)."""
+    tb_y = cfg.tile_bounds[1]
+    if num_shards > tb_y:
+        raise ValueError(f"{num_shards} tile shards > {tb_y} tile rows at H={cfg.H}")
+    return -(-tb_y // num_shards)
+
+
+def shard_padded_height(cfg: FrameConfig, num_shards: int) -> int:
+    """Pixel rows the sharded target is zero-padded to, so that it splits
+    into equal whole-tile-row slices (1080 -> 1088 over 2 or 4 shards)."""
+    return shard_rows_per(cfg, num_shards) * num_shards * cfg.block_h
+
+
+def shard_tile_rows(cfg: FrameConfig, shard: TileShard) -> tuple:
+    """(row0, rows_per) of the shard's tile-row span."""
+    rows_per = shard_rows_per(cfg, shard.num_shards)
+    return shard.index * rows_per, rows_per
+
+
+def shard_valid_h(cfg: FrameConfig, shard: TileShard, row0: int):
+    """Valid pixel rows at the top of the shard's target slice (<= 0: none),
+    or None where the shards cover exactly cfg.H rows (no masking)."""
+    if shard_padded_height(cfg, shard.num_shards) == cfg.H:
+        return None
+    return cfg.H - row0 * cfg.block_h
 
 
 @dataclasses.dataclass
@@ -141,10 +212,11 @@ def _clip01(x: torch.Tensor) -> torch.Tensor:
 
 
 def _render(params: GaussianFrame, alive, cfg: FrameConfig, layout="image",
-            rgb_w_trainable=True) -> torch.Tensor:
+            rgb_w_trainable=True, tile_rows=None) -> torch.Tensor:
     """The differentiable model.forward(): render + clip to [0, 1]
     (GaussianSplats_Represent.py:83-90: opacity ones, colours
-    premultiplied by rgb_W, clip outside the rasterizer)."""
+    premultiplied by rgb_W, clip outside the rasterizer); `tile_rows` as in
+    `render_frame`."""
     colors = params.get_features if rgb_w_trainable else params.features_dc
     xys, depths, radii, conics, nth = project_gaussians_2d(
         params.get_xyz, params.get_cholesky_elements, cfg.H, cfg.W,
@@ -156,6 +228,7 @@ def _render(params: GaussianFrame, alive, cfg: FrameConfig, layout="image",
         xys, depths, radii, conics, nth, colors, opacity,
         cfg.H, cfg.W, cfg.block_h, cfg.block_w,
         backend=cfg.backend, max_intersects=cfg.max_intersects, layout=layout,
+        tile_rows=tile_rows,
     )
     return _clip01(img) if img.requires_grad else torch.clamp(img, 0.0, 1.0)
 
@@ -163,19 +236,21 @@ def _render(params: GaussianFrame, alive, cfg: FrameConfig, layout="image",
 @torch.no_grad()
 def render_frame(
     params: GaussianFrame, alive: torch.Tensor, cfg: FrameConfig,
-    rgb_w_trainable: bool = True, layout: str = "image",
+    rgb_w_trainable: bool = True, layout: str = "image", tile_rows=None,
 ) -> torch.Tensor:
     """model.forward(): [H, W, 3] ("image"), planar [3, H, W] ("chw") or
-    the tile-row blocks of `image_to_rows` ("rows")."""
-    return _render(params, alive, cfg, layout, rgb_w_trainable)
+    the tile-row blocks of `image_to_rows` ("rows"). tile_rows=(row0,
+    num_rows) renders only that span of the grid's tile rows (image
+    sharding, parallel/sharded.py; `ops.rasterize_gaussians_sum`)."""
+    return _render(params, alive, cfg, layout, rgb_w_trainable, tile_rows)
 
 
 @torch.no_grad()
 def render_frame_rows(params: GaussianFrame, alive: torch.Tensor,
-                      cfg: FrameConfig) -> torch.Tensor:
+                      cfg: FrameConfig, tile_rows=None) -> torch.Tensor:
     """model.forward() in the tile-row block layout (the clip commutes with
     the tiling, so tile-space clip is exact)."""
-    return _render(params, alive, cfg, "rows")
+    return _render(params, alive, cfg, "rows", tile_rows=tile_rows)
 
 
 @torch.no_grad()
@@ -230,18 +305,36 @@ def make_rows_target(gt: torch.Tensor, cfg: FrameConfig, valid_h=None):
 
 
 def _loss_and_psnr(params, alive, gt, cfg: FrameConfig, lambda_value,
-                   rows_target=None):
+                   rows_target=None, shard: Optional[TileShard] = None):
     """(loss, (sq_sum, render)): the differentiable loss, and the sum of
-    squared error the caller turns into PSNR (detached)."""
+    squared error the caller turns into PSNR (detached).
+
+    With `shard`, gt (and rows_target) are the shard's slice of the padded
+    target, and loss and sq_sum the shard's local terms: the caller reduces
+    them outside autograd (`TileShard`). Sharding takes the pointwise
+    losses (L2, L1): the structural ones need windows across shards."""
+    if shard is not None and cfg.loss_type not in ("L2", "L1"):
+        raise ValueError(f"tile-sharded training takes pointwise losses, got "
+                         f"{cfg.loss_type!r}")
     denom = cfg.H * cfg.W * 3
+    tile_rows = None if shard is None else shard_tile_rows(cfg, shard)
     if rows_target is not None:
-        rows = _render(params, alive, cfg, "rows")
+        rows = _render(params, alive, cfg, "rows", tile_rows=tile_rows)
         gt_rows, mask = rows_target
         diff = (rows - gt_rows) * mask  # mask zeroes tile-padding pixels
         sq = torch.sum(diff * diff)
         loss = sq if cfg.loss_type == "L2" else torch.sum(torch.abs(diff))
         return loss / denom, (sq.detach(), rows)
-    img = _render(params, alive, cfg)
+    img = _render(params, alive, cfg, tile_rows=tile_rows)
+    if shard is not None:
+        diff = img - gt
+        valid_h = shard_valid_h(cfg, shard, tile_rows[0])
+        if valid_h is not None:  # the padding rows of a ragged height
+            ridx = torch.arange(img.shape[0], device=img.device)[:, None, None]
+            diff = torch.where(ridx < valid_h, diff, 0.0)
+        sq = torch.sum(diff * diff)
+        loss = sq if cfg.loss_type == "L2" else torch.sum(torch.abs(diff))
+        return loss / denom, (sq.detach(), img)
     loss = loss_fn(img.permute(2, 0, 1), gt.permute(2, 0, 1), cfg.loss_type,
                    lambda_value=lambda_value)
     sq = torch.sum((img.detach() - gt) ** 2)
@@ -355,12 +448,17 @@ def _psnr(cfg: FrameConfig, sq: torch.Tensor) -> torch.Tensor:
 
 
 def _loss_and_grads(state: TrainState, gt, cfg: FrameConfig, lambda_value,
-                    rows_target):
+                    rows_target, shard: Optional[TileShard] = None):
+    """(loss, sq_sum, grads) of the step; with `shard`, summed over its
+    ranks after backward."""
     tr = _trainable(state.params)
     loss, (sq, _render_out) = _loss_and_psnr(
-        state.params, state.alive, gt, cfg, lambda_value, rows_target)
+        state.params, state.alive, gt, cfg, lambda_value, rows_target, shard)
     grads = torch.autograd.grad(loss, list(tr.values()))
-    return loss.detach(), sq, dict(zip(tr, grads))
+    loss = loss.detach()
+    if shard is not None:
+        loss, sq, *grads = shard.all_reduce(loss, sq, *grads)
+    return loss, sq, dict(zip(tr, grads))
 
 
 def control_step(it: int, cfg: FrameConfig) -> bool:
@@ -425,7 +523,7 @@ def intersection_budget(cfg: FrameConfig) -> int:
 
 
 def make_train_step(cfg: FrameConfig, lambda_value: float = 0.0,
-                    draws: Draws = None):
+                    draws: Draws = None, shard: Optional[TileShard] = None):
     """One reference train_iter: forward/loss/backward, splat control, Adan
     step, scheduler step, overflow check, early stopping.
 
@@ -434,7 +532,10 @@ def make_train_step(cfg: FrameConfig, lambda_value: float = 0.0,
     `rows_target` (make_rows_target, made once per frame) runs the loss in
     tile-row space. `twins` (`fit_twins`, made once a fit slice) holds the
     device copies of the host values the step reads; without them the step
-    makes its own for this one step."""
+    makes its own for this one step. With `shard` it is the same step on
+    the rank's tile-row span: gt and rows_target are the shard's slice
+    (`parallel.sharded.shard_target`), and the loss, squared error and
+    gradients are all-reduced before the control and Adan (`TileShard`)."""
     mi = intersection_budget(cfg)
 
     def step(state: TrainState, gt: torch.Tensor, rows_target=None,
@@ -442,7 +543,8 @@ def make_train_step(cfg: FrameConfig, lambda_value: float = 0.0,
         if twins is None:
             twins = fit_twins(state, state.it + 1, cfg)
         it = state.it + 1  # 1-based like the reference loop
-        loss, sq, grads = _loss_and_grads(state, gt, cfg, lambda_value, rows_target)
+        loss, sq, grads = _loss_and_grads(state, gt, cfg, lambda_value, rows_target,
+                                          shard)
         psnr = _psnr(cfg, sq)
 
         params, alive, opt = state.params, state.alive, state.opt
@@ -521,17 +623,25 @@ def fit_frame(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
     return FitResult(state=state, image=render_frame(state.params, state.alive, cfg))
 
 
-def _rows_target_for(gt: torch.Tensor, cfg: FrameConfig):
-    return make_rows_target(gt, cfg) if _use_rows_loss(cfg, gt.device) else None
+def _rows_target_for(gt: torch.Tensor, cfg: FrameConfig,
+                     shard: Optional[TileShard] = None):
+    """The rows loss's target on the kernel path (None elsewhere); with
+    `shard`, of the shard's target slice, its padding rows masked."""
+    if not _use_rows_loss(cfg, gt.device):
+        return None
+    valid_h = None if shard is None else shard_valid_h(
+        cfg, shard, shard_tile_rows(cfg, shard)[0])
+    return make_rows_target(gt, cfg, valid_h)
 
 
 def fit_plan(state: TrainState, gt: torch.Tensor, limit: int, cfg: FrameConfig,
-             lambda_value: float = 0.0, draws: Draws = None) -> graphs.FitPlan:
+             lambda_value: float = 0.0, draws: Draws = None,
+             shard: Optional[TileShard] = None) -> graphs.FitPlan:
     """The fit slice from state.it to `limit`: its runs (`plan_steps`), its
     step on the slice's twins and rows target, and the host fields after a
-    plain step."""
-    step = make_train_step(cfg, lambda_value, draws)
-    rows_target = _rows_target_for(gt, cfg)
+    plain step. With `shard`, gt is the shard's target slice."""
+    step = make_train_step(cfg, lambda_value, draws, shard)
+    rows_target = _rows_target_for(gt, cfg, shard)
     twins = fit_twins(state, limit, cfg)
     return graphs.FitPlan(plan_steps(state.it, limit, cfg),
                           lambda s: step(s, gt, rows_target, twins), _after_plain)
@@ -539,7 +649,8 @@ def fit_plan(state: TrainState, gt: torch.Tensor, limit: int, cfg: FrameConfig,
 
 def fit_frame_partial(state: TrainState, gt: torch.Tensor, limit: int,
                       cfg: FrameConfig, lambda_value: float = 0.0,
-                      draws: Draws = None, graph: Optional[bool] = None) -> TrainState:
+                      draws: Draws = None, graph: Optional[bool] = None,
+                      shard: Optional[TileShard] = None) -> TrainState:
     """Resumable slice of `fit_frame`: the same steps up to iteration
     min(limit, cfg.iterations) or the early stop. Chained slices with one
     `draws` generator equal one `fit_frame` bitwise, early stop included
@@ -547,7 +658,11 @@ def fit_frame_partial(state: TrainState, gt: torch.Tensor, limit: int,
 
     graph None (the default) runs the plain steps as CUDA-graph replays on
     a CUDA device (`utils.graphs.StepGraph`) and eagerly on the CPU; False
-    runs every step eagerly, with the same bits; True on the CPU raises."""
+    runs every step eagerly, with the same bits; True on the CPU raises.
+    With `shard` (gt the shard's target slice) every step runs eagerly: a
+    gloo collective cannot be captured in a CUDA graph, so graph=True
+    raises."""
+    graph = _sharded_graph(graph, shard)
     lim = min(int(limit), cfg.iterations)
     if bool(state.stop) or state.it >= lim:
         return state
@@ -561,8 +676,19 @@ def fit_frame_partial(state: TrainState, gt: torch.Tensor, limit: int,
             return p >= cfg.early_stop_patience
         return False
 
-    plan = fit_plan(state, gt, lim, cfg, lambda_value, draws)
+    plan = fit_plan(state, gt, lim, cfg, lambda_value, draws, shard)
     return graphs.run_fit(state, plan, gt.device, graph, stop)
+
+
+def _sharded_graph(graph: Optional[bool], shard) -> Optional[bool]:
+    """A fit's `graph` argument: unchanged unsharded; eager (False) for a
+    sharded fit, where graph=True raises."""
+    if shard is None:
+        return graph
+    if graph:
+        raise ValueError("a sharded fit runs eagerly: its all_reduce (gloo) cannot be "
+                         "captured in a CUDA graph")
+    return False
 
 
 def fit_frame_trace(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,

@@ -75,7 +75,11 @@ def rasterize_gaussians_sum(
     without an untile transpose. Differentiable on every backend.
 
     `depths` is accepted for API parity and ignored (the sum render is
-    order-independent). Quirks kept for parity with gsvc_tpu:
+    order-independent). tile_rows=(row0, num_rows) renders only tile rows
+    [row0, row0 + num_rows) of the grid, binned as the whole frame
+    (gsvc_tpu's image sharding; "cuda" and "torch" backends): "rows" holds
+    num_rows blocks, "image" / "chw" `rasterize_binned.span_height` pixel
+    rows, zero past the image. Quirks kept for parity with gsvc_tpu:
     - with zero intersections the image is `background` everywhere
       (rasterize_sum.py:121-129), though the normal path never composites
       background (forward.cu:621-624);
@@ -87,8 +91,6 @@ def rasterize_gaussians_sum(
         raise ValueError(f"unknown backend {backend!r}")
     if layout not in rasterize_cuda.LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
-    if tile_rows is not None:
-        raise NotImplementedError("tile_rows (image sharding) is not ported yet")
     c_dim = colors.shape[-1]
     if layout == "rows" and c_dim != 3:
         raise ValueError("layout='rows' holds exactly 3 channels")
@@ -114,6 +116,8 @@ def rasterize_gaussians_sum(
         backend = "torch"
 
     if backend == "dense":
+        if tile_rows is not None:
+            raise ValueError("tile_rows unsupported for the dense oracle")
         from gsvc_tpu_torch.ops.rasterize_dense import rasterize_gaussians_sum_dense
 
         img = rasterize_gaussians_sum_dense(
@@ -135,9 +139,10 @@ def rasterize_gaussians_sum(
         args = (binned, xys, conics, colors, opacity, img_height, img_width,
                 tile_bounds, BLOCK_W, BLOCK_H, TILE_CAP)
         if use_kernels:
-            img = rasterize_cuda.rasterize_sum(*args, layout=layout)
+            img = rasterize_cuda.rasterize_sum(*args, layout=layout, tile_rows=tile_rows)
         else:
-            img = rasterize_cuda.rasterize_forward_torch(*args, layout=layout)
+            img = rasterize_cuda.rasterize_forward_torch(*args, layout=layout,
+                                                         tile_rows=tile_rows)
 
     # zero-intersect fast path as an arithmetic select (no host sync)
     live = (total >= 1).to(img.dtype)

@@ -8,7 +8,7 @@ chunks of tiles. Serves any channel count C.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,6 +33,42 @@ def tile_lane_ids(binned: BinnedSplats, cap: int, n: int) -> torch.Tensor:
     return torch.where(k_range[None, :] < count, ids, n)
 
 
+def tile_span(tile_rows: Optional[Tuple[int, int]], tb_y: int) -> Tuple[int, int]:
+    """(row0, num_rows) of a render's tile-row span `tile_rows`, or the whole
+    grid (0, tb_y) for None (gsvc_tpu's `tile_rows`). A span may reach past
+    the grid's tb_y rows, as the last shards of a height that the shards do
+    not divide do: its tiles there are empty."""
+    if tile_rows is None:
+        return 0, tb_y
+    row0, num_rows = int(tile_rows[0]), int(tile_rows[1])
+    if row0 < 0 or num_rows < 1:
+        raise ValueError(f"tile_rows {tuple(tile_rows)}: want row0 >= 0, num_rows >= 1")
+    return row0, num_rows
+
+
+def span_height(tile_rows, tb_y: int, img_height: int, block_h: int = 16) -> int:
+    """Pixel rows of a render's image / chw output: img_height when the span
+    is all tb_y rows of the grid, else num_rows * block_h (gsvc_tpu's
+    `partial_shard`, rasterize_pallas.py:925-926). The pixels of a partial
+    span at or past img_height hold 0 in the port (gsvc_tpu renders the
+    splats there); a sharded loss masks them either way."""
+    _row0, num_rows = tile_span(tile_rows, tb_y)
+    return img_height if num_rows == tb_y else num_rows * block_h
+
+
+def span_lane_ids(binned: BinnedSplats, cap: int, n: int, tb_x: int, tb_y: int,
+                  tile_rows=None) -> torch.Tensor:
+    """`tile_lane_ids` of the span's num_rows * tb_x tiles, in span order:
+    a tile past the grid gets id n in every lane (no splat)."""
+    ids = tile_lane_ids(binned, cap, n)
+    row0, num_rows = tile_span(tile_rows, tb_y)
+    if (row0, num_rows) == (0, tb_y):
+        return ids
+    grid = (row0 * tb_x + torch.arange(num_rows * tb_x, device=ids.device)).clamp(
+        max=tb_x * tb_y)
+    return torch.cat([ids, ids.new_full((1, cap), n)])[grid]
+
+
 def zrow(a: torch.Tensor) -> torch.Tensor:
     """`a` with one zero row appended (index n)."""
     return torch.cat([a, torch.zeros((1,) + a.shape[1:], dtype=a.dtype, device=a.device)])
@@ -50,15 +86,23 @@ def rasterize_binned(
     block_w: int = 16,
     block_h: int = 16,
     cap: int = 256,
+    tile_rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """Render [H, W, C] from binned splats, TILE_CHUNK tiles at a time."""
+    """Render [H, W, C] from binned splats, TILE_CHUNK tiles at a time.
+
+    tile_rows=(row0, num_rows) renders only tile rows [row0, row0 +
+    num_rows) of the grid, in the grid's pixel coordinates (the binning
+    stays the whole frame's): [span_height, W, C], zero at pixel rows at
+    or past H (`span_height`)."""
     dev, dtype = xys.device, xys.dtype
     n = xys.shape[0]
     c_dim = colors.shape[-1]
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
-    num_tiles = tb_x * tb_y
+    row0, num_rows = tile_span(tile_rows, tb_y)
+    num_tiles = tb_x * num_rows
+    tile0 = row0 * tb_x
 
-    ids = tile_lane_ids(binned, cap, n)
+    ids = span_lane_ids(binned, cap, n, tb_x, tb_y, tile_rows)
     xys_p, conics_p = zrow(xys), zrow(conics)
     colors_p, opac_p = zrow(colors), zrow(opacity.reshape(-1))
 
@@ -67,7 +111,7 @@ def rasterize_binned(
     out = torch.empty((num_tiles, block_h * block_w, c_dim), dtype=dtype, device=dev)
     for t0 in range(0, num_tiles, TILE_CHUNK):
         t1 = min(t0 + TILE_CHUNK, num_tiles)
-        tids = torch.arange(t0, t1, device=dev)
+        tids = torch.arange(tile0 + t0, tile0 + t1, device=dev)  # grid tiles
         g = ids[t0:t1]  # [tc, cap]
         px = ((tids % tb_x) * block_w).to(dtype)[:, None] + local_x  # [tc, pix]
         py = ((tids // tb_x) * block_h).to(dtype)[:, None] + local_y
@@ -82,8 +126,13 @@ def rasterize_binned(
         w = torch.where((sigma >= 0.0) & (alpha >= ALPHA_CUTOFF), alpha, 0.0)
         out[t0:t1] = torch.einsum("tkc,tkp->tpc", colors_p[g], w)
     img = (
-        out.reshape(tb_y, tb_x, block_h, block_w, c_dim)
+        out.reshape(num_rows, tb_x, block_h, block_w, c_dim)
         .permute(0, 2, 1, 3, 4)
-        .reshape(tb_y * block_h, tb_x * block_w, c_dim)
+        .reshape(num_rows * block_h, tb_x * block_w, c_dim)
     )
-    return img[:img_height, :img_width]
+    out_h = span_height(tile_rows, tb_y, img_height, block_h)
+    img = img[:out_h, :img_width]
+    if row0 * block_h + out_h > img_height:  # a span's rows past the image
+        py = row0 * block_h + torch.arange(out_h, device=dev)[:, None, None]
+        img = torch.where(py < img_height, img, 0.0)
+    return img

@@ -45,6 +45,12 @@ exact zeros in their real slots. K3 then takes a segmented cumsum over the
 slots, and each splat's total is read at the last slot of its span.
 Deterministic: fixed order everywhere, no atomics.
 
+Every forward and K6 takes a tile-row span, `tile_rows=(row0, num_rows)`
+(gsvc_tpu's `row0_ref` scalar prefetch, for the tile-sharded trainer):
+only the span's tiles render or write their slots, in the grid's
+coordinates; a span's rows past the grid are empty. None is the whole
+grid, bitwise as before.
+
 Each kernel wrapper counts its launches (`<wrapper>.launches`). On a CPU
 tensor a wrapper runs its plain version; on a CUDA tensor it launches its
 kernel or raises.
@@ -64,7 +70,9 @@ from gsvc_tpu_torch.ops.binning import BinnedSplats
 from gsvc_tpu_torch.ops.rasterize_binned import (
     TILE_CHUNK,
     rasterize_binned,
-    tile_lane_ids,
+    span_height,
+    span_lane_ids,
+    tile_span,
     zrow,
 )
 from gsvc_tpu_torch.ops.rasterize_dense import ALPHA_CUTOFF
@@ -128,32 +136,34 @@ def rasterize_forward_torch(
     binned: BinnedSplats, xys, conics, colors, opacity,
     img_height: int, img_width: int, tile_bounds: Tuple[int, int, int],
     block_w: int = 16, block_h: int = 16, cap: int = 256,
-    layout: str = "image",
+    layout: str = "image", tile_rows=None,
 ) -> torch.Tensor:
-    """Plain version of K4/K5: the binned renderer in the chosen layout."""
+    """Plain version of K4/K5: the binned renderer in the chosen layout, over
+    the grid or the tile-row span `tile_rows` (`span_height` pixel rows in
+    "image" / "chw", num_rows blocks of rows in "rows")."""
     img = rasterize_binned(
         binned, xys, conics, colors, opacity, img_height, img_width,
-        tile_bounds, block_w, block_h, cap,
+        tile_bounds, block_w, block_h, cap, tile_rows,
     )
     if layout == "chw":
         return img.permute(2, 0, 1).contiguous()
     if layout == "rows":
-        return image_to_rows(img, int(tile_bounds[0]), int(tile_bounds[1]),
-                             block_w, block_h)
+        num_rows = tile_span(tile_rows, int(tile_bounds[1]))[1]
+        return image_to_rows(img, int(tile_bounds[0]), num_rows, block_w, block_h)
     return img
 
 
 def _forward_wrapper(layout: str, doc: str):
     def wrapper(binned, xys, conics, colors, opacity, img_height, img_width,
-                tile_bounds, block_w=16, block_h=16, cap=256):
+                tile_bounds, block_w=16, block_h=16, cap=256, tile_rows=None):
         if not xys.is_cuda:
             return rasterize_forward_torch(
                 binned, xys, conics, colors, opacity, img_height, img_width,
-                tile_bounds, block_w, block_h, cap, layout,
+                tile_bounds, block_w, block_h, cap, layout, tile_rows,
             )
         out = _launch_forward(binned, xys, conics, colors, opacity, img_height,
                               img_width, tile_bounds, block_w, block_h, cap,
-                              layout)
+                              layout, tile_rows)
         wrapper.launches += 1
         return out
 
@@ -163,10 +173,13 @@ def _forward_wrapper(layout: str, doc: str):
     return wrapper
 
 
-forward_image = _forward_wrapper("image", "K4: the sum render as [H, W, 3].")
-forward_chw = _forward_wrapper("chw", "K5: the sum render as planar [3, H, W].")
+forward_image = _forward_wrapper(
+    "image", "K4: the sum render as [H, W, 3] (a tile-row span: [span_height, W, 3]).")
+forward_chw = _forward_wrapper(
+    "chw", "K5: the sum render as planar [3, H, W] (a span: [3, span_height, W]).")
 forward_rows = _forward_wrapper(
-    "rows", "K4, rows store: the sum render as `image_to_rows` blocks.")
+    "rows", "K4, rows store: the sum render as `image_to_rows` blocks (a span's "
+    "num_rows blocks).")
 FORWARD = {"image": forward_image, "chw": forward_chw, "rows": forward_rows}
 
 
@@ -202,9 +215,11 @@ def check_inputs(what, binned, xys, conics, colors, opacity, tile_bounds,
 
 def _launch_forward(binned, xys, conics, colors, opacity, img_height,
                     img_width, tile_bounds, block_w, block_h, cap,
-                    layout) -> torch.Tensor:
+                    layout, tile_rows) -> torch.Tensor:
     dev = xys.device
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
+    row0, num_rows = tile_span(tile_rows, tb_y)
+    out_h = span_height(tile_rows, tb_y, img_height, block_h)
     f32 = check_inputs("rasterize_forward", binned, xys, conics, colors,
                        opacity, tile_bounds, block_w, block_h, cap)
     i32 = [t.contiguous() for t in (binned.tile_bin_start, binned.tile_counts,
@@ -213,20 +228,19 @@ def _launch_forward(binned, xys, conics, colors, opacity, img_height,
     if layout == "rows":
         # the kernel writes every pixel of every tile; only the padding rows
         # past 3*tb_x (none when 3*tb_x is a multiple of 8) need the fill
-        shape = (tb_y * r_out, block_h * block_w)
+        shape = (num_rows * r_out, block_h * block_w)
         alloc = torch.empty if r_out == 3 * tb_x else torch.zeros
         out = alloc(shape, dtype=torch.float32, device=dev)
     else:
-        shape = (3, img_height, img_width) if layout == "chw" else (
-            img_height, img_width, 3)
+        shape = (3, out_h, img_width) if layout == "chw" else (out_h, img_width, 3)
         out = torch.empty(shape, dtype=torch.float32, device=dev)
-    grid = forward_grid(tb_x * tb_y, sm_count(dev))
+    grid = forward_grid(tb_x * num_rows, sm_count(dev))
     lib = _fwd_lib()
     with torch.cuda.device(dev):
         rc = lib.rasterize_forward(
             *(_build.ptr(t) for t in i32 + f32), xys.shape[0], img_height,
-            img_width, tb_x, tb_y, cap, _LAYOUT_ID[layout], r_out, grid,
-            _build.ptr(out), _build.stream_ptr(dev),
+            img_width, tb_x, tb_y, row0, num_rows, out_h, cap, _LAYOUT_ID[layout],
+            r_out, grid, _build.ptr(out), _build.stream_ptr(dev),
         )
     _build.check(lib, rc, "rasterize_forward")
     return out
@@ -243,7 +257,7 @@ def _fwd_lib() -> ctypes.CDLL:
     if not getattr(lib, "_gsvc_bound", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.rasterize_forward.restype = i32
-        lib.rasterize_forward.argtypes = [vp] * 7 + [i32] * 9 + [vp, vp]
+        lib.rasterize_forward.argtypes = [vp] * 7 + [i32] * 12 + [vp, vp]
         lib._gsvc_bound = True
     return lib
 
@@ -267,43 +281,49 @@ def lane_slots(binned: BinnedSplats, ids: torch.Tensor, tiles: torch.Tensor,
 
 def grad_tiles(v_out: torch.Tensor, layout: str, img_height: int,
                img_width: int, tb_x: int, tb_y: int, block_w: int,
-               block_h: int) -> torch.Tensor:
-    """The image gradient in any layout -> [T, pix, 3] per tile, zero past
-    the image edge (the forward writes constants there)."""
+               block_h: int, tile_rows=None) -> torch.Tensor:
+    """The image gradient in any layout, over the grid or the tile-row span
+    `tile_rows` (the forward's shapes) -> [span tiles, pix, 3] per tile, zero
+    past the image edge (the forward writes constants there)."""
+    row0, num_rows = tile_span(tile_rows, tb_y)
+    out_h = span_height(tile_rows, tb_y, img_height, block_h)
     if layout == "rows":
-        v_out = rows_to_image(v_out, tb_x, tb_y, img_height, img_width,
-                              block_w, block_h)
+        v_out = rows_to_image(v_out, tb_x, num_rows, out_h, img_width, block_w, block_h)
     elif layout == "chw":
         v_out = v_out.permute(1, 2, 0)
+    valid = min(out_h, max(img_height - row0 * block_h, 0))  # rows inside the image
     g = torch.nn.functional.pad(
-        v_out, (0, 0, 0, tb_x * block_w - img_width, 0, tb_y * block_h - img_height))
-    g = g.reshape(tb_y, block_h, tb_x, block_w, 3).permute(0, 2, 1, 3, 4)
-    return g.reshape(tb_x * tb_y, block_h * block_w, 3)
+        v_out[:valid], (0, 0, 0, tb_x * block_w - img_width, 0, num_rows * block_h - valid))
+    g = g.reshape(num_rows, block_h, tb_x, block_w, 3).permute(0, 2, 1, 3, 4)
+    return g.reshape(tb_x * num_rows, block_h * block_w, 3)
 
 
 def rasterize_backward_torch(
     binned: BinnedSplats, xys, conics, colors, opacity, v_out,
     img_height: int, img_width: int, tile_bounds: Tuple[int, int, int],
     block_w: int = 16, block_h: int = 16, cap: int = 256,
-    layout: str = "image",
+    layout: str = "image", tile_rows=None,
 ) -> torch.Tensor:
     """Plain version of K6: per-slot gradients [9, S] (rows x y c1 c2 c3
     opac r g b, columns the expansion slots; zero where no lane wrote), in
-    chunks of TILE_CHUNK tiles of dense [tiles, cap, pixels] math."""
+    chunks of TILE_CHUNK tiles of dense [tiles, cap, pixels] math. With
+    `tile_rows`, v_out covers that span (the forward's shapes) and only its
+    tiles' lanes write."""
     dev, dtype = xys.device, torch.float32
     n = xys.shape[0]
     s = binned.sorted_gauss_ids.shape[0]
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
-    num_tiles = tb_x * tb_y
+    row0, num_rows = tile_span(tile_rows, tb_y)
+    num_tiles = tb_x * num_rows
     vt = grad_tiles(v_out.to(dtype), layout, img_height, img_width, tb_x,
-                    tb_y, block_w, block_h)
+                    tb_y, block_w, block_h, tile_rows)
 
-    ids = tile_lane_ids(binned, cap, n)  # [T, cap]
+    ids = span_lane_ids(binned, cap, n, tb_x, tb_y, tile_rows)  # [span tiles, cap]
     splats = padded_splats(xys, conics, colors, opacity)
     out = torch.zeros((GRAD_FIELDS, s + 1), dtype=dtype, device=dev)
     for t0 in range(0, num_tiles, TILE_CHUNK):
         t1 = min(t0 + TILE_CHUNK, num_tiles)
-        tids = torch.arange(t0, t1, device=dev)
+        tids = torch.arange(row0 * tb_x + t0, row0 * tb_x + t1, device=dev)  # grid tiles
         g = ids[t0:t1]  # [tc, cap]
         grads = lane_grads(g, tids, vt[t0:t1], splats, tb_x, block_w, block_h)
         slots = lane_slots(binned, g, tids, tb_x, n)
@@ -355,21 +375,24 @@ def lane_grads(g, tids, v, splats, tb_x: int, block_w: int = 16,
 
 def backward_slots(binned, xys, conics, colors, opacity, v_out, img_height,
                    img_width, tile_bounds, block_w=16, block_h=16, cap=256,
-                   layout="image"):
-    """K6: the image gradient `v_out` (in `layout`) -> per-slot gradients
-    [9, S], zero in every slot no lane below the cap owns."""
+                   layout="image", tile_rows=None):
+    """K6: the image gradient `v_out` (in `layout`; over the tile-row span
+    `tile_rows`, in the forward's span shapes) -> per-slot gradients [9, S],
+    zero in every slot no lane below the cap of the span's tiles owns."""
     if not xys.is_cuda:
         return rasterize_backward_torch(
             binned, xys, conics, colors, opacity, v_out, img_height,
-            img_width, tile_bounds, block_w, block_h, cap, layout,
+            img_width, tile_bounds, block_w, block_h, cap, layout, tile_rows,
         )
     dev = xys.device
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
+    row0, num_rows = tile_span(tile_rows, tb_y)
+    out_h = span_height(tile_rows, tb_y, img_height, block_h)
     f32 = check_inputs("rasterize_backward", binned, xys, conics, colors,
                        opacity, tile_bounds, block_w, block_h, cap)
     r_out = round8(3 * tb_x)
-    want = {"image": (img_height, img_width, 3), "chw": (3, img_height, img_width),
-            "rows": (tb_y * r_out, block_h * block_w)}[layout]
+    want = {"image": (out_h, img_width, 3), "chw": (3, out_h, img_width),
+            "rows": (num_rows * r_out, block_h * block_w)}[layout]
     if v_out.dtype != torch.float32 or tuple(v_out.shape) != want or v_out.device != dev:
         raise ValueError(f"rasterize_backward: v_out must be float32 {want} on "
                          f"{dev}, got {v_out.dtype} {tuple(v_out.shape)}")
@@ -385,8 +408,8 @@ def backward_slots(binned, xys, conics, colors, opacity, v_out, img_height,
     with torch.cuda.device(dev):
         rc = lib.rasterize_backward(
             *(_build.ptr(t) for t in i32 + f32), _build.ptr(v), xys.shape[0],
-            img_height, img_width, tb_x, tb_y, cap, _LAYOUT_ID[layout], r_out, s,
-            _build.ptr(out), _build.stream_ptr(dev),
+            img_height, img_width, tb_x, tb_y, row0, num_rows, out_h, cap,
+            _LAYOUT_ID[layout], r_out, s, _build.ptr(out), _build.stream_ptr(dev),
         )
     _build.check(lib, rc, "rasterize_backward")
     backward_slots.launches += 1
@@ -401,7 +424,7 @@ def _bwd_lib() -> ctypes.CDLL:
     if not getattr(lib, "_gsvc_bound", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.rasterize_backward.restype = i32
-        lib.rasterize_backward.argtypes = [vp] * 10 + [i32] * 8 + [i64, vp, vp]
+        lib.rasterize_backward.argtypes = [vp] * 10 + [i32] * 11 + [i64, vp, vp]
         lib._gsvc_bound = True
     return lib
 
@@ -439,13 +462,14 @@ class RasterizeSum(torch.autograd.Function):
 
     Forward: K4 / K5 / K4-rows by layout. Backward: K6 into the slots,
     then the K3 reduction. Saves the inputs and the binning; the forward's
-    per-lane data is not kept (K6 gathers it again)."""
+    per-lane data is not kept (K6 gathers it again). `tile_rows` renders
+    a tile-row span, whose gradient reaches only the span's lanes."""
 
     @staticmethod
-    def forward(ctx, xys, conics, colors, opacity, binned, geom, layout):
-        out = FORWARD[layout](binned, xys, conics, colors, opacity, *geom)
+    def forward(ctx, xys, conics, colors, opacity, binned, geom, layout, tile_rows):
+        out = FORWARD[layout](binned, xys, conics, colors, opacity, *geom, tile_rows)
         ctx.save_for_backward(xys, conics, colors, opacity, *binned)
-        ctx.geom, ctx.layout = geom, layout
+        ctx.geom, ctx.layout, ctx.tile_rows = geom, layout, tile_rows
         return out
 
     @staticmethod
@@ -453,26 +477,29 @@ class RasterizeSum(torch.autograd.Function):
         xys, conics, colors, opacity, *b = ctx.saved_tensors
         need = ctx.needs_input_grad[:4]
         if not any(need):
-            return (None,) * 7
+            return (None,) * 8
         binned = BinnedSplats(*b)
         vslots = backward_slots(binned, xys, conics, colors, opacity,
-                                v_out.contiguous(), *ctx.geom, ctx.layout)
+                                v_out.contiguous(), *ctx.geom, ctx.layout, ctx.tile_rows)
         grads = reduce_slot_grads(vslots, binned.gauss_slot_start)
         grads = [g.reshape(t.shape).to(t.dtype) if nd else None
                  for g, t, nd in zip(grads, (xys, conics, colors, opacity), need)]
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def rasterize_sum(binned: BinnedSplats, xys, conics, colors, opacity,
                   img_height: int, img_width: int,
                   tile_bounds: Tuple[int, int, int], block_w: int = 16,
-                  block_h: int = 16, cap: int = 256, layout: str = "image"):
-    """Differentiable sum render through the kernel wrappers."""
+                  block_h: int = 16, cap: int = 256, layout: str = "image",
+                  tile_rows=None):
+    """Differentiable sum render through the kernel wrappers, over the grid
+    or the tile-row span `tile_rows` (`span_height`)."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
     geom = (img_height, img_width, tuple(tile_bounds), block_w, block_h, cap)
     if not (torch.is_grad_enabled() and any(
             t.requires_grad for t in (xys, conics, colors, opacity))):
         # an eval render: no autograd node, no saved tensors
-        return FORWARD[layout](binned, xys, conics, colors, opacity, *geom)
-    return RasterizeSum.apply(xys, conics, colors, opacity, binned, geom, layout)
+        return FORWARD[layout](binned, xys, conics, colors, opacity, *geom, tile_rows)
+    return RasterizeSum.apply(xys, conics, colors, opacity, binned, geom, layout,
+                              tile_rows)

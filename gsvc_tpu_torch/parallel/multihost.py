@@ -5,16 +5,17 @@ Frames between two K-frames form a dependent chain (P-frames warm-start
 from frame t-1), and the chains (GOPs, [K_i, K_{i+1})) are independent. The
 single-host represent driver iterates GOPs through `gop_spans`;
 `assign_gops` and `assign_frames` are the multi-host schedules of the JAX
-package, kept equal to it. Running several hosts (the barrier and the
-artifact merge) is not ported: the drivers refuse `--hosts > 1`.
+package, kept equal to it. Running several hosts (`initialize`, the
+barrier and the artifact merges) is not ported: the CLIs refuse
+`--hosts > 1`. Several ranks on one host are `parallel.sharded`.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
 
-NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 3: the sharded "
-              "trainer, then multi-host)")
+NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 3, multi-host: "
+              "parallel/multihost.py's initialize, barrier and artifact merges)")
 
 
 def gop_spans(k_frames: Sequence[int], num_frames: int) -> List[List[int]]:

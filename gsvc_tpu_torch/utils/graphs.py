@@ -160,6 +160,11 @@ def kernel_counters() -> tuple:
             rasterize_cuda.backward_slots)
 
 
+def launch_counts() -> dict:
+    """{kernel wrapper name: launches} of `kernel_counters` in this process."""
+    return {c.__name__: c.launches for c in kernel_counters()}
+
+
 class Eager:
     """Runs each plain step as it comes (the CPU, or graph=False)."""
 

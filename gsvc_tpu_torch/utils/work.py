@@ -7,7 +7,9 @@ A scene `sc` is a `scripts.common.Scene` (its H, W, n, tb, budget,
 binned splats and projected xys, conics, opacity). (pixel, lane) pairs
 are 256 x the sum over tiles of min(count, 256); those past the alpha
 gate (`gated_pairs`) do the gated part of a kernel's work, so an
-operation count is (every pair, each gated pair) ops a pair.
+operation count is (every pair, each gated pair) ops a pair. With
+`tile_rows` (row0, num_rows) a count covers the tiles of that span of
+tile rows only (the tile-sharded trainer's launches, `span_work`).
 """
 
 from __future__ import annotations
@@ -15,7 +17,13 @@ from __future__ import annotations
 import torch
 
 from gsvc_tpu_torch.ops.fill_cuda import key_layout
-from gsvc_tpu_torch.ops.rasterize_binned import TILE_CHUNK, tile_lane_ids, zrow
+from gsvc_tpu_torch.ops.rasterize_binned import (
+    TILE_CHUNK,
+    span_height,
+    tile_lane_ids,
+    tile_span,
+    zrow,
+)
 from gsvc_tpu_torch.ops.rasterize_dense import ALPHA_CUTOFF
 
 LOG2E = 1.4426950408889634
@@ -42,11 +50,18 @@ E_OPS = 14
 K1_OPS, K2_OPS, K3_OPS = 6, 6, 2
 
 
+def _span_tiles(tile_bounds, tile_rows) -> range:
+    """The grid tiles of a span of tile rows (the whole grid for None)."""
+    tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
+    row0, num_rows = tile_span(tile_rows, tb_y)
+    return range(min(row0 * tb_x, tb_x * tb_y), min((row0 + num_rows) * tb_x, tb_x * tb_y))
+
+
 def lane_weights(variant, binned, xys, conics, opacity, tile_bounds, block_w=16,
-                 block_h=16, cap=256):
+                 block_h=16, cap=256, tile_rows=None):
     """Yield (t0, t1, ids [tc, cap], w [tc, cap, pix]) over chunks of
-    TILE_CHUNK tiles: each lane's alpha weight at each pixel (0 where the
-    gate fails) under a K4 variant (`K4_OPS`' keys)."""
+    TILE_CHUNK tiles (of the span `tile_rows`): each lane's alpha weight at
+    each pixel (0 where the gate fails) under a K4 variant (`K4_OPS`' keys)."""
     if variant not in K4_OPS:
         raise ValueError(f"unknown variant {variant!r}; one of {tuple(K4_OPS)}")
     dev, dtype = xys.device, torch.float32
@@ -59,8 +74,9 @@ def lane_weights(variant, binned, xys, conics, opacity, tile_bounds, block_w=16,
         conics_p = conics_p * LOG2E
     local_y = torch.arange(block_h, dtype=dtype, device=dev).repeat_interleave(block_w)
     local_x = torch.arange(block_w, dtype=dtype, device=dev).repeat(block_h)
-    for t0 in range(0, tb_x * tb_y, TILE_CHUNK):
-        t1 = min(t0 + TILE_CHUNK, tb_x * tb_y)
+    tiles = _span_tiles(tile_bounds, tile_rows)
+    for t0 in range(tiles.start, tiles.stop, TILE_CHUNK):
+        t1 = min(t0 + TILE_CHUNK, tiles.stop)
         tids = torch.arange(t0, t1, device=dev)
         g = ids[t0:t1]
         ox = ((tids % tb_x) * block_w).to(dtype)[:, None, None]
@@ -84,40 +100,55 @@ def lane_weights(variant, binned, xys, conics, opacity, tile_bounds, block_w=16,
         yield t0, t1, g, torch.where((sigma >= 0.0) & (alpha >= ALPHA_CUTOFF), alpha, 0.0)
 
 
-def gated_pairs(sc, variant: str = "full") -> int:
+def gated_pairs(sc, variant: str = "full", tile_rows=None) -> int:
     """(pixel, lane) pairs of the scene that pass the alpha gate under a K4
     variant: the data-dependent part of an operation count."""
     return sum(int((w > 0).sum()) for _t0, _t1, _g, w in lane_weights(
-        variant, sc.binned, sc.xys, sc.conics, sc.opacity, sc.tb))
+        variant, sc.binned, sc.xys, sc.conics, sc.opacity, sc.tb, tile_rows=tile_rows))
 
 
-def lanes(sc) -> int:
+def lanes(sc, tile_rows=None) -> int:
     """Lanes the kernels render: sum over tiles of min(count, 256)."""
-    return int(torch.clamp(sc.binned.tile_counts, max=256).sum())
+    tiles = _span_tiles(sc.tb, tile_rows)
+    return int(torch.clamp(sc.binned.tile_counts[tiles.start:tiles.stop], max=256).sum())
 
 
-def pairs(sc) -> int:
+def pairs(sc, tile_rows=None) -> int:
     """(pixel, lane) pairs of the forward and backward kernels."""
-    return 256 * lanes(sc)
+    return 256 * lanes(sc, tile_rows)
 
 
-def rows_bytes(sc) -> int:
+def rows_bytes(sc, tile_rows=None) -> int:
     """Bytes of one float32 buffer in K4's rows layout."""
-    return 4 * sc.tb[1] * ((3 * sc.tb[0] + 7) // 8 * 8) * 256
+    num_rows = tile_span(tile_rows, sc.tb[1])[1]
+    return 4 * num_rows * ((3 * sc.tb[0] + 7) // 8 * 8) * 256
 
 
-def forward_bytes(sc, layout: str) -> int:
+def splats_read(sc, tile_rows=None) -> int:
+    """Splats the render must read: all n for the grid, the distinct ones
+    of the span's lanes for a span."""
+    if tile_rows is None:
+        return sc.n
+    tiles = _span_tiles(sc.tb, tile_rows)
+    ids = tile_lane_ids(sc.binned, 256, sc.n)[tiles.start:tiles.stop]
+    return int(torch.unique(ids[ids < sc.n]).numel())
+
+
+def forward_bytes(sc, layout: str, tile_rows=None) -> int:
     """Bytes a forward render must move: the tile starts and counts, the
-    used lane ids, 9 floats a splat, the image in `layout`."""
-    out = rows_bytes(sc) if layout == "rows" else 12 * sc.H * sc.W
-    return 8 * sc.tb[0] * sc.tb[1] + 4 * lanes(sc) + 36 * sc.n + out
+    used lane ids, 9 floats a splat, the image in `layout` (of the span)."""
+    tiles = len(_span_tiles(sc.tb, tile_rows))
+    out = (rows_bytes(sc, tile_rows) if layout == "rows"
+           else 12 * span_height(tile_rows, sc.tb[1], sc.H) * sc.W)
+    return 8 * tiles + 4 * lanes(sc, tile_rows) + 36 * splats_read(sc, tile_rows) + out
 
 
-def backward_bytes(sc) -> int:
+def backward_bytes(sc, tile_rows=None) -> int:
     """Bytes K6's function must move: the forward's inputs, each splat's
     slot start and bbox, the rows image gradient, the [9, S] slots."""
-    return (8 * sc.tb[0] * sc.tb[1] + 4 * lanes(sc) + 44 * sc.n + 4
-            + rows_bytes(sc) + 36 * sc.budget)
+    tiles = len(_span_tiles(sc.tb, tile_rows))
+    return (8 * tiles + 4 * lanes(sc, tile_rows) + 44 * splats_read(sc, tile_rows) + 4
+            + rows_bytes(sc, tile_rows) + 36 * sc.budget)
 
 
 def key_bytes(sc) -> int:
@@ -153,6 +184,19 @@ def kernel_work(sc, valid: int, k3_rows: int) -> dict:
         "K4 forward rows": (forward_bytes(sc, "rows"), fwd_ops),
         "K5 forward chw": (forward_bytes(sc, "chw"), fwd_ops),
         "K6 backward": (backward_bytes(sc), K6_OPS[0] * every + K6_OPS[1] * valid),
+    }
+
+
+def span_work(sc, valid: int, tile_rows) -> dict:
+    """{kernel: (bytes, operations)} of K4 rows, K4 image, K5 and K6 over the
+    span `tile_rows` of the scene, `valid` of its pairs past the gate."""
+    every = pairs(sc, tile_rows)
+    fwd_ops = K4_OPS["full"][0] * every + K4_OPS["full"][1] * valid
+    return {
+        "K4 forward rows": (forward_bytes(sc, "rows", tile_rows), fwd_ops),
+        "K4 forward image": (forward_bytes(sc, "image", tile_rows), fwd_ops),
+        "K5 forward chw": (forward_bytes(sc, "chw", tile_rows), fwd_ops),
+        "K6 backward": (backward_bytes(sc, tile_rows), K6_OPS[0] * every + K6_OPS[1] * valid),
     }
 
 

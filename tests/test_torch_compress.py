@@ -33,6 +33,7 @@ from gsvc_tpu_torch.compress import bitstream, quantizers as q
 from gsvc_tpu_torch.config import FrameConfig
 from gsvc_tpu_torch.core import compress_state_from_numpy
 from gsvc_tpu_torch.models import compress as comp
+from gsvc_tpu_torch.models.represent import TileShard
 
 H, W, N = 32, 48, 60
 BASE = dict(H=H, W=W, num_points=N, max_num_points=N, iterations=4, lr=1e-3)
@@ -288,10 +289,18 @@ def test_delta_mode_refuses_a_splat_count_mismatch():
 
 
 def test_sharding_arguments_are_refused():
-    cfg = FrameConfig(**BASE)
-    with pytest.raises(NotImplementedError):
-        comp.make_train_step_quantize(cfg, shard=object())
+    """`shard` and `tile_rows` are taken (the tile-sharded trainer,
+    tests/test_torch_sharded.py runs them on ranks); gsvc_tpu's error
+    stays: more shards than the frame's tile rows raise ValueError."""
+    cfg = FrameConfig(**BASE)  # H = 32: two tile rows
     state = comp.init_compress_state(_gmodels(7, False)[0])
-    with pytest.raises(NotImplementedError):
-        comp.forward_quantize(state.params, state.vq, state.p_xyz, state.p_cholesky,
-                              state.p_features_dc, cfg, False, tile_rows=(0, 1))
+    args = (state.params, state.vq, state.p_xyz, state.p_cholesky, state.p_features_dc, cfg,
+            False)
+    span = comp.forward_quantize(*args, tile_rows=(1, 1))[0]
+    assert span.shape == (16, W, 3)
+    np.testing.assert_allclose(span.numpy(), comp.forward_quantize(*args)[0][16:].numpy(),
+                               rtol=0, atol=1e-6)
+    assert callable(comp.make_train_step_quantize(cfg, shard=TileShard(2, 1)))
+    too_many = comp.make_train_step_quantize(cfg, shard=TileShard(3, 0))
+    with pytest.raises(ValueError, match="3 tile shards > 2 tile rows"):
+        too_many(state, torch.from_numpy(_gt())[:16])

@@ -365,11 +365,17 @@ def test_represent_compress_decode_clis(tmp_path):
     assert set(enc) == set(dec) == {1, 2, 3}
     for f in enc:
         assert abs(dec[f] - enc[f]) < 0.1, (f, dec[f], enc[f])
-    # the multi-chip modes are refused, never run on one device
+    # multi-host is refused, never run on one host; --tile_shards 2 runs
+    # (two spawned ranks; tests/test_torch_sharded.py holds its results)
     for main in (drv.main, cdrv.main):
-        for extra in (["--tile_shards", "2"], ["--hosts", "2"]):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-                main(common + ["--model_path", str(npz)] + extra)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3, multi-host"):
+            main(common + ["--model_path", str(npz), "--hosts", "2"])
+    sharded = tmp_path / "sharded"
+    assert cdrv.main(common + ["--iterations", "20", "--model_path", str(npz),
+                               "--k_frames_dir", str(ckpt), "--checkpoint_dir", str(sharded),
+                               "--tile_shards", "2"]) == 0
+    assert _psnrs((sharded / "result/synth/GaussianVideo_20_40/train.txt").read_text()).keys() \
+        == {1, 2, 3}
 
 
 def drv_has_cv2():
