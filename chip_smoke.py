@@ -121,16 +121,40 @@ the first fault:
    (main()): every CLI returns 0, the sharded CLIs
    write the unsharded ones' files (rank 0 alone writes), each decoded
    PSNR within 0.1 dB of its compress PSNR and the sharded and unsharded
-   PSNR a frame within 0.1 dB; prints bpp, PSNR and seconds a frame.
+   PSNR a frame within 0.1 dB; prints bpp, PSNR and seconds a frame;
+11. multi-host GOP parallelism (`parallel/multihost.py`, `--hosts N`): the
+   intersection budget first: K3 over the same lanes padded to longer rows
+   (measured: its sums move with the length, which is why each GOP starts
+   from the default budget), and phase 4's fit at two budgets that both
+   hold it (checked: bitwise equal); then the represent CLI on phase 6's
+   clip at --budget_factor MH_OVER_FACTOR, MH_OVER_ITERS its, as one host
+   process and as MH_HOSTS (checked: both runs drop the same fits for
+   overflowing their budget, and each GOP's first dropped fit overflowed
+   the starting budget, so the single host started GOP 2 from it again
+   after GOP 1 had raised it; the split bitwise the single host's); then
+   phase 6's
+   clip with its K-frames pinned to 1 and 3 (two GOPs), --is_rm --is_ad at
+   MH_ITERS its (where K- and P-frames keep the count the delta compress
+   needs), through the represent CLI as one host process and as MH_HOSTS
+   host processes sharing the card, their barriers a torch.distributed
+   gloo group (GSVC_COORDINATOR on 127.0.0.1; `scripts.
+   measure_multihost_scaling.run_hosts`), then the compress CLI (QAT_ITERS)
+   at --hosts 1 and at --hosts MH_HOSTS with file markers, worker first
+   (each host its main()), then the decoder on the merged streams. It fails
+   unless every host returns 0, each claimed a GOP, the merged checkpoints,
+   num_gaussian_points.txt, the timing-stripped Frame_ lines and every
+   frame_N.gsvc equal the single host's bitwise (`artifact_differences`),
+   every frame decodes within 0.0001 dB of the encoder's PSNR and each host
+   process launched K1-K6; prints the wall time of each run.
 
 Around each of phases 3 and 4, around each CLI of phase 6, around the
-mains of phase 7, around each point of phases 8 and 9 and around each of
-phase 10's fits and CLIs (in each rank), every launch counter is zeroed
-just before and read just after; each kernel of that path must have
-launched. The kernels' JSON reports phase 6's counts for
-K1-K6, those of phase 9's point on the same grid for K1 and K2 on wide
-keys (1080p: int32, 4K UHD: int64), phase 7's for the harnesses'
-kernels and phase 10b's (rank 0) for K4 rows / image and K6 at the
+mains of phase 7, around each point of phases 8 and 9, around each of
+phase 10's fits and CLIs (in each rank) and around each host of phase 11,
+every launch counter is zeroed just before and read just after (a host
+process starts at 0); each kernel of that path must have launched. The
+kernels' JSON reports phase 6's counts for K1-K6, those of phase 9's
+point on the same grid for K1 and K2 on wide keys (1080p: int32, 4K UHD:
+int64), phase 7's for the harnesses' kernels and phase 10b's (rank 0) for K4 rows / image and K6 at the
 2-shard span, and each kernel's bound (`utils.work`,
 `utils.profiling.roofline_ms`) and library call (null where no single
 PyTorch call computes the same function; for K2, the `searchsorted` of its
@@ -151,6 +175,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -170,6 +195,12 @@ RD_N, RD_FRAMES = 20000, 3  # phase 8's RD point
 SHARD_RANKS, SPAN_SHARDS = 2, (2, 3, 4)
 SHARD_QAT_ITERS, SHARD_CLI_FRAMES, SHARD_CLI_ITERS = 300, 2, 1000
 PSNR_TOL_DB = 0.05  # a sharded fit against the single-process one
+# phase 11: the hosts sharing the card, and the represent its of its clip
+MH_HOSTS, MH_ITERS = 2, 4000
+# and its represent run that overflows its starting budget in each GOP
+# (max(2 N, 4 tiles) = 32,768 at 1080p/10k: in 500 its the K-frames stay
+# under it, the --is_ad P-frames pass it)
+MH_OVER_FACTOR, MH_OVER_ITERS = 2, 500
 # phases 2, 5 and 9: splats past 65,535, whose keys have a 17-bit gauss
 # field (int32 at 1080p, int64 at 4K UHD), phase 9's frames at each grid,
 # and the small cap phase 2 also holds K2 to on those keys
@@ -1009,6 +1040,181 @@ def sharded_cli_phase(torch, smi, counters, clip, tmp: Path, device: str = "cuda
                   f"{dec[f]['PSNR']:.4f}" for f in frames))
 
 
+def multihost_phase(torch, smi, counters, clip, gt, tmp: Path) -> None:
+    """Phase 11: the budget's effect on K3 (measured) and on a fit, then
+    phase 6's clip through the represent CLI on one host and on MH_HOSTS
+    host processes, first with K-frames that overflow their budget, the
+    compress CLI on one and on MH_HOSTS hosts run one after the other, and
+    the decoder on the merged streams; checked as the module docstring
+    says."""
+    import os
+
+    from gsvc_tpu_torch import decode as decode_cli
+    from gsvc_tpu_torch.config import FrameConfig
+    from gsvc_tpu_torch.drivers import compress as compress_cli
+    from gsvc_tpu_torch.models.represent import fit_frame, init_train_state, intersection_budget
+    from gsvc_tpu_torch.ops import fill_cuda
+    from gsvc_tpu_torch.ops.binning import default_max_intersects
+    from gsvc_tpu_torch.scripts import measure_multihost_scaling as mhs
+    from gsvc_tpu_torch.scripts.encoder_drift import QAT_ITERS, train_lines, write_yuv
+
+    dev = gt.device
+    need = ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
+            "segmented_cumsum", "forward_chw") if dev.type == "cuda" else ()  # CPU: none
+    # the budget sets the length of K3's scan: the same lanes (segments of up
+    # to 700) padded to longer rows, and a fit whose budgets both hold it
+    s1 = 163840
+    vals = torch.randn((9, s1), device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    lens = torch.randint(1, 700, (s1,), generator=torch.Generator().manual_seed(1))
+    flags = torch.zeros(s1, dtype=torch.int32, device=dev)
+    starts = torch.cumsum(lens, 0)
+    flags[starts[starts < s1].to(dev)] = 1
+    flags[0] = 1
+    ref = fill_cuda.segmented_cumsum(vals, flags)
+    k3 = []
+    for s2 in (s1 + 8192, 2 * s1):
+        out = fill_cuda.segmented_cumsum(
+            torch.nn.functional.pad(vals, (0, s2 - s1)),
+            torch.nn.functional.pad(flags, (0, s2 - s1), value=1))[:, :s1]
+        k3.append(f"{s2}: {int((out != ref).sum())} of {vals.numel()} lanes differ "
+                  f"(max abs {float((out - ref).abs().max()):.3g})")
+    cfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=TRAIN_ITERS,
+                      isremoval=True)
+    fits = []
+    for budget in (None, 2 * intersection_budget(cfg)):
+        c = dataclasses.replace(cfg, max_intersects=budget)
+        fits.append(fit_frame(init_train_state(c, generator=torch.Generator().manual_seed(0),
+                                               device=dev), gt, c,
+                              draws=torch.Generator(device=dev).manual_seed(1)))
+    print(f"phase 11 budget [{smi}]: K3 over {s1} lanes padded to " + "; ".join(k3)
+          + f"; fit_frame {TRAIN_ITERS} its at budgets {intersection_budget(cfg)} and "
+          f"{2 * intersection_budget(cfg)} (overflow {int(fits[0].state.max_overflow)}, "
+          f"{int(fits[1].state.max_overflow)})")
+    if not (same_fit(torch, fits[0].state, fits[1].state)
+            and torch.equal(fits[0].image, fits[1].image)):
+        fail("phase 11: a fit at two budgets that both hold it differs")
+
+    yuv = tmp / "clip.yuv"
+    write_yuv(clip, yuv)
+    n_frames = len(clip)
+
+    def represent(h: int, ck: Path, iterations: int, extra=()):
+        """The represent CLI on h host processes; (wall s, launches, outputs)."""
+        mhs.pin_k_frames(ck)
+        try:
+            return mhs.run_hosts(
+                "represent", mhs.represent_argv(yuv, ck, W, H, N, n_frames, iterations,
+                                                dev.type) + list(extra),
+                h, tmp / "logs", timeout=300, one_thread=dev.type == "cpu")
+        except RuntimeError as e:
+            fail(f"phase 11 represent on {h} host(s): {e}")
+
+    # each GOP drops a fit that overflowed the starting budget: host 1 starts
+    # GOP 2 from it, and so must the single host, after GOP 1 raised it
+    start = default_max_intersects(N, ((W + 15) // 16) * ((H + 15) // 16),
+                                   factor=MH_OVER_FACTOR)
+    over_re = re.compile(r"frame (\d+): the fit overflowed its intersection budget (\d+) "
+                         r"by (\d+) intersections .* in ([\d.]+) s")
+    over, secs, launches = {}, {}, {}
+    for h in (1, MH_HOSTS):
+        ov = tmp / f"over{h}"
+        secs[f"over {h}"], launches[f"over {h}"], outs = represent(
+            h, ov, MH_OVER_ITERS, ["--budget_factor", str(MH_OVER_FACTOR)])
+        over[h] = sorted((int(f), int(b), int(o), float(t))
+                         for out in outs for f, b, o, t in over_re.findall(out))
+        first = {}  # each GOP's first dropped fit's budget, by its K-frame
+        for f, b, _o, _t in over[h]:
+            first.setdefault(max(k for k in mhs.K_FRAMES if k <= f), b)
+        if first != {k: start for k in mhs.K_FRAMES}:
+            fail(f"phase 11 overflow case on {h} host(s): each GOP's first dropped fit must "
+                 f"have overflowed the starting budget {start}; dropped (frame, budget, "
+                 f"overflow, s): {over[h]}")
+    if [o[:3] for o in over[1]] != [o[:3] for o in over[MH_HOSTS]]:
+        fail(f"phase 11 overflow case: one host dropped {over[1]}, {MH_HOSTS} dropped "
+             f"{over[MH_HOSTS]}")
+    diffs = mhs.artifact_differences(tmp / "over1", tmp / f"over{MH_HOSTS}")
+    if diffs:
+        fail(f"phase 11 overflow case: {MH_HOSTS} hosts differ from one: {diffs}")
+    print(f"phase 11 overflow [{smi}]: --budget_factor {MH_OVER_FACTOR} (budget {start}), "
+          f"{MH_OVER_ITERS} its, K-frames {list(mhs.K_FRAMES)}: one host process "
+          f"{secs['over 1']:.3f} s, {MH_HOSTS} {secs[f'over {MH_HOSTS}']:.3f} s, bitwise equal; "
+          "fits dropped (frame, budget, overflow, s): one host "
+          f"{over[1]}, {MH_HOSTS} hosts {over[MH_HOSTS]}")
+
+    ck = {h: tmp / f"ck{h}" for h in (1, MH_HOSTS)}
+    cq = {h: tmp / f"cq{h}" for h in (1, MH_HOSTS)}
+    for h in (1, MH_HOSTS):
+        secs[h], launches[h], outs = represent(h, ck[h], MH_ITERS)
+    gops = [re.search(r"host \d+/\d+: GOPs (\[.*\])", out) for out in outs]
+    if [g and g.group(1) for g in gops] != [str([k]) for k in mhs.K_FRAMES]:
+        fail(f"phase 11: the hosts claimed GOPs {[g and g.group(1) for g in gops]}")
+    rep_dir = f"GaussianVideo_{MH_ITERS}_{N}"
+    npz = {h: ck[h] / "models" / mhs.DATA / rep_dir / "gmodels_state_dict.npz"
+           for h in ck}
+    host_ids = {1: [None], MH_HOSTS: list(range(MH_HOSTS - 1, -1, -1))}  # worker first
+    nonce = os.environ.get("GSVC_RUN_NONCE")
+    os.environ["GSVC_RUN_NONCE"] = f"smoke{os.getpid()}"
+    try:
+        for h in (1, MH_HOSTS):
+            argv = ["-d", str(yuv), "--data_name", mhs.DATA, "--width", str(W), "--height",
+                    str(H), "--image_length", str(n_frames), "--num_points", str(N),
+                    "--iterations", str(QAT_ITERS), "--model_path", str(npz[h]),
+                    "--k_frames_dir", str(ck[h]), "--checkpoint_dir", str(cq[h]),
+                    "--device", dev.type]
+            t0 = time.perf_counter()
+            for host in host_ids[h]:
+                for c in counters:
+                    c.launches = 0
+                rc = compress_cli.main(argv + ([] if host is None else
+                                               ["--hosts", str(h), "--host_id", str(host)]))
+                if rc != 0:
+                    fail(f"phase 11 compress host {host} of {h} returned {rc}")
+                launches.setdefault(f"compress {h}", []).append(
+                    {c.__name__: c.launches for c in counters})
+            secs[f"compress {h}"] = time.perf_counter() - t0
+    finally:
+        if nonce is None:
+            del os.environ["GSVC_RUN_NONCE"]
+        else:
+            os.environ["GSVC_RUN_NONCE"] = nonce
+    for run, per_host in launches.items():
+        for host, counts in enumerate(per_host):
+            missing = [k for k in need if counts[k] <= 0]
+            if missing:
+                fail(f"phase 11 {run}: host process {host} launched none of {missing}")
+    for what, one, many in (("represent", ck[1], ck[MH_HOSTS]),
+                            ("compress", cq[1], cq[MH_HOSTS])):
+        diffs = mhs.artifact_differences(one, many)
+        if diffs:
+            fail(f"phase 11 {what}: {MH_HOSTS} hosts differ from one: {diffs}")
+    qat_dir = f"GaussianVideo_{QAT_ITERS}_{N}"
+    models = cq[MH_HOSTS] / "models" / mhs.DATA / qat_dir
+    rc = decode_cli.main([
+        "--bitstream", str(models / "bitstream"), "--height", str(H), "--width", str(W),
+        "--model_path", str(npz[MH_HOSTS]), "--k_frames",
+        str(ck[MH_HOSTS] / "result" / mhs.DATA / "K_frames.txt"), "-d", str(yuv), "--no_png",
+        "--out", str(tmp / "decoded"), "--device", dev.type])
+    if rc != 0:
+        fail(f"phase 11 decode of the merged streams returned {rc}")
+    enc = train_lines(cq[MH_HOSTS] / "result" / mhs.DATA / qat_dir / "train.txt")
+    dec = train_lines(tmp / "decoded" / "decode.txt")
+    if sorted(dec) != list(range(1, n_frames + 1)) or any(
+            abs(dec[f]["PSNR"] - enc[f]["PSNR"]) > 1e-4 + 1e-9 for f in dec):
+        fail(f"phase 11: decoded PSNR {[dec[f]['PSNR'] for f in sorted(dec)]} against the "
+             f"encoder's {[enc[f]['PSNR'] for f in sorted(enc)]}")
+    rep_log = train_lines(ck[MH_HOSTS] / "result" / mhs.DATA / rep_dir / "train.txt")
+    print(f"phase 11 multi-host [{smi}]: {W}x{H}, {N} splats, {n_frames} frames, K-frames "
+          f"{list(mhs.K_FRAMES)}, --is_rm --is_ad {MH_ITERS} + {QAT_ITERS} its; represent: "
+          f"one host process {secs[1]:.3f} s, {MH_HOSTS} host processes sharing the card "
+          f"{secs[MH_HOSTS]:.3f} s (wall, process starts included; GOPs "
+          f"{[g.group(1) for g in gops]}); compress: one host {secs['compress 1']:.3f} s, "
+          f"{MH_HOSTS} hosts one after another {secs[f'compress {MH_HOSTS}']:.3f} s; merged "
+          f"artifacts bitwise the single host's; PSNR a frame represent "
+          f"{[rep_log[f]['PSNR'] for f in sorted(rep_log)]}, QAT "
+          f"{[enc[f]['PSNR'] for f in sorted(enc)]}, bpp {[enc[f]['bpp'] for f in sorted(enc)]}, "
+          f"decoded equal to 4 decimals; launches {launches}")
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if argv not in ([], ["--profile"]):
@@ -1649,6 +1855,10 @@ def main() -> int:
         kernels.append(k)
     with tempfile.TemporaryDirectory() as tmp:
         sharded_cli_phase(torch, smi, counters, clip, Path(tmp))
+
+    # -- phase 11: multi-host GOP parallelism, host processes sharing the card
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost_phase(torch, smi, counters, clip, gt, Path(tmp))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

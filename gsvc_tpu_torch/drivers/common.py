@@ -1,17 +1,19 @@
 """CLI policy shared by the represent and compress drivers and the decoder:
-the device a run asked for, the refusal of the unported multi-host mode,
+the device a run asked for, the hosts of a multi-host run (`--hosts N`),
 the tile-sharded ranks of `--tile_shards N`, the per-frame random
 generator and the representation checkpoint reader."""
 
 from __future__ import annotations
 
+import contextlib
 import os
+from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
 
+from gsvc_tpu_torch.parallel import multihost
 from gsvc_tpu_torch.parallel.launch import launch
-from gsvc_tpu_torch.parallel.multihost import NOT_PORTED
 
 
 def resolve_device(name: str) -> torch.device:
@@ -25,12 +27,50 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def check_single_host(args) -> None:
-    """Refuse the multi-host mode, which is not ported: it must never run
-    silently on one host."""
-    hosts = args.hosts if args.hosts > 1 else int(os.environ.get("GSVC_NUM_PROCS", "1"))
-    if hosts > 1:
-        raise NotImplementedError(f"--hosts {hosts} {NOT_PORTED}")
+class Hosts(NamedTuple):
+    """A run's hosts: their number, this host's id, and the suffix of this
+    host's shard files ("" on one host)."""
+
+    n: int
+    host_id: int
+
+    @property
+    def multi(self) -> bool:
+        return self.n > 1
+
+    @property
+    def suffix(self) -> str:
+        return f".host{self.host_id}" if self.multi else ""
+
+
+SINGLE_HOST = Hosts(1, 0)
+
+
+@contextlib.contextmanager
+def hosts_of(args) -> Iterator[Hosts]:
+    """The hosts of a CLI run, as gsvc_tpu's drivers resolve them: `--hosts`
+    or else GSVC_NUM_PROCS; `--host_id` or else the torch.distributed rank
+    or else GSVC_PROC_ID. The gloo group of `multihost.initialize` (when
+    GSVC_COORDINATOR is set) lives for the block. `--hosts > 1` with
+    `--tile_shards > 1` raises ValueError before any group is made."""
+    n = args.hosts if args.hosts > 1 else int(os.environ.get("GSVC_NUM_PROCS", "1"))
+    if n > 1 and args.tile_shards > 1:
+        raise ValueError(
+            f"--hosts {n} with --tile_shards {args.tile_shards}: a multi-host run fits "
+            "each frame in one process (gsvc_tpu's tile mesh spans every host's "
+            "devices while the hosts fit different GOPs, so it has no such mode)")
+    dist = multihost.initialize()
+    try:
+        if args.host_id >= 0:
+            host_id = args.host_id
+        elif dist:
+            host_id = torch.distributed.get_rank()
+        else:
+            host_id = int(os.environ.get("GSVC_PROC_ID", "0"))
+        yield Hosts(n, host_id)
+    finally:
+        if dist:
+            torch.distributed.destroy_process_group()
 
 
 def launch_ranks(rank_main, args, *rank_args) -> int:

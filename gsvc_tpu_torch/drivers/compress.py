@@ -22,6 +22,14 @@ the decoder's P-frame path reads the same checkpoint.
 its QAT fits split by tile rows (`parallel.sharded.fit_compress_sharded`,
 eager steps); rank 0 alone writes the logs, the checkpoint, the
 bitstream and the video.
+
+`--hosts N` > 1 (or GSVC_NUM_PROCS, `drivers.common.hosts_of`) runs this
+host's block of frames (`parallel.multihost.assign_frames`): it writes
+their `bitstream/frame_N.gsvc` into the shared directory and `.host{h}`
+shards of the checkpoint and train.txt, then signals the `compressed`
+barrier and exits; host 0 waits there for every host and merges the
+shards into the single-host files (no video). The hosts may run one after
+another, host 0 last.
 """
 
 from __future__ import annotations
@@ -38,8 +46,10 @@ import torch
 from gsvc_tpu_torch.compress.bitstream import encode_frame
 from gsvc_tpu_torch.config import FrameConfig
 from gsvc_tpu_torch.drivers.common import (
-    check_single_host,
+    SINGLE_HOST,
+    Hosts,
     frame_generator,
+    hosts_of,
     launch_ranks,
     load_gmodels,
     resolve_device,
@@ -54,6 +64,7 @@ from gsvc_tpu_torch.models.compress import (
 )
 from gsvc_tpu_torch.models.represent import uses_kernels
 from gsvc_tpu_torch.ops.binning import default_max_intersects
+from gsvc_tpu_torch.parallel import multihost
 from gsvc_tpu_torch.parallel.launch import rank_device
 from gsvc_tpu_torch.parallel.sharded import fit_compress_sharded, tile_mesh
 from gsvc_tpu_torch.utils import graphs
@@ -97,7 +108,9 @@ def parse_args(argv):
     # fit each frame in slices of at most N iterations (the same trajectory,
     # models.compress.fit_compress_chunked)
     p.add_argument("--fit_chunk", type=int, default=0)
-    # multi-host frame parallelism: not ported (raises for --hosts > 1)
+    # multi-host frame parallelism: compress frames are independent (a
+    # P-frame's side information is the representation checkpoint), so hosts
+    # take contiguous frame blocks and host 0 merges (parallel/multihost.py)
     p.add_argument("--hosts", type=int, default=1)
     p.add_argument("--host_id", type=int, default=-1)
     p.add_argument("--checkpoint_dir", type=str, default="./checkpoints_quant")
@@ -109,11 +122,11 @@ def parse_args(argv):
 
 def main(argv):
     args = parse_args(argv)
-    check_single_host(args)
-    device = resolve_device(args.device)
-    if args.tile_shards > 1:
-        return launch_ranks(_rank_main, args, list(argv))
-    return _run(args, device)
+    with hosts_of(args) as hosts:
+        device = resolve_device(args.device)
+        if args.tile_shards > 1:
+            return launch_ranks(_rank_main, args, list(argv))
+        return _run(args, device, hosts=hosts)
 
 
 def _rank_main(rank: int, world_size: int, argv) -> dict:
@@ -124,9 +137,11 @@ def _rank_main(rank: int, world_size: int, argv) -> dict:
     return graphs.launch_counts()
 
 
-def _run(args, device: torch.device, writer: bool = True) -> int:
+def _run(args, device: torch.device, writer: bool = True,
+         hosts: Hosts = SINGLE_HOST) -> int:
     """The CLI's work after its arguments; a rank of a --tile_shards run
-    that is not the `writer` writes nothing."""
+    that is not the `writer` writes nothing. A host of a multi-host run
+    (`hosts`) codes its frames and writes its shards; host 0 merges them."""
     mesh = tile_mesh(args.tile_shards) if args.tile_shards > 1 else None
     base = Path(args.checkpoint_dir)
     run_name = f"{args.model_name}_{args.iterations}_{args.num_points}"
@@ -136,7 +151,9 @@ def _run(args, device: torch.device, writer: bool = True) -> int:
     if writer:
         for d in (out_dir, bs_dir):
             d.mkdir(parents=True, exist_ok=True)
-    log = LogWriter(out_dir).write if writer else (lambda text: None)
+    if hosts.multi:
+        multihost.clear_stale_markers(out_dir, hosts.host_id)
+    log = LogWriter(out_dir, suffix=hosts.suffix).write if writer else (lambda text: None)
 
     video_frames = process_yuv_video(
         args.dataset, args.width, args.height, limit=args.image_length
@@ -146,11 +163,15 @@ def _run(args, device: torch.device, writer: bool = True) -> int:
 
     kfile = Path(args.k_frames_dir) / args.savdir / args.data_name / "K_frames.txt"
     k_frames = [int(x) for x in kfile.read_text().split()] if kfile.exists() else [1]
+    frames = list(range(1, image_length + 1))
+    if hosts.multi:
+        frames = multihost.assign_frames(image_length, hosts.n)[hosts.host_id]
+        print(f"host {hosts.host_id}/{hosts.n}: frames {frames}")
 
     psnrs, msims, bpps, t_train, t_eval, fpses = [], [], [], [], [], []
     out_state = {}
     img_list = []
-    for frame_num in range(1, image_length + 1):
+    for frame_num in frames:
         i = frame_num - 1
         gt = torch.as_tensor(video_frames[i].astype(np.float32) / 255.0, device=device)
         H, W = gt.shape[0], gt.shape[1]
@@ -235,7 +256,16 @@ def _run(args, device: torch.device, writer: bool = True) -> int:
 
     if not writer:
         return 0
-    np.savez(model_dir / "gmodels_state_dict.npz", **out_state)
+    np.savez(model_dir / f"gmodels_state_dict{hosts.suffix}.npz", **out_state)
+    if hosts.multi:
+        # workers signal and exit; host 0 waits for everyone, then merges
+        multihost.barrier("compressed", out_dir, hosts.n, hosts.host_id,
+                          wait_for=range(hosts.n) if hosts.host_id == 0 else [])
+        if hosts.host_id == 0:
+            multihost.merge_compress_artifacts(model_dir, out_dir, hosts.n, args.height,
+                                               args.width)
+            print("multi-host compress artifacts merged")
+        return 0
     log(
         "Average: {}x{}, PSNR:{:.4f}, MS-SSIM:{:.4f}, Bpp:{:.4f}, "
         "Training:{:.4f}s, Eval:{:.8f}s, FPS:{:.4f}".format(

@@ -16,8 +16,11 @@ cuda; raises when there is no card). Per frame:
   - P-frames: warm start from the previous frame's converged splats +
     adaptive control (--is_ad) (train_video_Represent.py:358-366);
   - a fit that overflows its intersection budget (the JAX driver warns and
-    keeps it) is fitted again with a larger budget, kept for the frames
-    after it (`train_within_budget`).
+    keeps it) is fitted again with a larger budget, kept for the later
+    frames of its GOP (`train_within_budget`); each GOP starts from the
+    default budget, since the budget sets the length of K3's scan, whose
+    sums can round differently at another length: so a GOP fits the same
+    bits on any host.
 
 `--tile_shards N` > 1 runs the CLI as N spawned ranks of one gloo group
 (`drivers.common.launch_ranks`; several may share a card): each runs
@@ -26,6 +29,15 @@ represent fits split by tile rows (`models.represent.fit_frame_partial`
 with the rank's `shard` on its `parallel.sharded.shard_target`, eager
 steps, the fits' all_reduces the only collectives); rank 0 alone
 writes the logs, K_frames.txt, the checkpoint and the video.
+
+`--hosts N` > 1 (or GSVC_NUM_PROCS, `drivers.common.hosts_of`) runs this
+host's share of a multi-host run (`parallel/multihost.py`): host 0
+detects the K-frames and writes K_frames.txt, every host reads it after
+the `kdetect` barrier, fits the GOPs `assign_gops` gives it and writes
+`.host{h}` shards of the checkpoint, train.txt and
+num_gaussian_points.txt; after the `trained` barrier host 0 merges them
+into the single-host files (no video). The merged files are bitwise the
+single-host run's.
 
 The checkpoint keys are `frame_{n}/_xyz|_cholesky|_features_dc` with the
 colours premultiplied by rgb_W (train_video_Represent.py:109-113), so
@@ -53,8 +65,10 @@ import torch
 from gsvc_tpu_torch.config import FrameConfig
 from gsvc_tpu_torch.core import GaussianFrame
 from gsvc_tpu_torch.drivers.common import (
-    check_single_host,
+    SINGLE_HOST,
+    Hosts,
     frame_generator,
+    hosts_of,
     launch_ranks,
     resolve_device,
 )
@@ -69,7 +83,7 @@ from gsvc_tpu_torch.models.represent import (
     uses_kernels,
 )
 from gsvc_tpu_torch.ops.binning import default_max_intersects
-from gsvc_tpu_torch.parallel.multihost import gop_spans
+from gsvc_tpu_torch.parallel import multihost
 from gsvc_tpu_torch.parallel.launch import rank_device
 from gsvc_tpu_torch.parallel.sharded import shard_target, tile_mesh
 from gsvc_tpu_torch.utils import graphs
@@ -270,8 +284,10 @@ def train_within_budget(make_trainer, max_intersects: Optional[int] = None,
     gradients, which also ends it early through a noisy loss), fit it again
     from the start with the budget raised to twice the intersections it
     reached, in buckets of 8192. Returns (the trainer, its `train()`, the
-    budget of that fit)."""
+    budget of that fit). Each fit it drops says so on stderr, with its
+    seconds: the cost of the refit."""
     while True:
+        t0 = time.perf_counter()
         trainer = make_trainer(max_intersects)
         result = trainer.train(ispos)
         overflow = int(trainer.state.max_overflow)
@@ -281,7 +297,8 @@ def train_within_budget(make_trainer, max_intersects: Optional[int] = None,
         max_intersects = -(-2 * (was + overflow) // 8192) * 8192
         print(f"frame {trainer.frame_num}: the fit overflowed its intersection budget "
               f"{was} by {overflow} intersections (whole splats dropped from render and "
-              f"gradients); fitting it again with {max_intersects}", file=sys.stderr)
+              f"gradients) in {time.perf_counter() - t0:.3f} s; fitting it again with "
+              f"{max_intersects}", file=sys.stderr)
 
 
 def _save_png(path, img_u8: np.ndarray) -> None:
@@ -394,7 +411,9 @@ def parse_args(argv):
     p.add_argument("--kdetect_points", type=int, default=5000)
     p.add_argument("--kdetect_iterations", type=int, default=500)
     p.add_argument("--checkpoint_dir", type=str, default="./checkpoints")
-    # multi-host GOP parallelism: not ported (raises for --hosts > 1)
+    # multi-host GOP parallelism (parallel/multihost.py): hosts fit disjoint
+    # GOP sets, host 0 merges; launch with scripts/sh_train_multihost.sh (the
+    # GSVC_* variables) or pass --hosts / --host_id
     p.add_argument("--hosts", type=int, default=1)
     p.add_argument("--host_id", type=int, default=-1)
     p.add_argument("--device", type=str, default="cuda",
@@ -408,12 +427,12 @@ def _k_dir(args) -> Path:
 
 def main(argv):
     args = parse_args(argv)
-    check_single_host(args)
-    resolve_device(args.device)
-    if args.tile_shards > 1:
-        # the ranks share one K-frame cache read, taken before rank 0 can write it
-        return launch_ranks(_rank_main, args, list(argv), read_k_frames(_k_dir(args)))
-    return _run(args)
+    with hosts_of(args) as hosts:
+        resolve_device(args.device)
+        if args.tile_shards > 1:
+            # the ranks share one K-frame cache read, taken before rank 0 can write it
+            return launch_ranks(_rank_main, args, list(argv), read_k_frames(_k_dir(args)))
+        return _run(args, hosts=hosts)
 
 
 def _rank_main(rank: int, world_size: int, argv, k_frames) -> dict:
@@ -426,10 +445,13 @@ def _rank_main(rank: int, world_size: int, argv, k_frames) -> dict:
     return graphs.launch_counts()
 
 
-def _run(args, writer: bool = True, k_frames: Optional[list] = None) -> int:
+def _run(args, writer: bool = True, k_frames: Optional[list] = None,
+         hosts: Hosts = SINGLE_HOST) -> int:
     """The CLI's work after its arguments. A rank of a --tile_shards run
     takes the K-frames its launcher read (`k_frames`, None: detect them
-    without the cache) and, unless it is the `writer`, writes nothing."""
+    without the cache) and, unless it is the `writer`, writes nothing. A
+    host of a multi-host run (`hosts`) fits its GOPs and writes its shards;
+    host 0 merges them."""
     sharded = args.tile_shards > 1
     base = Path(args.checkpoint_dir)
     run_name = f"{args.model_name}_{args.iterations}_{args.num_points}"
@@ -439,7 +461,9 @@ def _run(args, writer: bool = True, k_frames: Optional[list] = None) -> int:
     if writer:
         for d in (out_dir, model_dir, k_dir):
             d.mkdir(parents=True, exist_ok=True)
-    log = LogWriter(out_dir).write if writer else (lambda text: None)
+    if hosts.multi:
+        multihost.clear_stale_markers(out_dir, hosts.host_id)
+    log = LogWriter(out_dir, suffix=hosts.suffix).write if writer else (lambda text: None)
 
     video_frames = process_yuv_video(
         args.dataset, args.width, args.height, limit=args.image_length
@@ -447,11 +471,23 @@ def _run(args, writer: bool = True, k_frames: Optional[list] = None) -> int:
     image_length = min(args.image_length, len(video_frames))
     video_frames = video_frames[:image_length]
 
-    if k_frames is None:
+    # one K-frame list on every host: host 0 detects (or reads) and caches
+    # it, the others read the cache after the barrier and never detect
+    if k_frames is None and (not hosts.multi or hosts.host_id == 0):
         k_frames = detect_k_frames(video_frames, args, k_dir, args.loss_type,
                                    cached=not sharded, write=writer)
+    if hosts.multi:
+        multihost.barrier("kdetect", out_dir, hosts.n, hosts.host_id)
+        k_frames = read_k_frames(k_dir)
+        if k_frames is None:
+            raise RuntimeError(f"host {hosts.host_id}: no {k_dir / 'K_frames.txt'} "
+                               "after the kdetect barrier")
     if writer:
         print("K-frames:", k_frames)
+    gops = multihost.gop_spans(k_frames, image_length)
+    if hosts.multi:
+        gops = multihost.assign_gops(k_frames, image_length, hosts.n)[hosts.host_id]
+        print(f"host {hosts.host_id}/{hosts.n}: GOPs {[g[0] for g in gops]}")
 
     psnrs, ms_ssims, t_train, t_eval, fpses = [], [], [], [], []
     gnum_by_frame = {}
@@ -459,11 +495,11 @@ def _run(args, writer: bool = True, k_frames: Optional[list] = None) -> int:
     img_list = []
     combined_img_list = []
     img_dir = out_dir / "img"
-    # raised where a fit overflows it, kept for the frames after it
-    max_intersects = None
-    for gop in gop_spans(k_frames, image_length):
+    for gop in gops:
         gmodel = None
         num_gaussian_points = args.num_points
+        # raised where a fit overflows it, kept for the GOP's later frames
+        max_intersects = None
         for frame_num in gop:
             i = frame_num - 1
             common = dict(loss_type=args.loss_type, max_num_points=args.num_points,
@@ -516,11 +552,19 @@ def _run(args, writer: bool = True, k_frames: Optional[list] = None) -> int:
 
     if not writer:
         return 0
-    ckpt = model_dir / "gmodels_state_dict.npz"
+    ckpt = model_dir / f"gmodels_state_dict{hosts.suffix}.npz"
     np.savez(ckpt, **gmodels_state)
-    with open(out_dir / "num_gaussian_points.txt", "w") as f:
+    with open(out_dir / f"num_gaussian_points{hosts.suffix}.txt", "w") as f:
         for fr in sorted(gnum_by_frame):
             f.write(f"frame_{fr}: {gnum_by_frame[fr]}\n")
+    if hosts.multi:
+        multihost.barrier("trained", out_dir, hosts.n, hosts.host_id)
+        if hosts.host_id == 0:
+            multihost.merge_host_artifacts(model_dir, out_dir, hosts.n, args.height, args.width)
+            print("multi-host artifacts merged")
+        # a host's frames need not be contiguous: no video (the merged
+        # checkpoint and logs are the artifact set)
+        return 0
 
     file_size = ckpt.stat().st_size
     log(

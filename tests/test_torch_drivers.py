@@ -299,7 +299,7 @@ def test_a_fit_over_its_budget_is_fitted_again_with_a_larger_one(capsys):
     assert "overflow" not in capsys.readouterr().err
 
 
-def test_represent_compress_decode_clis(tmp_path):
+def test_represent_compress_decode_clis(tmp_path, monkeypatch):
     """The port's three CLIs on a synthetic 3-frame YUV: the artifacts and
     train.txt lines of gsvc_tpu's test_represent_then_compress_e2e."""
     yuv = _write_yuv(tmp_path / "synth.yuv", _frames(2, 2)[:3])
@@ -365,11 +365,43 @@ def test_represent_compress_decode_clis(tmp_path):
     assert set(enc) == set(dec) == {1, 2, 3}
     for f in enc:
         assert abs(dec[f] - enc[f]) < 0.1, (f, dec[f], enc[f])
-    # multi-host is refused, never run on one host; --tile_shards 2 runs
-    # (two spawned ranks; tests/test_torch_sharded.py holds its results)
-    for main in (drv.main, cdrv.main):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3, multi-host"):
-            main(common + ["--model_path", str(npz), "--hosts", "2"])
+    # --hosts 2 --host_id 1 of both CLIs runs host 1's share (GOP [3], frame
+    # 3) and writes its .host1 shards, host 0 standing in as its barrier
+    # markers (tests/test_torch_multihost.py runs both hosts against one);
+    # --tile_shards 2 runs (two spawned ranks; tests/test_torch_sharded.py
+    # holds its results)
+    monkeypatch.setenv("GSVC_RUN_NONCE", "n")
+    hosts = tmp_path / "hosts"
+    rep_run = hosts / "result/synth/GaussianVideo_30_40"
+    rep_run.mkdir(parents=True)
+    (hosts / "result/synth/K_frames.txt").write_text("1\n3\n")
+    for tag in ("kdetect", "trained"):
+        (rep_run / f".barrier_{tag}.n.host0").write_text("ok")
+    host1 = ["--hosts", "2", "--host_id", "1", "--checkpoint_dir", str(hosts)]
+    assert drv.main(common + ["--iterations", "30", "--savdir_m", "models"] + host1) == 0
+    assert cdrv.main(common + ["--iterations", "20", "--model_path", str(npz), "--k_frames_dir",
+                               str(ckpt), "--savdir_m", "cmodels"] + host1) == 0
+    assert _files(hosts) == sorted([
+        "cmodels/synth/GaussianVideo_20_40/bitstream/frame_3.gsvc",
+        "cmodels/synth/GaussianVideo_20_40/gmodels_state_dict.host1.npz",
+        "models/synth/GaussianVideo_30_40/gmodels_state_dict.host1.npz",
+        "result/synth/GaussianVideo_20_40/.barrier_compressed.n.host1",
+        "result/synth/GaussianVideo_20_40/train.host1.txt",
+        "result/synth/GaussianVideo_30_40/.barrier_kdetect.n.host0",
+        "result/synth/GaussianVideo_30_40/.barrier_kdetect.n.host1",
+        "result/synth/GaussianVideo_30_40/.barrier_trained.n.host0",
+        "result/synth/GaussianVideo_30_40/.barrier_trained.n.host1",
+        "result/synth/GaussianVideo_30_40/num_gaussian_points.host1.txt",
+        "result/synth/GaussianVideo_30_40/train.host1.txt",
+        "result/synth/K_frames.txt",
+    ])
+    for shard in ("models/synth/GaussianVideo_30_40", "cmodels/synth/GaussianVideo_20_40"):
+        with np.load(hosts / shard / "gmodels_state_dict.host1.npz") as z:
+            assert sorted(z.files) == [f"frame_3/{k}" for k in ("_cholesky", "_features_dc",
+                                                                "_xyz")]
+    for log in ("GaussianVideo_30_40", "GaussianVideo_20_40"):
+        assert _psnrs((hosts / "result/synth" / log / "train.host1.txt").read_text()).keys() \
+            == {3}
     sharded = tmp_path / "sharded"
     assert cdrv.main(common + ["--iterations", "20", "--model_path", str(npz),
                                "--k_frames_dir", str(ckpt), "--checkpoint_dir", str(sharded),
