@@ -145,17 +145,41 @@ the first fault:
    num_gaussian_points.txt, the timing-stripped Frame_ lines and every
    frame_N.gsvc equal the single host's bitwise (`artifact_differences`),
    every frame decodes within 0.0001 dB of the encoder's PSNR and each host
-   process launched K1-K6; prints the wall time of each run.
+   process launched K1-K6; prints the wall time of each run;
+12. the 3D pipeline (`scene3d`: N gaussians in a camera's frustum covering
+   W x H, SH degree PIPE_DEGREE, a background and the alpha output):
+   project_gaussians -> spherical_harmonics -> rasterize_gaussians_alpha
+   (depth-ordered uncapped binning through K1 / K2, A1) -> an L2 loss ->
+   A2 and K3 -> gradients in means3d, scales, quats, the SH coefficients and
+   opacity; K1, K2, A1, A2 and K3 must launch and every gradient be finite.
+   A1 is held to the plain version (gsvc_tpu's scan, chunk ALPHA_CHUNK) at
+   C = 3, at C = 5, on a dense variant (3x the footprints at opacity 1,
+   where pixels break and tiles hold ~170 lanes) and on a wide one (6x the
+   footprints at 1/20 the opacity, where thousands of tiles hold more than
+   256 lanes, A1's and A2's staged batch, and must): max-abs RENDER_TOL on
+   every pixel but those whose T_final lies within NEAR_BREAK x 1e-4 of
+   the break on either side (a log-sum against a product can flip the
+   break there; counted and printed with their errors). A2's slots and
+   v_background are held to its plain version (`alpha_backward_torch`) on
+   the same full-size inputs, the scene and both variants, within GRAD_TOL
+   of the largest entry; and A2 through K3 to autograd through the scan at
+   PIPE_SMALL (the scene and its dense variant, GRAD_TOL of the largest
+   entry), the whole pipeline's gradients to the plain backend's there;
+   two launches of A1 and of A2 bitwise equal; `project_gaussians_2d_scale_rot` at 1080p/10k through the eval
+   render (K1, K2, K5) within RENDER_TOL of the plain render. Times A1 and
+   A2 beside their plain (dense per-tile) versions and their bounds
+   (`utils.work.alpha_work` on this run's evaluated pairs).
 
 Around each of phases 3 and 4, around each CLI of phase 6, around the
 mains of phase 7, around each point of phases 8 and 9, around each of
-phase 10's fits and CLIs (in each rank) and around each host of phase 11,
+phase 10's fits and CLIs (in each rank), around each host of phase 11
+and around phase 12's path and its scale + rotation render,
 every launch counter is zeroed just before and read just after (a host
 process starts at 0); each kernel of that path must have launched. The
 kernels' JSON reports phase 6's counts for K1-K6, those of phase 9's
 point on the same grid for K1 and K2 on wide keys (1080p: int32, 4K UHD:
-int64), phase 7's for the harnesses' kernels and phase 10b's (rank 0) for K4 rows / image and K6 at the
-2-shard span, and each kernel's bound (`utils.work`,
+int64), phase 7's for the harnesses' kernels, phase 10b's (rank 0) for K4 rows / image and K6 at the
+2-shard span and phase 12's path for A1 and A2, and each kernel's bound (`utils.work`,
 `utils.profiling.roofline_ms`) and library call (null where no single
 PyTorch call computes the same function; for K2, the `searchsorted` of its
 tile edges).
@@ -215,8 +239,13 @@ ENCODER_LAUNCHES = {"fill_decode_keys": 18487, "rank_cap_decode": 18487,
                     "segmented_cumsum": 17660, "forward_chw": 808, "forward_image": 19}
 ENCODER_SHA256 = ("8e76cbd280e9cef0", "40c8b44f5d5a4e3d", "afe1be16eebdc54a",
                   "0ac06a4d66f84cbc")
+# phase 12: the 3D pipeline's SH degree, the cut size (H, W, N) of A2's check
+# against plain autograd, the plain scan's chunk on the card ([64, H*W]
+# intermediates) and how near 1e-4 a pixel's T_final lies when its break
+# decision is within rounding (relative)
+PIPE_DEGREE, PIPE_SMALL, ALPHA_CHUNK, NEAR_BREAK = 3, (272, 480, 2000), 64, 1e-3
 LIBS = ("fill", "segsum", "rasterize_fwd", "rasterize_bwd", "profile_kernel_parts",
-        "profile_bwd_variants", "probe_transpose")
+        "profile_bwd_variants", "probe_transpose", "rasterize_alpha")
 NATIVE = ("rans", "yuv")  # host C++ (gsvc_tpu_torch/native), built with g++
 
 
@@ -1215,6 +1244,289 @@ def multihost_phase(torch, smi, counters, clip, gt, tmp: Path) -> None:
           f"decoded equal to 4 decimals; launches {launches}")
 
 
+def scene3d(torch, n: int, h: int, w: int, dev, seed: int = 0) -> dict:
+    """Phase 12's scene from the smoke's seed: n gaussians uniform in the
+    view frustum of an identity camera at depths 2-10, fx = fy = 1000 w /
+    1920 (the splats cover w x h), world scales 0.005-0.04 (times
+    sqrt(1920 / w): a cut frame keeps splats of a few pixels), SH degree
+    PIPE_DEGREE, a background and an L2 target."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    f = 1000.0 * w / 1920
+    z = 2.0 + 8.0 * u(n)
+    means = torch.stack([(u(n) * w - w / 2) / f * z, (u(n) * h - h / 2) / f * z, z], -1)
+    k = (PIPE_DEGREE + 1) ** 2
+    coeffs = torch.cat([2.0 * u(n, 1, 3), 0.1 * torch.randn((n, k - 1, 3), generator=gen,
+                                                             device=dev)], 1)
+    return {"means": means, "scales": (0.005 + 0.035 * u(n, 3)) * (1920 / w) ** 0.5,
+            "quats": torch.randn((n, 4), generator=gen, device=dev), "coeffs": coeffs,
+            "opacity": 0.3 + 0.7 * u(n, 1), "bg": u(3), "target": u(h, w, 3),
+            "view": torch.eye(4, device=dev), "campos": torch.zeros(3, device=dev),
+            "cam": (f, f, w / 2, h / 2, h, w, ((w + 15) // 16, (h + 15) // 16, 1))}
+
+
+def pipeline3d(torch, s: dict, backend: str = "auto"):
+    """project_gaussians -> spherical_harmonics (view directions from the
+    camera) -> rasterize_gaussians_alpha (background, alpha) -> an L2 loss
+    -> gradients in means3d, scales, quats, the SH coefficients and opacity:
+    (loss, gradients, the compositor's inputs and outputs)."""
+    from gsvc_tpu_torch.ops import project_gaussians, rasterize_gaussians_alpha
+    from gsvc_tpu_torch.ops import spherical_harmonics
+
+    fx, fy, cx, cy, h, w, tb = s["cam"]
+    with torch.enable_grad():
+        leaves = [s[k].clone().requires_grad_() for k in
+                  ("means", "scales", "quats", "coeffs", "opacity")]
+        xys, depths, radii, conics, nth, _cov3d = project_gaussians(
+            leaves[0], leaves[1], 1.0, leaves[2], s["view"], fx, fy, cx, cy, h, w, tb)
+        colors = spherical_harmonics(PIPE_DEGREE, leaves[0] - s["campos"], leaves[3])
+        img, alpha = rasterize_gaussians_alpha(
+            xys, depths, radii, conics, nth, colors, leaves[4], h, w, background=s["bg"],
+            return_alpha=True, chunk=ALPHA_CHUNK, backend=backend)
+        loss = torch.mean((img - s["target"]) ** 2)
+        grads = torch.autograd.grad(loss, leaves)
+    outs = [t.detach() for t in (xys, depths, radii, conics, colors, img, alpha)]
+    return loss.detach(), grads, outs
+
+
+def pipeline3d_phase(torch, dev, smi, counters) -> list:
+    """Phase 12: the 3D pipeline at 1080p/10k on the card (see the module
+    docstring); returns A1's and A2's rows of the kernels JSON."""
+    from gsvc_tpu_torch.ops import rasterize_alpha
+    from gsvc_tpu_torch.ops import rasterize_alpha_cuda as rac
+    from gsvc_tpu_torch.ops.binning import budget_overflow, default_max_intersects
+    from gsvc_tpu_torch.ops.projection import project_gaussians_2d_scale_rot
+    from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
+    from gsvc_tpu_torch.utils import work
+
+    t_phase = time.perf_counter()
+    sc = scene3d(torch, N, H, W, dev)
+    tb = sc["cam"][-1]
+    every = tuple(counters) + (rac.alpha_forward, rac.alpha_backward_slots)
+    needed = ("fill_decode_keys", "rank_cap_decode", "alpha_forward", "alpha_backward_slots",
+              "segmented_cumsum")
+    pipeline3d(torch, sc)  # a warm-up run: its kernels' first calls
+    torch.cuda.synchronize()
+    for c in every:
+        c.launches = 0
+    t0 = time.perf_counter()
+    loss, grads, outs = pipeline3d(torch, sc)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in every}
+    missing = [k for k in needed if launches[k] <= 0]
+    if missing:
+        fail(f"phase 12: the 3D pipeline launched none of {missing}; launches {launches}")
+    names = ("means3d", "scales", "quats", "SH coefficients", "opacity")
+    for name, g in zip(names, grads):
+        if not torch.isfinite(g).all():
+            fail(f"phase 12: the gradient in {name} is not finite")
+    xys, depths, radii, conics, colors, img, alpha = outs
+
+    with torch.no_grad():
+        # A1 against the plain version (gsvc_tpu's scan, op for op), apart
+        # from pixels whose break decision lies within rounding
+        db = rac.bin_depth_ordered(xys, depths, radii, tb)
+        o = db.order
+        opac = sc["opacity"]
+        splats = [xys[o].contiguous(), conics[o].contiguous(), colors[o].contiguous(),
+                  opac[o].contiguous(), sc["bg"]]
+        a1 = rac.alpha_forward(db.binned, *splats, H, W, tb, True)
+        if not (torch.equal(a1[0], img) and torch.equal(a1[1], alpha)):
+            fail("phase 12: A1 on the main path's inputs differs from the main path's render")
+
+        def against_scan(got, cols, bg, op, rad=radii, con=conics):
+            out_p, T_p = rasterize_alpha.composite_torch(xys, depths, rad, con, cols, op, H,
+                                                         W, chunk=ALPHA_CHUNK)
+            img_p = (out_p + T_p[:, None] * bg).reshape(H, W, -1)
+            T_p = T_p.reshape(H, W)
+            err = torch.maximum((got[0] - img_p).abs().amax(-1), (got[2] - T_p).abs())
+            eps = rasterize_alpha.T_EPS
+            near = (((got[2] - eps).abs() <= NEAR_BREAK * eps)
+                    | ((T_p - eps).abs() <= NEAR_BREAK * eps))
+            if not torch.isfinite(got[0]).all():
+                fail("phase 12: A1's image is not finite")
+            return (float(torch.where(near, 0.0, err).max()), int(near.sum()),
+                    int((near & (err > RENDER_TOL)).sum()), float(torch.where(near, err, 0.0).max()),
+                    float(cols.abs().max()) + float(bg.abs().max()))
+
+        a1_check = {"C=3": against_scan(a1, colors, sc["bg"], opac)}
+        gen = torch.Generator(device=dev).manual_seed(12)
+        colors5 = torch.rand((N, 5), generator=gen, device=dev)
+        bg5 = torch.rand(5, generator=gen, device=dev)
+        a1_5 = rac.alpha_forward(db.binned, splats[0], splats[1], colors5[o].contiguous(),
+                                 splats[3], bg5, H, W, tb, True)
+        a1_check["C=5"] = against_scan(a1_5, colors5, bg5, opac)
+        # dense: 3x the footprints at opacity 1 (alpha clamps at 0.999 near the
+        # centres; most pixels break, tiles hold hundreds of lanes)
+        ones, rad3, con3 = torch.ones_like(opac), radii * 3, conics / 9.0
+        db3 = rac.bin_depth_ordered(xys, depths, rad3, tb)
+        o3 = db3.order
+        dense = [xys[o3].contiguous(), con3[o3].contiguous(), colors[o3].contiguous(),
+                 ones[o3].contiguous(), sc["bg"]]
+        a1_3 = rac.alpha_forward(db3.binned, *dense, H, W, tb, True)
+        a1_check["C=3, dense"] = against_scan(a1_3, colors, sc["bg"], ones, rad3, con3)
+        broke = (rac.pair_counts(db3.binned, dense[0], dense[1], dense[3], H, W, tb)[0],
+                 256 * db3.total, int(db3.binned.tile_counts.max()))
+        # wide: 6x the footprints at 1/20 the opacity (tiles hold up to ~450
+        # lanes, past A1's and A2's staged batch of 256; few pixels break)
+        faint, rad6, con6 = opac * 0.05, radii * 6, conics / 36.0
+        db6 = rac.bin_depth_ordered(xys, depths, rad6, tb)
+        wide_counts = db6.binned.tile_counts
+        if int(wide_counts.max()) <= 256:
+            fail(f"phase 12: the wide variant's longest tile list is {int(wide_counts.max())} "
+                 "lanes, not past 256")
+        o6 = db6.order
+        wide = [xys[o6].contiguous(), con6[o6].contiguous(), colors[o6].contiguous(),
+                faint[o6].contiguous(), sc["bg"]]
+        a1_6 = rac.alpha_forward(db6.binned, *wide, H, W, tb, True)
+        a1_check["C=3, wide"] = against_scan(a1_6, colors, sc["bg"], faint, rad6, con6)
+        wide_tiles = (int(wide_counts.max()), int((wide_counts > 256).sum()), db6.total)
+        for key, (far, near, flips, flip_err, _scale) in a1_check.items():
+            if far > RENDER_TOL:
+                fail(f"phase 12: A1 ({key}) differs from the plain scan by {far} > {RENDER_TOL} "
+                     "at a pixel whose break decision is not within rounding")
+        a1_err = max(v[0] for v in a1_check.values())
+        v_img = torch.randn((H, W, 3), generator=gen, device=dev)
+        v_alpha = torch.randn((H, W), generator=gen, device=dev)
+        # A2 against its plain version on the same full-size inputs
+        a2_full = {}
+        for key, (dbv, spl, fwd) in {"C=3": (db, splats, a1), "C=3, dense": (db3, dense, a1_3),
+                                     "C=3, wide": (db6, wide, a1_6)}.items():
+            got = rac.alpha_backward_slots(dbv.binned, *spl, fwd[2], fwd[3], v_img, v_alpha,
+                                           H, W, tb)
+            want = rac.alpha_backward_torch(dbv.binned, *spl, fwd[2], v_img, v_alpha, H, W, tb)
+            for name, a, b in zip(("slots", "v_background"), got, want):
+                a2_full[f"{name} ({key})"] = err = errors(a, b)
+                if not (torch.isfinite(a).all() and err[1] <= GRAD_TOL):
+                    fail(f"phase 12: A2's {name} ({key}) at {W}x{H}/{N}: max-abs {err[0]}, "
+                         f"rel {err[1]} > {GRAD_TOL} against its plain version")
+            if key == "C=3":
+                a2 = got
+            del got, want
+        # the kernels JSON's error: A2 on the main path's inputs (the variants'
+        # slots are larger, their errors printed beside them)
+        a2_err = max(a2_full["slots (C=3)"][0], a2_full["v_background (C=3)"][0])
+        twice = {
+            "A1": lambda: torch.cat([t.reshape(-1).float() for t in rac.alpha_forward(
+                db.binned, *splats, H, W, tb, True)]),
+            "A2": lambda: torch.cat([t.reshape(-1) for t in rac.alpha_backward_slots(
+                db.binned, *splats, a1[2], a1[3], v_img, v_alpha, H, W, tb)]),
+        }
+        for name, launch in twice.items():
+            if not torch.equal(launch(), launch()):
+                fail(f"phase 12: two launches of {name} on the same inputs differ")
+        if not all(torch.isfinite(t).all() for t in a2):
+            fail("phase 12: A2's gradients are not finite")
+
+    # A2 against plain autograd through the scan at a cut size: the
+    # compositor's own gradients, then the whole pipeline's
+    ph, pw, pn = PIPE_SMALL
+    small = scene3d(torch, pn, ph, pw, dev, seed=1)
+    _l, _g, souts = pipeline3d(torch, small)
+    sx, sd, sr, scon, scol = souts[:5]
+    sgen = torch.Generator(device=dev).manual_seed(13)
+    sv_img = torch.randn((ph, pw, 3), generator=sgen, device=dev)
+    sv_alpha = torch.randn((ph, pw), generator=sgen, device=dev)
+    a2_errs = {}
+    dense_small = (", dense", sr * 3, scon / 9.0, torch.ones_like(small["opacity"]))
+    for tag, srad, scon_v, sop in (("", sr, scon, small["opacity"]), dense_small):
+        comp = []
+        with torch.enable_grad():
+            for backend in ("auto", "torch"):
+                leaves = [t.clone().requires_grad_() for t in (sx, scon_v, scol, sop,
+                                                               small["bg"])]
+                simg, salpha = rasterize_alpha.rasterize_gaussians_alpha(
+                    leaves[0], sd, srad, leaves[1], None, leaves[2], leaves[3], ph, pw,
+                    background=leaves[4], return_alpha=True, chunk=ALPHA_CHUNK,
+                    backend=backend)
+                comp.append(torch.autograd.grad(
+                    torch.sum(simg * sv_img) + torch.sum(salpha * sv_alpha), leaves))
+        for name, a, b in zip(("xys", "conics", "colors", "opacity", "background"), *comp):
+            a2_errs[name + tag] = err = errors(a, b)
+            if not (torch.isfinite(a).all() and err[1] <= GRAD_TOL):
+                fail(f"phase 12: A2's gradient in {name}{tag}: max-abs {err[0]}, rel "
+                     f"{err[1]} > {GRAD_TOL} against plain autograd")
+    _l, g_plain, _o = pipeline3d(torch, small, backend="torch")
+    _l, g_kern, _o = pipeline3d(torch, small)
+    pipe_errs = {name: errors(a, b) for name, a, b in zip(names, g_kern, g_plain)}
+    for name, (err, rel) in pipe_errs.items():
+        if rel > GRAD_TOL:
+            fail(f"phase 12: the pipeline's gradient in {name} at {pw}x{ph}/{pn}: max-abs "
+                 f"{err}, rel {rel} > {GRAD_TOL} against the plain backend")
+
+    # project_gaussians_2d_scale_rot at 1080p/10k through the eval render
+    with torch.no_grad():
+        means2d = torch.rand((N, 2), generator=gen, device=dev) * 2.0 - 1.0
+        scales2d = 0.5 + 2.0 * torch.rand((N, 2), generator=gen, device=dev)
+        rot = (torch.rand((N, 1), generator=gen, device=dev) * 2.0 - 1.0) * 3.14159265
+        tb2 = ((W + 15) // 16, (H + 15) // 16, 1)
+        proj = project_gaussians_2d_scale_rot(means2d, scales2d, rot, H, W, tb2)
+        budget = default_max_intersects(N, tb2[0] * tb2[1])
+        if int(budget_overflow(proj[4], budget)) != 0:
+            fail("phase 12: the scale + rotation scene overflows its budget")
+        cols, opac2 = colors5[:, :3].contiguous(), sc["opacity"]
+        for c in every:
+            c.launches = 0
+        sr_img = rasterize_gaussians_sum(*proj, cols, opac2, H, W, backend="cuda", layout="chw",
+                                         max_intersects=budget)
+        sr_launches = {c.__name__: c.launches for c in every}
+        sr_ref = rasterize_gaussians_sum(*proj, cols, opac2, H, W, backend="torch",
+                                         layout="chw", max_intersects=budget)
+        sr_err = float((sr_img - sr_ref).abs().max())
+        if any(sr_launches[k] <= 0 for k in ("fill_decode_keys", "rank_cap_decode",
+                                             "forward_chw")) or sr_err > RENDER_TOL:
+            fail(f"phase 12: scale + rotation eval render: max-abs {sr_err}, launches "
+                 f"{sr_launches}")
+
+        pc = rac.pair_counts(db.binned, splats[0], splats[1], splats[3], H, W, tb)
+        bounds = work.alpha_work(N, 3, db.total, tb[0] * tb[1], H, W, True, pc)
+        src, replaces = "gsvc_tpu_torch/csrc/rasterize_alpha.cu", "gsvc_tpu/ops/rasterize_alpha.py:50"
+        rows = [
+            timed_row(smi, 12, "A1 alpha_forward", src, replaces, "alpha_forward", a1_err,
+                      lambda: rac.alpha_forward(db.binned, *splats, H, W, tb, True),
+                      lambda: rac.alpha_forward_torch(db.binned, *splats, H, W, tb, True),
+                      bounds["A1 alpha_forward"]),
+            timed_row(smi, 12, "A2 alpha_backward", src, replaces, "alpha_backward_slots",
+                      a2_err,
+                      lambda: rac.alpha_backward_slots(db.binned, *splats, a1[2], a1[3], v_img,
+                                                       v_alpha, H, W, tb),
+                      lambda: rac.alpha_backward_torch(db.binned, *splats, a1[2], v_img,
+                                                       v_alpha, H, W, tb),
+                      bounds["A2 alpha_backward"]),
+        ]
+    for r in rows:
+        r["launches"] = launches[r["launches"]]
+    counts = db.binned.tile_counts
+    print(f"phase 12 3D pipeline [{smi}]: {W}x{H}, {N} gaussians, SH degree {PIPE_DEGREE}, "
+          f"{db.total} intersections (longest tile list {int(counts.max())} lanes, "
+          f"{int((counts > 256).sum())} tiles past 256); project -> SH -> A1 -> L2 -> A2 + K3 "
+          f"in {path_s * 1e3:.1f} ms (loss {float(loss):.6f}), launches {launches}; pairs (A1 "
+          f"evaluated, contributing, A2 evaluated) {pc}; dense: A1 evaluates {broke[0]} of "
+          f"{broke[1]} pairs, the longest tile list {broke[2]} lanes; wide: the longest tile "
+          f"list {wide_tiles[0]} lanes, {wide_tiles[1]} tiles past 256, {wide_tiles[2]} "
+          "intersections")
+    for key, (far, near, flips, flip_err, scale) in a1_check.items():
+        print(f"phase 12 A1 {key}: max-abs {far:.3g} against the plain scan (chunk "
+              f"{ALPHA_CHUNK}, tol {RENDER_TOL}) outside {near} pixels whose T_final lies "
+              f"within {NEAR_BREAK:g} x 1e-4 of the break; {flips} of them differ by more "
+              f"than {RENDER_TOL} (break flips), by at most {flip_err:.3g} (1e-4 x (max|c| + "
+              f"max|bg|) = {1e-4 * scale:.3g})")
+    print(f"phase 12 A2 at {W}x{H}/{N} against its plain version (max-abs, rel): " + ", ".join(
+        f"{k} ({a:.3g}, {r:.3g})" for k, (a, r) in a2_full.items()) + f" (tol rel {GRAD_TOL})")
+    print(f"phase 12 A2 at {pw}x{ph}/{pn} against plain autograd (max-abs, rel): " + ", ".join(
+        f"{k} ({a:.3g}, {r:.3g})" for k, (a, r) in a2_errs.items())
+          + "; the pipeline's gradients: " + ", ".join(
+        f"{k} ({a:.3g}, {r:.3g})" for k, (a, r) in pipe_errs.items())
+          + f" (tol rel {GRAD_TOL}); two launches of A1 and of A2 bitwise equal; scale + "
+          f"rotation eval render max-abs {sr_err:.3g}, launches {sr_launches}; phase 12 "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return rows
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if argv not in ([], ["--profile"]):
@@ -1859,6 +2171,9 @@ def main() -> int:
     # -- phase 11: multi-host GOP parallelism, host processes sharing the card
     with tempfile.TemporaryDirectory() as tmp:
         multihost_phase(torch, smi, counters, clip, gt, Path(tmp))
+
+    # -- phase 12: the 3D pipeline: projection, SH, A1, A2 ------------------
+    kernels += pipeline3d_phase(torch, dev, smi, counters)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

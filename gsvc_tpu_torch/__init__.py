@@ -13,7 +13,11 @@ kernels K1/K2, the forward rasterizer K4/K5, the bitstream decoder and
 rasterizer K6 and the K3 reduction, Adan, splat control) and the encoder
 (`python -m gsvc_tpu_torch.drivers.represent`, then
 `python -m gsvc_tpu_torch.drivers.compress`: K-frame detection, the QAT
-compress stage and the `.gsvc` bitstream encoder).
+compress stage and the `.gsvc` bitstream encoder), the tile-sharded
+trainer and multi-host GOPs, and the inherited 3D pipeline (EWA
+projection, spherical harmonics and the depth-ordered alpha compositor,
+whose card route is the kernels A1 / A2), the geometry helpers and the
+deprecated `.apply` shims (`legacy.py`): every module of gsvc_tpu.
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,8 @@
 
 (NDC means, Cholesky L) -> pixel centres, conics, radii and tile counts,
 with the reference semantics listed in the JAX module's docstring
-(foward2d.cu:12, helpers.cuh:11-68). Elementwise over N splats: no kernel.
+(foward2d.cu:12, helpers.cuh:11-68), and its scale + rotation twin
+`project_gaussians_2d_scale_rot`. Elementwise over N splats: no kernel.
 """
 
 from __future__ import annotations
@@ -72,6 +73,44 @@ def project_gaussians_2d(
     num_tiles_hit [N] int32. Dead splats (`alive` False) get radius 0 and
     no tiles.
     """
+    l11, l21, l22 = L_elements[:, 0], L_elements[:, 1], L_elements[:, 2]
+    cov2d = torch.stack([l11 * l11, l11 * l21, l21 * l21 + l22 * l22], dim=-1)
+    return _footprint(means2d, cov2d, img_height, img_width, tile_bounds,
+                      block_w, block_h, alive)
+
+
+def project_gaussians_2d_scale_rot(
+    means2d: torch.Tensor,
+    scales2d: torch.Tensor,
+    rotation: torch.Tensor,
+    img_height: int,
+    img_width: int,
+    tile_bounds: Tuple[int, int, int],
+    block_w: int = 16,
+    block_h: int = 16,
+    alive: Optional[torch.Tensor] = None,
+):
+    """The per-axis scale + rotation parameterization
+    (foward2d.cu:71-124): cov = (R S)(R S)^T with R = [[cos, -sin],
+    [sin, cos]] of `rotation` [N] or [N,1] and S = diag(scales2d [N,2]);
+    outputs as `project_gaussians_2d`'s."""
+    rot = rotation.reshape(-1)
+    cos_t, sin_t = torch.cos(rot), torch.sin(rot)
+    sx, sy = scales2d[:, 0], scales2d[:, 1]
+    # M = R S = [[cos*sx, -sin*sy], [sin*sx, cos*sy]]; cov = M M^T.
+    a = cos_t * sx
+    b_ = -sin_t * sy
+    c = sin_t * sx
+    d = cos_t * sy
+    cov2d = torch.stack([a * a + b_ * b_, a * c + b_ * d, c * c + d * d], dim=-1)
+    return _footprint(means2d, cov2d, img_height, img_width, tile_bounds,
+                      block_w, block_h, alive)
+
+
+def _footprint(means2d, cov2d, img_height, img_width, tile_bounds, block_w,
+               block_h, alive):
+    """NDC means and [N,3] covariances -> (xys, depths, radii, conics,
+    num_tiles_hit) of the 2D projections."""
     n = means2d.shape[0]
     # 0.5*size*ndc + 0.5*size per axis, with host scalars (no host-to-device
     # copy, so the path stays capturable in a CUDA graph)
@@ -79,9 +118,6 @@ def project_gaussians_2d(
     xys = torch.stack(
         [hw * means2d[:, 0] + hw, hh * means2d[:, 1] + hh], dim=-1
     )
-
-    l11, l21, l22 = L_elements[:, 0], L_elements[:, 1], L_elements[:, 2]
-    cov2d = torch.stack([l11 * l11, l11 * l21, l21 * l21 + l22 * l22], dim=-1)
     conics, radius_f, ok = compute_cov2d_bounds(cov2d)
 
     if alive is not None:

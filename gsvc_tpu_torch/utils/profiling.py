@@ -12,12 +12,19 @@ alone); `device_busy_ms` sums the device-side events of torch.profiler
 (what the device does, whatever the host costs); `roofline_ms` is the
 least time an H100 could take for a given work.
 
-Every timer fails without a card: a CPU timing is no device number.
+Every device timer fails without a card: a CPU timing is no device
+number. The driver-level helpers of gsvc_tpu's module, `trace` (a
+torch.profiler Chrome trace in place of jax.profiler's), `time_fn` and
+`StepTimer`, time on the host clock and run on either device, syncing a
+CUDA result before they read the clock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import time
 from typing import Callable, Iterator, Optional, Tuple
 
 import torch
@@ -48,6 +55,97 @@ def tensors(tree) -> Iterator[torch.Tensor]:
         tree, (tuple, list)) else ()
     for v in items:
         yield from tensors(v)
+
+
+def _sync_tree(out) -> None:
+    """Wait for the devices of the CUDA tensors in a result tree."""
+    for t in tensors(out):
+        _sync(t)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a torch.profiler trace of the enclosed block (CPU ops, and
+    the card's kernels where there is one) and write it into `log_dir` as
+    a Chrome trace, `trace-<pid>-<ns>.json` (chrome://tracing, Perfetto).
+    Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
+
+
+def time_fn(
+    fn: Callable,
+    *args,
+    iters: int = 100,
+    warmup: int = 2,
+    block_every_call: bool = True,
+) -> float:
+    """Mean wall-clock seconds per call of fn(*args), after `warmup` calls.
+
+    block_every_call=True syncs each call's output (torch.cuda.synchronize
+    on its CUDA tensors), so a call's time includes its device work;
+    False syncs once after the last call.
+    """
+    out = None
+    for _ in range(max(warmup, 1)):
+        out = fn(*args)
+    _sync_tree(out)
+    t0 = time.perf_counter()
+    if block_every_call:
+        for _ in range(iters):
+            _sync_tree(fn(*args))
+    else:
+        for _ in range(iters):
+            out = fn(*args)
+        _sync_tree(out)
+    return (time.perf_counter() - t0) / iters
+
+
+class StepTimer:
+    """Per-phase wall-clock accumulator for driver-level observability.
+
+    Usage:
+        timer = StepTimer()
+        with timer("fit"):   ...
+        with timer("eval", sync=img):  ...
+        print(timer.report())
+    """
+
+    def __init__(self):
+        self.totals: dict = {}
+        self.counts: dict = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str, sync=None):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if sync is not None:
+                _sync_tree(sync)
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def report(self) -> str:
+        lines = []
+        for name, total in sorted(self.totals.items()):
+            n = self.counts[name]
+            lines.append(
+                f"{name}: total {total:.3f}s over {n} calls"
+                f" ({total / n * 1e3:.2f} ms/call)"
+            )
+        return "\n".join(lines)
 
 
 def _require_cuda(what: str, t: Optional[torch.Tensor] = None) -> None:

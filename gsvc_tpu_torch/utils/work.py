@@ -43,6 +43,17 @@ K6_OPS = (16, 36)
 # P5's E (csrc/profile_bwd_variants.cu): dx, dy, the quadratic form,
 # negate, exp and one add, every pair.
 E_OPS = 14
+# A1 and A2 (csrc/rasterize_alpha.cu), each (pixel, lane) pair they
+# evaluate: dx, dy 2, the quadratic form 9, negate and exp 2, alpha's
+# product and min 2, the two gates 2 (17). A1's contributing pair: 1 -
+# alpha, T's product, the break's compare and the weight (4), then the C
+# colour FMAs counted as 2C. A2's contributing pair: 1 - alpha and its
+# reciprocal, T's product and the weight (4), gc's C FMAs and the C colour
+# gradients (3C), v_alpha 4, D's FMA 2, the clamp's compare 1, v_sigma 2,
+# x and y 4 + 4, the conic terms 3 + 2 + 3, opacity 1 (26), and the
+# (6 + C) sums over the tile's pixels, one add a value a pair (6 + C).
+A1_OPS = (17, 4, 2)  # (every evaluated pair, a contributing pair + C x this)
+A2_OPS = (17, 36, 4)
 # Integer operations a slot: K1 decodes a key (a divide, a remainder, a
 # multiply-add, a shift and an or: 6); K2 splits it, compares its tile with
 # its neighbour's and with that of the key `cap` lanes back, and caps it
@@ -222,3 +233,33 @@ def jobs_work(variant: str, sc, num_jobs: int, valid: int):
     if variant == "B":
         return n_bytes + rows_bytes(sc), 3 * 256 * num_jobs
     return n_bytes, E_OPS * pairs(sc)
+
+
+def alpha_work(n: int, c_dim: int, total: int, num_tiles: int, H: int, W: int,
+               return_alpha: bool, counts) -> dict:
+    """{kernel: (bytes, operations)} of A1 and A2 on n splats of c_dim
+    channels with `total` intersections over num_tiles tiles, at H x W;
+    `counts` = (A1's evaluated pairs, contributing pairs, A2's evaluated
+    pairs) of this run's data (`ops.rasterize_alpha_cuda.pair_counts`).
+
+    A1 reads the tile starts and counts, a lane id an intersection, each
+    splat's position, conic, C colours and opacity once, the background,
+    and writes H W (C + return_alpha) floats plus each pixel's T_final and
+    last lane. A2 reads the tile starts, the lane ids, the splats with
+    their slot starts and bboxes, the background, each pixel's T_final,
+    last lane, C image gradients (and alpha gradient), and writes the
+    [6 + C, total] slots and a [tiles, C] background part."""
+    fwd_pairs, contrib, bwd_pairs = counts
+    pix = H * W
+    splat = 4 * (2 + 3 + c_dim + 1)
+    a1_bytes = (8 * num_tiles + 4 * total + n * splat + 4 * c_dim
+                + 4 * pix * (c_dim + int(return_alpha)) + 8 * pix)
+    a2_bytes = (4 * num_tiles + 4 * total + n * (splat + 8) + 4 * c_dim
+                + 4 * pix * (2 + c_dim + int(return_alpha))
+                + 4 * (6 + c_dim) * total + 4 * num_tiles * c_dim)
+    return {
+        "A1 alpha_forward": (a1_bytes, A1_OPS[0] * fwd_pairs
+                             + (A1_OPS[1] + A1_OPS[2] * c_dim) * contrib),
+        "A2 alpha_backward": (a2_bytes, A2_OPS[0] * bwd_pairs
+                              + (A2_OPS[1] + A2_OPS[2] * c_dim) * contrib),
+    }

@@ -442,3 +442,120 @@ def test_train_steps_are_deterministic(dev):
                                                   res.state.params.features_dc, res.image)])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# -- the alpha compositor: A1, A2 and the uncapped depth binning ---------------
+
+
+def _alpha_scene(dev, n, H, W, c_dim, seed, kind=""):
+    """Screen-space splats with depths, radii and conics (gsvc_tpu's test
+    scene), on `dev`; kind "big": wide faint splats, hundreds a tile;
+    "dense": wide splats of opacity 1, whose pixels break early."""
+    big = kind in ("big", "dense")
+    rng = np.random.default_rng(seed)
+    xys = rng.uniform(0, [W, H], (n, 2))
+    depths = rng.uniform(1.0, 10.0, n)
+    lo, hi = (10.0, 14.0) if big else (1.0, 4.0)
+    L = np.stack([rng.uniform(lo, hi, n), rng.normal(0, 0.5, n), rng.uniform(lo, hi, n)], 1)
+    cov = np.stack([L[:, 0] ** 2, L[:, 0] * L[:, 1], L[:, 1] ** 2 + L[:, 2] ** 2], 1)
+    det = cov[:, 0] * cov[:, 2] - cov[:, 1] ** 2
+    conics = np.stack([cov[:, 2] / det, -cov[:, 1] / det, cov[:, 0] / det], 1)
+    tr = 0.5 * (cov[:, 0] + cov[:, 2])
+    radii = np.ceil(3 * np.sqrt(tr + np.sqrt(np.maximum(0.1, tr**2 - det))))
+    radii[::11] = 0
+    colors = rng.uniform(0, 1, (n, c_dim))
+    opacity = {"big": rng.uniform(0.01, 0.05, (n, 1)), "dense": np.ones((n, 1))}.get(
+        kind, rng.uniform(0.3, 1.0, (n, 1)))
+    bg = rng.uniform(0, 1, c_dim)
+    f = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+         for a in (xys, depths, conics, colors, opacity, bg)]
+    return f[0], f[1], torch.as_tensor(radii, dtype=torch.int32, device=dev), *f[2:]
+
+
+_ALPHA = [(120, (33, 47), 3, 0, ""), (200, (64, 80), 5, 1, ""), (90, (40, 56), 40, 2, ""),
+          (700, (48, 48), 3, 3, "big"), (300, (48, 64), 3, 5, "dense"),
+          (0, (20, 30), 3, 4, "")]
+
+
+def _within(a, b, tol):
+    """max |a - b| <= tol x max |b| (true for empty tensors)."""
+    return a.numel() == 0 or float((a - b).abs().max()) <= tol * max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("n,hw,c_dim,seed,kind", _ALPHA)
+def test_alpha_kernels_match_plain_versions(dev, n, hw, c_dim, seed, kind):
+    """A1 against its plain version: image, alpha, T_final atol 1e-5, the last
+    contributing lane exactly; A2's slots and v_background within 1e-4 of the
+    largest entry; both bitwise across two launches; the depth binning's
+    kernel path (K1, K2 at a cap of every intersection) equal to its plain
+    one. The "big" scene puts more than 256 lanes on a tile, the "dense" one
+    stops most pixels early."""
+    from gsvc_tpu_torch.ops import rasterize_alpha_cuda as rac
+
+    H, W = hw
+    xys, depths, radii, conics, colors, opacity, bg = _alpha_scene(dev, n, H, W, c_dim, seed,
+                                                                   kind)
+    tb = ((W + 15) // 16, (H + 15) // 16, 1)
+    db = rac.bin_depth_ordered(xys, depths, radii, tb)
+    plain = rac.bin_depth_ordered(xys, depths, radii, tb, kernels=False)
+    for name in db.binned._fields:
+        assert torch.equal(getattr(db.binned, name), getattr(plain.binned, name)), name
+    if kind == "big":
+        assert int(db.binned.tile_counts.max()) > 256
+    o = db.order
+    splats = (xys[o].contiguous(), conics[o].contiguous(), colors[o].contiguous(),
+              opacity[o].contiguous(), bg)
+    before = rac.alpha_forward.launches
+    got = rac.alpha_forward(db.binned, *splats, H, W, tb, True)
+    torch.cuda.synchronize()
+    assert rac.alpha_forward.launches == before + len(rac.groups(c_dim))
+    want = rac.alpha_forward_torch(db.binned, *splats, H, W, tb, True)
+    for name, a, b in zip(("image", "alpha", "T"), got[:3], want[:3]):
+        assert torch.isfinite(a).all() and float((a - b).abs().max()) <= 1e-5, name
+    assert torch.equal(got[3], want[3])
+    if kind == "dense":  # the pixels break early: A1 walks under half the pairs
+        fwd_pairs = rac.pair_counts(db.binned, splats[0], splats[1], splats[3], H, W, tb)[0]
+        assert fwd_pairs < 0.5 * 256 * db.total
+    again = rac.alpha_forward(db.binned, *splats, H, W, tb, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v_img = torch.randn((H, W, c_dim), device=dev, generator=gen)
+    v_alpha = torch.randn((H, W), device=dev, generator=gen)
+    before = rac.alpha_backward_slots.launches
+    slots, v_bg = rac.alpha_backward_slots(db.binned, *splats, got[2], got[3], v_img, v_alpha,
+                                           H, W, tb)
+    torch.cuda.synchronize()
+    assert rac.alpha_backward_slots.launches == before + len(rac.groups(c_dim))
+    slots_p, v_bg_p = rac.alpha_backward_torch(db.binned, *splats, got[2], v_img, v_alpha,
+                                               H, W, tb)
+    for a, b in ((slots, slots_p), (v_bg, v_bg_p)):
+        assert torch.isfinite(a).all() and _within(a, b, 1e-4)
+    again = rac.alpha_backward_slots(db.binned, *splats, got[2], got[3], v_img, v_alpha,
+                                     H, W, tb)
+    assert torch.equal(slots, again[0]) and torch.equal(v_bg, again[1])
+
+
+def test_alpha_gradients_match_plain_autograd(dev):
+    """The public compositor on the card (A1, A2, K3) against autograd
+    through its plain version (gsvc_tpu's scan) on the card: the image
+    within 1e-4, every gradient within 1e-4 of its largest entry."""
+    from gsvc_tpu_torch.ops import rasterize_alpha
+
+    H, W = 72, 96
+    xys, depths, radii, conics, colors, opacity, bg = _alpha_scene(dev, 400, H, W, 3, 5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    v_img = torch.randn((H, W, 3), device=dev, generator=gen)
+    v_alpha = torch.randn((H, W), device=dev, generator=gen)
+    grads, images = [], []
+    for backend in ("auto", "torch"):
+        leaves = [t.clone().requires_grad_() for t in (xys, conics, colors, opacity, bg)]
+        img, alpha = rasterize_alpha.rasterize_gaussians_alpha(
+            leaves[0], depths, radii, leaves[1], None, leaves[2], leaves[3], H, W,
+            background=leaves[4], return_alpha=True, chunk=64, backend=backend)
+        images.append(img.detach())
+        grads.append(torch.autograd.grad((img * v_img).sum() + (alpha * v_alpha).sum(), leaves))
+    assert float((images[0] - images[1]).abs().max()) <= 1e-4
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
