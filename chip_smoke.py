@@ -14,7 +14,8 @@ the first fault:
    of every kernel, K3's
    cluster size, and the inner-loop instruction mix of K4/K5 and K6 a
    (pixel, lane) pair from the built libraries' SASS (`utils.sass`; "not
-   measured" without cuobjdump);
+   measured" without cuobjdump), failing unless each fast-colour kernel's
+   loop takes one MUFU.EX2 a pair and none of expf's range reduction;
 2. kernels: K1 (fill_decode_keys), K2 (rank_cap_decode), K4 (forward,
    [H,W,3] and the tile-row "rows" store), K5 (forward, [3,H,W]), K6
    (backward into the expansion slots) and K3 (segmented cumsum) on the
@@ -168,18 +169,42 @@ the first fault:
    two launches of A1 and of A2 bitwise equal; `project_gaussians_2d_scale_rot` at 1080p/10k through the eval
    render (K1, K2, K5) within RENDER_TOL of the plain render. Times A1 and
    A2 beside their plain (dense per-tile) versions and their bounds
-   (`utils.work.alpha_work` on this run's evaluated pairs).
+   (`utils.work.alpha_work` on this run's evaluated pairs);
+13. the fast-colour mode (`fast_color=True`, gsvc_tpu's COLOR_BF16): K4
+   image and rows, K5 and K6 on `__expf` on the bench scene, each against
+   its fast plain version (renders max-abs RENDER_TOL off the pixels whose
+   pairs' alpha lies within 1e-4 of the 1/255 gate, `near_gate`, counted,
+   with any flipped pixel named; K6 in each layout and the autograd
+   function's per-splat gradients within GRAD_TOL of the largest entry),
+   two launches of each bitwise equal, against the exact mode (renders
+   max-abs FAST_TOL, gsvc_tpu's stated bound; K6 and the per-splat
+   gradients FAST_GRAD_TOL of the largest entry); then the fast-colour
+   path, counted: the eval render (chw, clipped; `scripts.common.render`)
+   as 100 RenderGraph replays, bitwise its eager render, an image render
+   and a rows L2 loss's gradient, which must launch every fast kernel and
+   no exact K4 / K5 / K6; prints the exact and the fast eval render's
+   replay fps and times the four kernels;
+14. `fit_frame_trace` at 1080p/10k with removal control, TRACE_ITERS its,
+   a render every TRACE_EVERY, its plain steps and traced renders replayed
+   as CUDA graphs, against graph=False: states and images bitwise equal,
+   both graphs replayed; prints ms a step of each;
+15. `gsvc_tpu_torch.scripts.validate_1080p_sharding` on the card: 1920x1080,
+   256 splats, 2 its at 2, 4 and 8 gloo ranks sharing the card (8 shards:
+   ragged spans), each MATCH against the single process within the JAX
+   script's limits.
 
 Around each of phases 3 and 4, around each CLI of phase 6, around the
 mains of phase 7, around each point of phases 8 and 9, around each of
-phase 10's fits and CLIs (in each rank), around each host of phase 11
-and around phase 12's path and its scale + rotation render,
-every launch counter is zeroed just before and read just after (a host
+phase 10's fits and CLIs (in each rank), around each host of phase 11,
+around phase 12's path and its scale + rotation render and around phase
+13's fast-colour path, every launch counter is zeroed just before and read
+just after (a host
 process starts at 0); each kernel of that path must have launched. The
 kernels' JSON reports phase 6's counts for K1-K6, those of phase 9's
 point on the same grid for K1 and K2 on wide keys (1080p: int32, 4K UHD:
 int64), phase 7's for the harnesses' kernels, phase 10b's (rank 0) for K4 rows / image and K6 at the
-2-shard span and phase 12's path for A1 and A2, and each kernel's bound (`utils.work`,
+2-shard span, phase 12's path for A1 and A2 and phase 13's fast-colour
+path for the fast K4 / K5 / K6, and each kernel's bound (`utils.work`,
 `utils.profiling.roofline_ms`) and library call (null where no single
 PyTorch call computes the same function; for K2, the `searchsorted` of its
 tile edges).
@@ -236,7 +261,9 @@ WIDE_CAP = 4
 # kernels; the bytes are compared and printed
 ENCODER_LAUNCHES = {"fill_decode_keys": 18487, "rank_cap_decode": 18487,
                     "forward_rows": 17660, "backward_slots": 17660,
-                    "segmented_cumsum": 17660, "forward_chw": 808, "forward_image": 19}
+                    "segmented_cumsum": 17660, "forward_chw": 808, "forward_image": 19,
+                    "forward_image_fast": 0, "forward_chw_fast": 0, "forward_rows_fast": 0,
+                    "backward_slots_fast": 0}
 ENCODER_SHA256 = ("8e76cbd280e9cef0", "40c8b44f5d5a4e3d", "afe1be16eebdc54a",
                   "0ac06a4d66f84cbc")
 # phase 12: the 3D pipeline's SH degree, the cut size (H, W, N) of A2's check
@@ -244,6 +271,15 @@ ENCODER_SHA256 = ("8e76cbd280e9cef0", "40c8b44f5d5a4e3d", "afe1be16eebdc54a",
 # intermediates) and how near 1e-4 a pixel's T_final lies when its break
 # decision is within rounding (relative)
 PIPE_DEGREE, PIPE_SMALL, ALPHA_CHUNK, NEAR_BREAK = 3, (272, 480, 2000), 64, 1e-3
+# phase 13: the fast-colour mode against the exact one (gsvc_tpu's stated
+# bound for COLOR_BF16, rasterize_pallas.py:280-283; gradients, of the
+# largest entry); phase 14: the trace's iterations and its render interval
+FAST_TOL, FAST_GRAD_TOL = 6.5e-3, 4e-3
+# the fast-colour kernels' counters: phase 13's path launches them, every
+# other path none (the mode is off by default)
+FAST_KERNELS = ("forward_image_fast", "forward_chw_fast", "forward_rows_fast",
+                "backward_slots_fast")
+TRACE_ITERS, TRACE_EVERY = 400, 50
 LIBS = ("fill", "segsum", "rasterize_fwd", "rasterize_bwd", "profile_kernel_parts",
         "profile_bwd_variants", "probe_transpose", "rasterize_alpha")
 NATIVE = ("rans", "yuv")  # host C++ (gsvc_tpu_torch/native), built with g++
@@ -469,10 +505,10 @@ def rd_point_phase(torch, smi, counters, tmp: Path, phase: int, n: int, frames: 
     if "overflow" in err.getvalue():  # a compress WARNING or a represent refit
         fail(f"the RD point of phase {phase} reported an intersection budget overflow")
     launches = {c.__name__: c.launches for c in counters}
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items() if (v <= 0) != (k in FAST_KERNELS)]
     if missing:
-        fail(f"kernels not launched by the RD point of phase {phase}: {missing}; "
-             f"launches {launches}")
+        fail(f"kernels not launched, or fast-colour kernels launched, by the RD point of "
+             f"phase {phase}: {missing}; launches {launches}")
     if point["max_decode_gap_db"] >= rd.DECODE_TOL_DB:
         fail(f"RD point of phase {phase}: decoded PSNR {point['frame_decoded_psnr']} vs "
              f"encoder {point['frame_psnr']} (tol {rd.DECODE_TOL_DB} dB)")
@@ -607,9 +643,10 @@ def profiling_phase(torch, dev, smi, sc, v_rows, counters) -> list:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in every}
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items() if (v <= 0) != (k in FAST_KERNELS)]
     if missing:
-        fail(f"kernels not launched on the profiling path: {missing}; launches {launches}")
+        fail(f"kernels not launched, or fast-colour kernels launched, on the profiling "
+             f"path: {missing}; launches {launches}")
     for k in kernels:
         k["launches"] = launches[k["launches"]]
     print(f"phase 7 profiling path: the six harnesses in {secs:.2f} s; launches {launches}")
@@ -1527,6 +1564,227 @@ def pipeline3d_phase(torch, dev, smi, counters) -> list:
     return rows
 
 
+def fast_color_phase(torch, dev, smi, sc, counters, bounds, gt) -> list:
+    """Phase 13: the fast-colour mode on the bench scene (see the module
+    docstring); returns the kernels JSON's rows of its four kernels."""
+    from gsvc_tpu_torch.ops import rasterize_cuda as rc
+    from gsvc_tpu_torch.ops.rasterize import image_to_rows
+    from gsvc_tpu_torch.scripts.common import render
+    from gsvc_tpu_torch.utils import graphs
+
+    t_phase = time.perf_counter()
+    rargs, tb = sc.rargs, sc.tb
+    bargs, geom = rargs[:5], rargs[5:]
+    src_f, src_b = "gsvc_tpu_torch/csrc/rasterize_fwd.cu", "gsvc_tpu_torch/csrc/rasterize_bwd.cu"
+    with torch.no_grad():
+        # K4 / K5 fast against their plain version, off the pixels near the
+        # alpha gate (counted; a flip there is named), and against the exact mode
+        ref = rc.rasterize_forward_torch(*rargs, fast_color=True)
+        exact = rc.forward_image(*rargs)
+        near = rc.near_gate(sc.binned, sc.xys, sc.conics, sc.opacity, H, W, tb, 256, True)
+        errs, flips, vs_exact = {}, {}, {}
+        for store in ("image", "chw", "rows"):
+            wrapper = rc.FORWARD[store]
+            out = wrapper(*rargs, fast_color=True)
+            if not torch.equal(out, wrapper(*rargs, fast_color=True)):
+                fail(f"phase 13: two launches of the fast {store} forward differ")
+            img = (out if store == "image" else out.permute(1, 2, 0) if store == "chw"
+                   else rc.rows_to_image(out, tb[0], tb[1], H, W))
+            err = (img - ref).abs().amax(-1)
+            errs[store] = float(torch.where(near, 0.0, err).max())
+            flips[store] = [tuple(p) for p in torch.nonzero(err > RENDER_TOL).tolist()]
+            vs_exact[store] = float((img - exact).abs().max())
+            if not (torch.isfinite(out).all() and errs[store] <= RENDER_TOL):
+                fail(f"phase 13: fast {store} forward: max-abs {errs[store]} off the "
+                     f"{int(near.sum())} near-gate pixels > {RENDER_TOL}")
+            if vs_exact[store] > FAST_TOL:
+                fail(f"phase 13: fast {store} forward against the exact mode: max-abs "
+                     f"{vs_exact[store]} > {FAST_TOL}")
+        # K6 fast against its plain version and the exact K6, in each layout
+        gen = torch.Generator(device=dev).manual_seed(13)
+        v_img = torch.randn((H, W, 3), device=dev, generator=gen)
+        v_rows = image_to_rows(v_img, H, W)
+        slots_ref = rc.rasterize_backward_torch(*bargs, v_img, *geom, fast_color=True)
+        k6 = {}
+        for layout, v in (("image", v_img), ("chw", v_img.permute(2, 0, 1).contiguous()),
+                          ("rows", v_rows)):
+            slots = rc.backward_slots(*bargs, v, *geom, layout=layout, fast_color=True)
+            k6[layout] = errors(slots, slots_ref)
+            if not (torch.isfinite(slots).all() and k6[layout][1] <= GRAD_TOL):
+                fail(f"phase 13: fast K6 {layout}: max-abs {k6[layout][0]}, rel "
+                     f"{k6[layout][1]} > {GRAD_TOL}")
+        fast_rows = rc.backward_slots(*bargs, v_rows, *geom, layout="rows", fast_color=True)
+        if not torch.equal(fast_rows, rc.backward_slots(*bargs, v_rows, *geom, layout="rows",
+                                                        fast_color=True)):
+            fail("phase 13: two launches of the fast K6 differ")
+        k6_exact = errors(fast_rows, rc.backward_slots(*bargs, v_rows, *geom, layout="rows"))
+        if k6_exact[1] > FAST_GRAD_TOL:
+            fail(f"phase 13: fast K6 against the exact K6: rel {k6_exact[1]} > {FAST_GRAD_TOL}")
+    # per-splat gradients: the fast autograd function against plain autograd
+    # through the fast plain renderer, and against the exact function
+    wgt = torch.rand((H, W, 3), device=dev, generator=gen) + 0.5
+    per_splat = []
+    for how in ("fast", "plain", "exact"):
+        leaves = [t.clone().requires_grad_() for t in (sc.xys, sc.conics, sc.colors, sc.opacity)]
+        if how == "plain":
+            img = rc.rasterize_forward_torch(sc.binned, *leaves, *geom, fast_color=True)
+        else:
+            img = rc.rasterize_sum(sc.binned, *leaves, *geom, fast_color=how == "fast")
+        per_splat.append(torch.autograd.grad(torch.sum((img - 0.3) ** 2 * wgt), leaves))
+    grad_errs, grad_exact = {}, {}
+    for name, a, b, c in zip(("xys", "conics", "colors", "opacity"), *per_splat):
+        grad_errs[name], grad_exact[name] = errors(a, b), errors(a, c)
+        if not (torch.isfinite(a).all() and grad_errs[name][1] <= GRAD_TOL
+                and grad_exact[name][1] <= FAST_GRAD_TOL):
+            fail(f"phase 13: fast per-splat grad {name}: rel {grad_errs[name][1]} against "
+                 f"plain autograd, {grad_exact[name][1]} against the exact mode")
+
+    # the fast-colour path, counted: the eval render (chw, clipped) as
+    # RenderGraph replays, an image render, and a rows L2 loss's gradient
+    def eval_render(fast: bool):
+        return torch.clamp(render(sc, sc.means, sc.L, sc.colors, "chw", fast), 0.0, 1.0)
+
+    fps = {"exact": [], "fast": []}
+    for how in ("exact", "fast", "fast", "exact"):
+        for c in counters:
+            c.launches = 0
+        with torch.no_grad(), graphs.render_graph(lambda f=how == "fast": eval_render(f), (),
+                                                  dev) as replay:
+            first = replay()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(100):
+                out = replay()
+            end.record()
+            end.synchronize()
+            fps[how].append(100e3 / start.elapsed_time(end))
+            if not torch.equal(out, first):
+                fail(f"phase 13: the {how} eval render's replay differs from its eager render")
+            if how == "fast":
+                with torch.enable_grad():
+                    leaves = [t.clone().requires_grad_() for t in (sc.means, sc.L, sc.colors)]
+                    image = render(sc, *leaves, "image", True)
+                    rows = render(sc, *leaves, "rows", True)
+                    loss = torch.mean((rows - image_to_rows(gt, H, W)) ** 2)
+                    grads = torch.autograd.grad(loss, leaves)
+                torch.cuda.synchronize()
+                launches = {c.__name__: c.launches for c in counters}
+                if not (torch.isfinite(image).all() and all(torch.isfinite(g).all()
+                                                            for g in grads)):
+                    fail("phase 13: the fast-colour path's render or gradients are not finite")
+                fast_run = [k for k in launches if k.endswith("_fast")]
+                if any(launches[k] <= 0 or launches[k[:-5]] for k in fast_run):
+                    fail(f"phase 13: the fast-colour path launched {launches}: want every "
+                         "fast kernel and no exact K4 / K5 / K6")
+    near_n = int(near.sum())
+    rows_out = [
+        timed_row(smi, 13, "K4 forward image, fast colour", src_f,
+                  "gsvc_tpu/ops/rasterize_pallas.py:428", "forward_image_fast",
+                  errs["image"], lambda: rc.forward_image(*rargs, fast_color=True),
+                  lambda: rc.rasterize_forward_torch(*rargs, layout="image", fast_color=True),
+                  bounds["K4 forward image"]),
+        timed_row(smi, 13, "K4 forward rows, fast colour", src_f,
+                  "gsvc_tpu/ops/rasterize_pallas.py:428", "forward_rows_fast",
+                  errs["rows"], lambda: rc.forward_rows(*rargs, fast_color=True),
+                  lambda: rc.rasterize_forward_torch(*rargs, layout="rows", fast_color=True),
+                  bounds["K4 forward rows"]),
+        timed_row(smi, 13, "K5 forward chw, fast colour", src_f,
+                  "gsvc_tpu/ops/rasterize_pallas.py:523", "forward_chw_fast",
+                  errs["chw"], lambda: rc.forward_chw(*rargs, fast_color=True),
+                  lambda: rc.rasterize_forward_torch(*rargs, layout="chw", fast_color=True),
+                  bounds["K5 forward chw"]),
+        timed_row(smi, 13, "K6 backward, fast colour", src_b,
+                  "gsvc_tpu/ops/rasterize_pallas.py:676", "backward_slots_fast",
+                  max(e[0] for e in k6.values()),
+                  lambda: rc.backward_slots(*bargs, v_rows, *geom, layout="rows",
+                                            fast_color=True),
+                  lambda: rc.rasterize_backward_torch(*bargs, v_rows, *geom, layout="rows",
+                                                      fast_color=True),
+                  bounds["K6 backward"]),
+    ]
+    for k in rows_out:
+        k["launches"] = launches[k["launches"]]
+    print(f"phase 13 fast colour [{smi}]: against the fast plain versions, max-abs off "
+          f"{near_n} near-gate pixels " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (tol {RENDER_TOL}), alpha-gate flips (pixels past {RENDER_TOL}) "
+          + ", ".join(f"{k} {len(v)} {v[:8]}" for k, v in flips.items())
+          + "; K6 (max-abs, rel) " + ", ".join(f"{k} ({a:.3g}, {r:.3g})"
+                                               for k, (a, r) in k6.items())
+          + "; per-splat grads vs plain autograd " + ", ".join(
+              f"{k} {r:.3g}" for k, (_a, r) in grad_errs.items())
+          + f" (tol rel {GRAD_TOL}); two launches of each bitwise equal")
+    print(f"phase 13 fast colour [{smi}]: against the exact mode, max-abs "
+          + ", ".join(f"{k} {v:.3g}" for k, v in vs_exact.items())
+          + f" (tol {FAST_TOL}); K6 rel {k6_exact[1]:.3g}, per-splat grads rel "
+          + ", ".join(f"{k} {r:.3g}" for k, (_a, r) in grad_exact.items())
+          + f" (tol {FAST_GRAD_TOL})")
+    print(f"phase 13 time [{smi}]: eval render 1080p/10k chw, 100 replays of its graph, "
+          f"CUDA events: exact {fps['exact']} fps, fast colour {fps['fast']} fps (order "
+          f"exact, fast, fast, exact); the fast-colour path's launches {launches}; phase 13 "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return rows_out
+
+
+def trace_phase(torch, dev, smi, gt) -> None:
+    """Phase 14: `fit_frame_trace` at 1080p/10k with removal control,
+    TRACE_ITERS its, a render every TRACE_EVERY: its plain steps and
+    traced renders as graph replays, against graph=False, bitwise."""
+    from gsvc_tpu_torch.config import FrameConfig
+    from gsvc_tpu_torch.models.represent import fit_frame_trace, init_train_state
+    from gsvc_tpu_torch.utils.graphs import RenderGraph, StepGraph
+
+    cfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=TRACE_ITERS,
+                      isremoval=True)
+    runs = {}
+    for graph in (None, False):
+        state = init_train_state(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+        before = (StepGraph.replays, RenderGraph.replays)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, images = fit_frame_trace(state, gt, cfg, trace_every=TRACE_EVERY,
+                                        draws=torch.Generator(device=dev).manual_seed(1),
+                                        graph=graph)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs[graph] = (final, images, secs,
+                       (StepGraph.replays - before[0], RenderGraph.replays - before[1]))
+    (a, imgs_a, secs_a, rep_a), (b, imgs_b, secs_b, rep_b) = runs[None], runs[False]
+    count = TRACE_ITERS // TRACE_EVERY
+    if imgs_a.shape != (count, H, W, 3) or not torch.isfinite(imgs_a).all():
+        fail(f"phase 14: the trace's images are {tuple(imgs_a.shape)} or not finite")
+    if rep_a[0] == 0 or rep_a[1] != count - 1 or rep_b != (0, 0):
+        fail(f"phase 14: replays (steps, renders) {rep_a} on graphs, {rep_b} with "
+             f"graph=False; want both on graphs ({count - 1} renders), none without")
+    if not (same_fit(torch, a, b) and torch.equal(imgs_a, imgs_b)):
+        fail("phase 14: the trace on graphs differs from the trace with graph=False")
+    print(f"phase 14 trace [{smi}]: fit_frame_trace {TRACE_ITERS} its (removal control), "
+          f"a render every {TRACE_EVERY}: on graphs {1e3 * secs_a / TRACE_ITERS:.3f} ms a "
+          f"step ({rep_a[0]} step and {rep_a[1]} render replays), graph=False "
+          f"{1e3 * secs_b / TRACE_ITERS:.3f} ms a step; states and {count} images bitwise "
+          f"equal; {int(a.alive.sum())} alive")
+
+
+def validation_phase(smi) -> None:
+    """Phase 15: `scripts/validate_1080p_sharding.py`'s twin on the card:
+    2, 4 and 8 gloo ranks sharing it, each MATCH."""
+    import contextlib
+    import io
+
+    from gsvc_tpu_torch.scripts import validate_1080p_sharding as val
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = val.main(["--device", "cuda", "--shards", "2,4,8", "--timeout", "600"])
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"phase 15 validation [{smi}]: {line}")
+    matched = [ln for ln in lines if ln.startswith("--tile_shards") and ln.endswith(" MATCH")]
+    if rc != 0 or len(matched) != 3:
+        fail(f"phase 15: the sharding validation returned {rc}, {len(matched)} of 3 MATCH")
+    print(f"phase 15 validation: {time.perf_counter() - t0:.2f} s with the ranks' starts")
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if argv not in ([], ["--profile"]):
@@ -1598,6 +1856,12 @@ def main() -> int:
             print(f"phase 1 sass {lib}: not measured (no cuobjdump)")
         for kernel, mix in sorted((mixes or {}).items()):
             print(f"phase 1 sass {lib} {sass.describe(kernel, mix)}")
+            # the fast-colour kernels (forward_kernel<., 4>, backward_kernel<., ., 1>):
+            # one MUFU.EX2 a pair and none of expf's range reduction
+            per = mix["per_pair"]
+            if kernel.endswith((",4>", ",1>")) and (per["EXPF"] > 0 or per["MUFU"] != 1):
+                fail(f"phase 1: the fast-colour kernel {kernel} takes expf's range "
+                     f"reduction ({per['EXPF']:.2f} a pair) or {per['MUFU']:.2f} MUFU a pair")
     if argv == ["--profile"]:
         profile_steps(np, torch, dev, smi)
         return 0
@@ -2174,6 +2438,16 @@ def main() -> int:
 
     # -- phase 12: the 3D pipeline: projection, SH, A1, A2 ------------------
     kernels += pipeline3d_phase(torch, dev, smi, counters)
+
+    # -- phase 13: the fast-colour mode: K4, K5 and K6 on __expf ------------
+    torch.set_grad_enabled(True)
+    kernels += fast_color_phase(torch, dev, smi, sc, counters, bounds, gt)
+
+    # -- phase 14: fit_frame_trace on CUDA graphs ---------------------------
+    trace_phase(torch, dev, smi, gt)
+
+    # -- phase 15: the 1080p sharding validation on 2, 4 and 8 ranks --------
+    validation_phase(smi)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,7 +5,8 @@
 // of its tile rows [row0, row0 + num_rows) (the tile-sharded trainer's; the
 // gradient then covers the span alone, in the forward's span shapes).
 // Replaces `_backward_kernel` of gsvc_tpu/ops/rasterize_pallas.py. The kernel is rasterize_bwd.cuh's
-// backward_kernel<layout, kSplit>: a warp per lane with the tile's gradient
+// backward_kernel<layout, kSplit, fast> (`fast`: the fast-colour mode's
+// __expf, the alpha its forward, forward_kernel<layout, kFastExp>, took): a warp per lane with the tile's gradient
 // in registers; its design is at the head of that header. What bounds it
 // on the H100: issuing ~62 instructions a (pixel, lane) pair, the gated
 // part predicated for every pair and a 45-shuffle tree a lane among them,
@@ -27,8 +28,8 @@ GSVC_EXPORT int rasterize_backward(
     const void* gauss_slot_start, const void* bbox_pack, const void* xys,
     const void* conics, const void* colors, const void* opacity,
     const void* v_out, int n, int img_h, int img_w, int tb_x, int tb_y, int row0,
-    int num_rows, int out_h, int cap, int layout, int r_out, long long num_slots,
-    void* out, void* stream) {
+    int num_rows, int out_h, int cap, int layout, int fast, int r_out,
+    long long num_slots, void* out, void* stream) {
   using namespace gsvc_bwd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (row0 < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -53,6 +54,12 @@ GSVC_EXPORT int rasterize_backward(
                row0,
                tb_y,
                out_h};
+  if (fast) {
+    if (layout == kChw) return launch_backward<kChw, kSplit, true>(a, num_rows, s);
+    if (layout == kRows) return launch_backward<kRows, kSplit, true>(a, num_rows, s);
+    if (layout == kImage) return launch_backward<kImage, kSplit, true>(a, num_rows, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (layout == kChw) return launch_backward<kChw, kSplit>(a, num_rows, s);
   if (layout == kRows) return launch_backward<kRows, kSplit>(a, num_rows, s);
   if (layout == kImage) return launch_backward<kImage, kSplit>(a, num_rows, s);

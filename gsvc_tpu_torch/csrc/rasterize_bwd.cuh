@@ -75,7 +75,9 @@ struct Args {
   int row0, tb_y, out_h;
 };
 
-template <int kLayout, int kSplit>
+// kFast: the fast-colour mode's alpha, __expf(-sigma) (ex2.approx of
+// -sigma * log2(e)), as its forward (forward_kernel<layout, kFastExp>) took.
+template <int kLayout, int kSplit, bool kFast = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) backward_kernel(Args a) {
   static_assert(kSplit == 16 || kSplit == 32, "a lane takes half a warp or a warp");
   constexpr int kPer = kPixels / kSplit;              // pixels a thread
@@ -174,7 +176,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) backward_kernel(Args a) 
       const float dy = y - (fy0 + static_cast<float>(p / kTile));
       const float dx = x - (fx0 + static_cast<float>(p % kTile));
       const float sigma = 0.5f * (c1 * dx * dx + c3 * dy * dy) + c2 * dx * dy;
-      const float vis = expf(-sigma);
+      const float vis = kFast ? __expf(-sigma) : expf(-sigma);
       const float alpha_u = op * vis;
       const float alpha = fminf(1.0f, alpha_u);
       if (sigma >= 0.0f && alpha >= kAlphaCutoff) {
@@ -205,17 +207,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) backward_kernel(Args a) 
   }
 }
 
-// Launch backward_kernel<kLayout, kSplit>, one CTA a tile of the span's
+// Launch backward_kernel<kLayout, kSplit, kFast>, one CTA a tile of the span's
 // num_rows rows (the whole grid: a.row0 = 0, num_rows = a.tb_y); the caller
 // zero-fills out, so slots of lanes past the cap, and of tiles outside the
 // span, stay exactly 0. Returns cudaGetLastError().
-template <int kLayout, int kSplit>
+template <int kLayout, int kSplit, bool kFast = false>
 int launch_backward(const Args& a, int num_rows, cudaStream_t stream) {
   if (a.tb_x <= 0 || num_rows <= 0 || a.num_slots <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = sizeof(float) * 3 * kPixels + sizeof(Lane) * static_cast<size_t>(a.cap);
-  backward_kernel<kLayout, kSplit><<<dim3(a.tb_x, num_rows), kThreads, smem, stream>>>(a);
+  backward_kernel<kLayout, kSplit, kFast>
+      <<<dim3(a.tb_x, num_rows), kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

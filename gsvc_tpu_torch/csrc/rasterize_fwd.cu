@@ -4,7 +4,9 @@
 // on the store, over the whole tile grid or a span of its tile rows (the
 // tile-sharded trainer's; gsvc_tpu's `row0_ref` scalar prefetch). Replaces
 // `_forward_kernel` and `_forward_kernel_chw` of
-// gsvc_tpu/ops/rasterize_pallas.py. What bounds it on the H100: issuing
+// gsvc_tpu/ops/rasterize_pallas.py. `fast` selects the fast-colour mode
+// (gsvc_tpu's COLOR_BF16): forward_kernel<layout, kFastExp>, whose alpha
+// takes __expf (ex2.approx of -sigma * log2(e)) in place of expf. What bounds it on the H100: issuing
 // the per-pair arithmetic, ~25 instructions a (pixel, lane) pair (its bound
 // by bytes is under a third of its time). The design (vector lane loads,
 // four pixels a thread, CTAs that prefetch their next chunk of lanes with
@@ -23,7 +25,8 @@ GSVC_EXPORT int rasterize_forward(const void* tile_bin_start,
                                   const void* opacity, int n, int img_h,
                                   int img_w, int tb_x, int tb_y, int row0,
                                   int num_rows, int out_h, int cap, int layout,
-                                  int r_out, int grid, void* out, void* stream) {
+                                  int fast, int r_out, int grid, void* out,
+                                  void* stream) {
   using namespace gsvc_fwd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (row0 < 0 || num_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -36,6 +39,12 @@ GSVC_EXPORT int rasterize_forward(const void* tile_bin_start,
                cap,                                     r_out,
                static_cast<float*>(out),                row0,
                tb_x * tb_y,                             out_h};
+  if (fast) {
+    if (layout == kChw) return launch_forward<kChw, kFastExp>(a, grid, s);
+    if (layout == kRows) return launch_forward<kRows, kFastExp>(a, grid, s);
+    if (layout == kImage) return launch_forward<kImage, kFastExp>(a, grid, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (layout == kChw) return launch_forward<kChw, kFull>(a, grid, s);
   if (layout == kRows) return launch_forward<kRows, kFull>(a, grid, s);
   if (layout == kImage) return launch_forward<kImage, kFull>(a, grid, s);

@@ -1,5 +1,6 @@
 // The forward sum-rasterizer's kernel, shared by K4/K5 (rasterize_fwd.cu:
-// the three stores, kFull) and P1's ablations (profile_kernel_parts.cu:
+// the three stores, kFull, and kFastExp in the fast-colour mode) and P1's
+// ablations (profile_kernel_parts.cu:
 // kFull and five variants of the inner loop, the rows store), so that P1's
 // `full` is K4 by construction.
 //
@@ -46,7 +47,8 @@ constexpr int kRowStep = kTile / kPix;           // its rows ly, ly + 4, ly + 8,
 constexpr int kThreads = kTile * kTile / kPix;   // 64
 constexpr int kChunk = 32;                       // lanes staged at a time
 enum Layout { kImage = 0, kChw = 1, kRows = 2 };
-// P1's variants of the inner loop (profile_kernel_parts.cu); K4/K5 run kFull.
+// P1's variants of the inner loop (profile_kernel_parts.cu); K4/K5 run kFull,
+// and kFastExp in the fast-colour mode (rasterize_fwd.cu).
 enum Variant { kFull = 0, kNoSigma = 1, kNoExp = 2, kNoAcc = 3, kFastExp = 4, kExp2 = 5 };
 
 // One lane in shared memory: x y c1 c2 | c3 opac r g | b and 3 unused.

@@ -693,25 +693,45 @@ def _sharded_graph(graph: Optional[bool], shard) -> Optional[bool]:
 
 def fit_frame_trace(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
                     lambda_value: float = 0.0, trace_every: int = 1,
-                    draws: Draws = None):
+                    draws: Draws = None, graph: Optional[bool] = None):
     """The reference `train_iter_trace` loop (GaussianSplats_Represent.py:
     175-188): cfg.iterations steps with no early stop and the loss lambda
     fixed to 0, keeping the render from the PRE-update parameters of
     iterations trace_every, 2*trace_every, ... (gsvc_tpu's
-    `fit_frame_trace`; `lambda_value` is accepted and ignored there too).
-    Every step runs eagerly.
+    `fit_frame_trace`, two nested `lax.scan`s; `lambda_value` is accepted
+    and ignored there too).
+
+    `graph` as in `fit_frame_partial`: on a card (None) the plain steps
+    replay one `utils.graphs.StepGraph` and the traced renders one
+    `RenderGraph`, whose inputs (the splats and the mask) are copied in
+    from the state before each replay, so a control step that rebuilds
+    them is seen; False runs every step and render eagerly, with the same
+    bits; True on the CPU raises.
 
     Returns (final state, images [iterations // trace_every, H, W, 3])."""
     del lambda_value
     plan = fit_plan(state, gt, state.it + cfg.iterations, cfg, 0.0, draws)
-    images = []
-    for i in range(cfg.iterations):
-        if (i + 1) % trace_every == 0:
-            images.append(render_frame(state.params, state.alive, cfg))
-        state = plan.step(state)
-    if not images:
-        return state, gt.new_zeros((0, cfg.H, cfg.W, 3))
-    return state, torch.stack(images)
+    images = gt.new_empty((cfg.iterations // trace_every, cfg.H, cfg.W, 3))
+
+    def splats(s: TrainState) -> tuple:
+        p = s.params
+        return p.xyz, p.cholesky, p.features_dc, p.rgb_w, s.alive
+
+    with torch.no_grad():
+        frame = GaussianFrame(*(t.detach().clone() for t in splats(state)[:4]))
+        frame.requires_grad_(False)
+        alive = state.alive.clone()
+    inputs = (frame.xyz, frame.cholesky, frame.features_dc, frame.rgb_w, alive)
+    with graphs.render_graph(lambda *_: render_frame(frame, alive, cfg), inputs,
+                             gt.device, graph) as traced:
+        @torch.no_grad()
+        def trace(s: TrainState, k: int) -> None:  # before the fit's step k (0-based)
+            if (k + 1) % trace_every == 0:
+                traced.load(*splats(s))
+                images[(k + 1) // trace_every - 1].copy_(traced())
+
+        state = graphs.run_fit(state, plan, gt.device, graph, before=trace)
+    return state, images
 
 
 def pre_train_plan(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,

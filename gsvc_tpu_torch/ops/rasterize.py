@@ -68,6 +68,7 @@ def rasterize_gaussians_sum(
     max_intersects: Optional[int] = None,
     tile_rows=None,
     layout: str = "image",
+    fast_color: bool = False,
 ):
     """Accumulation rasterizer: [H, W, C] ("image"), [3, H, W] ("chw"), or
     ("rows", 3 channels) the [tb_y * round8(3*tb_x), BLOCK_H*BLOCK_W]
@@ -85,6 +86,10 @@ def rasterize_gaussians_sum(
       background (forward.cu:621-624);
     - `return_alpha` returns zeros (the sum kernel never updates
       transmittance).
+    `fast_color` (gsvc_tpu's COLOR_BF16 mode, an argument here) renders
+    through the fast-colour kernels and their gradient ("cuda"; their
+    plain versions on "torch"): `ops/rasterize_cuda.py`. Off, every path
+    is as it was, bit for bit.
     """
     del depths
     if backend not in BACKENDS:
@@ -118,6 +123,8 @@ def rasterize_gaussians_sum(
     if backend == "dense":
         if tile_rows is not None:
             raise ValueError("tile_rows unsupported for the dense oracle")
+        if fast_color:
+            raise ValueError("fast_color unsupported for the dense oracle")
         from gsvc_tpu_torch.ops.rasterize_dense import rasterize_gaussians_sum_dense
 
         img = rasterize_gaussians_sum_dense(
@@ -139,10 +146,12 @@ def rasterize_gaussians_sum(
         args = (binned, xys, conics, colors, opacity, img_height, img_width,
                 tile_bounds, BLOCK_W, BLOCK_H, TILE_CAP)
         if use_kernels:
-            img = rasterize_cuda.rasterize_sum(*args, layout=layout, tile_rows=tile_rows)
+            img = rasterize_cuda.rasterize_sum(*args, layout=layout, tile_rows=tile_rows,
+                                               fast_color=fast_color)
         else:
             img = rasterize_cuda.rasterize_forward_torch(*args, layout=layout,
-                                                         tile_rows=tile_rows)
+                                                         tile_rows=tile_rows,
+                                                         fast_color=fast_color)
 
     # zero-intersect fast path as an arithmetic select (no host sync)
     live = (total >= 1).to(img.dtype)

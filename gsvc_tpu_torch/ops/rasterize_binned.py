@@ -18,6 +18,19 @@ from gsvc_tpu_torch.ops.rasterize_dense import ALPHA_CUTOFF, _min1_forward_only
 # Tiles per step: each materialises [TILE_CHUNK, cap, block_h * block_w]
 # floats (16 MB at cap 256 and 16x16 tiles).
 TILE_CHUNK = 64
+# log2(e) rounded to float32, the constant of the card's __expf (exact as a
+# Python float, so a float32 product with it rounds once)
+LOG2E = 1.4426950216293335
+
+
+def splat_vis(sigma: torch.Tensor, fast_color: bool = False) -> torch.Tensor:
+    """exp(-sigma); with `fast_color`, the fast-colour kernels' __expf(-sigma)
+    as the card computes it: ex2.approx of the float32 product -sigma *
+    log2(e), here exp2 of that product. What the emulation leaves out is
+    ex2.approx's own error, ~2 ulp of the result."""
+    if not fast_color:
+        return torch.exp(-sigma)
+    return torch.exp2(sigma * -LOG2E)
 
 
 def tile_lane_ids(binned: BinnedSplats, cap: int, n: int) -> torch.Tensor:
@@ -87,13 +100,15 @@ def rasterize_binned(
     block_h: int = 16,
     cap: int = 256,
     tile_rows: Optional[Tuple[int, int]] = None,
+    fast_color: bool = False,
 ) -> torch.Tensor:
     """Render [H, W, C] from binned splats, TILE_CHUNK tiles at a time.
 
     tile_rows=(row0, num_rows) renders only tile rows [row0, row0 +
     num_rows) of the grid, in the grid's pixel coordinates (the binning
     stays the whole frame's): [span_height, W, C], zero at pixel rows at
-    or past H (`span_height`)."""
+    or past H (`span_height`). `fast_color` takes the fast-colour
+    kernels' exponential (`splat_vis`)."""
     dev, dtype = xys.device, xys.dtype
     n = xys.shape[0]
     c_dim = colors.shape[-1]
@@ -122,7 +137,7 @@ def rasterize_binned(
             0.5 * (gco[..., 0:1] * dx * dx + gco[..., 2:3] * dy * dy)
             + gco[..., 1:2] * dx * dy
         )
-        alpha = _min1_forward_only(opac_p[g][:, :, None] * torch.exp(-sigma))
+        alpha = _min1_forward_only(opac_p[g][:, :, None] * splat_vis(sigma, fast_color))
         w = torch.where((sigma >= 0.0) & (alpha >= ALPHA_CUTOFF), alpha, 0.0)
         out[t0:t1] = torch.einsum("tkc,tkp->tpc", colors_p[g], w)
     img = (

@@ -21,8 +21,7 @@ column so each lane load serves four pairs, and each CTA of a grid of
 FWD_CTAS_PER_SM CTAs of 64 threads an SM (`forward_grid`: tiles in a
 static stride) gathers the next 32 lanes, of its tile or of its next
 tile, with cp.async into a second 3 KiB shared buffer while the current
-ones compute. `expf`, not `__expf`: fast math belongs to the later
-fast-colour mode.
+ones compute. `expf`, not `__expf`, but in the fast-colour mode (below).
 
 Backward. Replaces `_backward_kernel` (K6) and the permutation-inverting
 `_reduce_lane_grads` of rasterize_pallas.py. Each lane's 9 gradients
@@ -44,6 +43,18 @@ needed. The slot buffer is zero-filled, so lanes past the per-tile cap keep
 exact zeros in their real slots. K3 then takes a segmented cumsum over the
 slots, and each splat's total is read at the last slot of its span.
 Deterministic: fixed order everywhere, no atomics.
+
+The fast-colour mode (`fast_color=True`; gsvc_tpu's COLOR_BF16,
+rasterize_pallas.py:279-287) trades the same sum render, to a stated
+tolerance, for speed. On the TPU it runs the colour and gradient matmuls
+as single bf16 MXU passes and relays the CHW store out in bf16 (max
+~6.5e-3 absolute, its stated bound). The card has no such matmul to
+cheapen: its lever of that class, the reference's --use_fast_math, is the
+exponential. So the mode's kernels are K4, K5 and K6 with `__expf(-sigma)`
+(one FMUL by log2(e) and MUFU.EX2) in place of `expf` (forward_kernel<.,
+kFastExp>, backward_kernel<., ., true>), forward and backward on the same
+alpha; their plain versions take `splat_vis(sigma, True)`. Off by default;
+each fast kernel counts its launches apart (`<wrapper>.fast.launches`).
 
 Every forward and K6 takes a tile-row span, `tile_rows=(row0, num_rows)`
 (gsvc_tpu's `row0_ref` scalar prefetch, for the tile-sharded trainer):
@@ -72,6 +83,7 @@ from gsvc_tpu_torch.ops.rasterize_binned import (
     rasterize_binned,
     span_height,
     span_lane_ids,
+    splat_vis,
     tile_span,
     zrow,
 )
@@ -136,14 +148,15 @@ def rasterize_forward_torch(
     binned: BinnedSplats, xys, conics, colors, opacity,
     img_height: int, img_width: int, tile_bounds: Tuple[int, int, int],
     block_w: int = 16, block_h: int = 16, cap: int = 256,
-    layout: str = "image", tile_rows=None,
+    layout: str = "image", tile_rows=None, fast_color: bool = False,
 ) -> torch.Tensor:
     """Plain version of K4/K5: the binned renderer in the chosen layout, over
     the grid or the tile-row span `tile_rows` (`span_height` pixel rows in
-    "image" / "chw", num_rows blocks of rows in "rows")."""
+    "image" / "chw", num_rows blocks of rows in "rows"); `fast_color`: of
+    their fast-colour variants."""
     img = rasterize_binned(
         binned, xys, conics, colors, opacity, img_height, img_width,
-        tile_bounds, block_w, block_h, cap, tile_rows,
+        tile_bounds, block_w, block_h, cap, tile_rows, fast_color,
     )
     if layout == "chw":
         return img.permute(2, 0, 1).contiguous()
@@ -153,33 +166,48 @@ def rasterize_forward_torch(
     return img
 
 
+class FastCounter:
+    """The launch count of a wrapper's fast-colour kernel, which the wrapper
+    launches with `fast_color=True` (`<wrapper>.fast`); named as the
+    wrappers are in `utils.graphs.launch_counts`."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
 def _forward_wrapper(layout: str, doc: str):
     def wrapper(binned, xys, conics, colors, opacity, img_height, img_width,
-                tile_bounds, block_w=16, block_h=16, cap=256, tile_rows=None):
+                tile_bounds, block_w=16, block_h=16, cap=256, tile_rows=None,
+                fast_color=False):
         if not xys.is_cuda:
             return rasterize_forward_torch(
                 binned, xys, conics, colors, opacity, img_height, img_width,
-                tile_bounds, block_w, block_h, cap, layout, tile_rows,
+                tile_bounds, block_w, block_h, cap, layout, tile_rows, fast_color,
             )
         out = _launch_forward(binned, xys, conics, colors, opacity, img_height,
                               img_width, tile_bounds, block_w, block_h, cap,
-                              layout, tile_rows)
-        wrapper.launches += 1
+                              layout, tile_rows, fast_color)
+        (wrapper.fast if fast_color else wrapper).launches += 1
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = f"forward_{layout}"
     wrapper.__doc__ = doc
     wrapper.launches = 0
+    wrapper.fast = FastCounter(f"forward_{layout}_fast")
     return wrapper
 
 
+_FAST_DOC = " fast_color=True launches the fast-colour variant."
 forward_image = _forward_wrapper(
-    "image", "K4: the sum render as [H, W, 3] (a tile-row span: [span_height, W, 3]).")
+    "image", "K4: the sum render as [H, W, 3] (a tile-row span: [span_height, W, 3])."
+    + _FAST_DOC)
 forward_chw = _forward_wrapper(
-    "chw", "K5: the sum render as planar [3, H, W] (a span: [3, span_height, W]).")
+    "chw", "K5: the sum render as planar [3, H, W] (a span: [3, span_height, W])."
+    + _FAST_DOC)
 forward_rows = _forward_wrapper(
     "rows", "K4, rows store: the sum render as `image_to_rows` blocks (a span's "
-    "num_rows blocks).")
+    "num_rows blocks)." + _FAST_DOC)
 FORWARD = {"image": forward_image, "chw": forward_chw, "rows": forward_rows}
 
 
@@ -215,7 +243,7 @@ def check_inputs(what, binned, xys, conics, colors, opacity, tile_bounds,
 
 def _launch_forward(binned, xys, conics, colors, opacity, img_height,
                     img_width, tile_bounds, block_w, block_h, cap,
-                    layout, tile_rows) -> torch.Tensor:
+                    layout, tile_rows, fast_color) -> torch.Tensor:
     dev = xys.device
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
     row0, num_rows = tile_span(tile_rows, tb_y)
@@ -240,7 +268,7 @@ def _launch_forward(binned, xys, conics, colors, opacity, img_height,
         rc = lib.rasterize_forward(
             *(_build.ptr(t) for t in i32 + f32), xys.shape[0], img_height,
             img_width, tb_x, tb_y, row0, num_rows, out_h, cap, _LAYOUT_ID[layout],
-            r_out, grid, _build.ptr(out), _build.stream_ptr(dev),
+            int(fast_color), r_out, grid, _build.ptr(out), _build.stream_ptr(dev),
         )
     _build.check(lib, rc, "rasterize_forward")
     return out
@@ -257,7 +285,7 @@ def _fwd_lib() -> ctypes.CDLL:
     if not getattr(lib, "_gsvc_bound", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.rasterize_forward.restype = i32
-        lib.rasterize_forward.argtypes = [vp] * 7 + [i32] * 12 + [vp, vp]
+        lib.rasterize_forward.argtypes = [vp] * 7 + [i32] * 13 + [vp, vp]
         lib._gsvc_bound = True
     return lib
 
@@ -302,13 +330,13 @@ def rasterize_backward_torch(
     binned: BinnedSplats, xys, conics, colors, opacity, v_out,
     img_height: int, img_width: int, tile_bounds: Tuple[int, int, int],
     block_w: int = 16, block_h: int = 16, cap: int = 256,
-    layout: str = "image", tile_rows=None,
+    layout: str = "image", tile_rows=None, fast_color: bool = False,
 ) -> torch.Tensor:
     """Plain version of K6: per-slot gradients [9, S] (rows x y c1 c2 c3
     opac r g b, columns the expansion slots; zero where no lane wrote), in
     chunks of TILE_CHUNK tiles of dense [tiles, cap, pixels] math. With
     `tile_rows`, v_out covers that span (the forward's shapes) and only its
-    tiles' lanes write."""
+    tiles' lanes write; `fast_color`: of K6's fast-colour variant."""
     dev, dtype = xys.device, torch.float32
     n = xys.shape[0]
     s = binned.sorted_gauss_ids.shape[0]
@@ -318,17 +346,52 @@ def rasterize_backward_torch(
     vt = grad_tiles(v_out.to(dtype), layout, img_height, img_width, tb_x,
                     tb_y, block_w, block_h, tile_rows)
 
+    out = torch.zeros((GRAD_FIELDS, s + 1), dtype=dtype, device=dev)
+    if n == 0:  # no splat, no lane writes
+        return out[:, :s]
     ids = span_lane_ids(binned, cap, n, tb_x, tb_y, tile_rows)  # [span tiles, cap]
     splats = padded_splats(xys, conics, colors, opacity)
-    out = torch.zeros((GRAD_FIELDS, s + 1), dtype=dtype, device=dev)
     for t0 in range(0, num_tiles, TILE_CHUNK):
         t1 = min(t0 + TILE_CHUNK, num_tiles)
         tids = torch.arange(row0 * tb_x + t0, row0 * tb_x + t1, device=dev)  # grid tiles
         g = ids[t0:t1]  # [tc, cap]
-        grads = lane_grads(g, tids, vt[t0:t1], splats, tb_x, block_w, block_h)
+        grads = lane_grads(g, tids, vt[t0:t1], splats, tb_x, block_w, block_h,
+                           fast_color)
         slots = lane_slots(binned, g, tids, tb_x, n)
         out[:, slots.reshape(-1)] = grads.reshape(GRAD_FIELDS, -1)
     return out[:, :s]
+
+
+def near_gate(binned: BinnedSplats, xys, conics, opacity, img_height: int,
+              img_width: int, tile_bounds: Tuple[int, int, int], cap: int = 256,
+              fast_color: bool = False, rel: float = 1e-4) -> torch.Tensor:
+    """[H, W] bool: the pixels one of whose pairs (a lane of the tile's
+    first `cap`, sigma >= 0) has an alpha within `rel` (relative) of the
+    cutoff 1/255. There a kernel and its plain version, whose sigma and
+    exponential differ by a few ulp, may gate the pair differently: a flip
+    moves the pixel by the pair's rgb * alpha, up to ~3.9e-3."""
+    n = xys.shape[0]
+    tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
+    ids = span_lane_ids(binned, cap, n, tb_x, tb_y)
+    xys_p, conics_p, _c, opac_p = padded_splats(xys, conics, xys.new_zeros((n, 3)), opacity)
+    dev, dtype = xys_p.device, xys_p.dtype
+    local_y = torch.arange(TILE, dtype=dtype, device=dev).repeat_interleave(TILE)
+    local_x = torch.arange(TILE, dtype=dtype, device=dev).repeat(TILE)
+    near = torch.zeros((tb_x * tb_y, TILE * TILE), dtype=torch.bool, device=dev)
+    for t0 in range(0, tb_x * tb_y, TILE_CHUNK):
+        tids = torch.arange(t0, min(t0 + TILE_CHUNK, tb_x * tb_y), device=dev)
+        g = ids[tids]
+        px = ((tids % tb_x) * TILE).to(dtype)[:, None] + local_x  # [tc, pix]
+        py = ((tids // tb_x) * TILE).to(dtype)[:, None] + local_y
+        dx = xys_p[g, 0][:, :, None] - px[:, None, :]  # [tc, cap, pix]
+        dy = xys_p[g, 1][:, :, None] - py[:, None, :]
+        c1, c2, c3 = (conics_p[g, i][:, :, None] for i in range(3))
+        sigma = 0.5 * (c1 * dx * dx + c3 * dy * dy) + c2 * dx * dy
+        alpha = torch.clamp(opac_p[g][:, :, None] * splat_vis(sigma, fast_color), max=1.0)
+        close = (alpha - ALPHA_CUTOFF).abs() <= rel * ALPHA_CUTOFF
+        near[tids] = ((sigma >= 0.0) & close & (g < n)[:, :, None]).any(1)
+    img = near.reshape(tb_y, tb_x, TILE, TILE).permute(0, 2, 1, 3)
+    return img.reshape(tb_y * TILE, tb_x * TILE)[:img_height, :img_width]
 
 
 def padded_splats(xys, conics, colors, opacity):
@@ -340,11 +403,12 @@ def padded_splats(xys, conics, colors, opacity):
 
 
 def lane_grads(g, tids, v, splats, tb_x: int, block_w: int = 16,
-               block_h: int = 16) -> torch.Tensor:
+               block_h: int = 16, fast_color: bool = False) -> torch.Tensor:
     """[9, tc, k] gradients (x y c1 c2 c3 opac r g b) of the lanes with
     splat ids g [tc, k] (into `padded_splats`) in tiles tids [tc], each
     summed over its tile's pixels against the tile's image gradient
-    v [tc, pix, 3]: K6's per-pair math as dense [tc, k, pix] tensors."""
+    v [tc, pix, 3]: K6's per-pair math as dense [tc, k, pix] tensors
+    (`fast_color`: its fast-colour variant's exponential)."""
     xys_p, conics_p, colors_p, opac_p = splats
     dtype, dev = xys_p.dtype, xys_p.device
     local_y = torch.arange(block_h, dtype=dtype, device=dev).repeat_interleave(block_w)
@@ -355,7 +419,7 @@ def lane_grads(g, tids, v, splats, tb_x: int, block_w: int = 16,
     dy = xys_p[g, 1][:, :, None] - py[:, None, :]
     c1, c2, c3 = (conics_p[g, i][:, :, None] for i in range(3))
     sigma = 0.5 * (c1 * dx * dx + c3 * dy * dy) + c2 * dx * dy
-    vis = torch.exp(-sigma)
+    vis = splat_vis(sigma, fast_color)
     alpha_u = opac_p[g][:, :, None] * vis
     alpha = torch.clamp(alpha_u, max=1.0)
     valid = (sigma >= 0.0) & (alpha >= ALPHA_CUTOFF)
@@ -375,14 +439,17 @@ def lane_grads(g, tids, v, splats, tb_x: int, block_w: int = 16,
 
 def backward_slots(binned, xys, conics, colors, opacity, v_out, img_height,
                    img_width, tile_bounds, block_w=16, block_h=16, cap=256,
-                   layout="image", tile_rows=None):
+                   layout="image", tile_rows=None, fast_color=False):
     """K6: the image gradient `v_out` (in `layout`; over the tile-row span
     `tile_rows`, in the forward's span shapes) -> per-slot gradients [9, S],
-    zero in every slot no lane below the cap of the span's tiles owns."""
+    zero in every slot no lane below the cap of the span's tiles owns.
+    fast_color=True launches the fast-colour variant (the gradient of the
+    fast-colour forward)."""
     if not xys.is_cuda:
         return rasterize_backward_torch(
             binned, xys, conics, colors, opacity, v_out, img_height,
             img_width, tile_bounds, block_w, block_h, cap, layout, tile_rows,
+            fast_color,
         )
     dev = xys.device
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
@@ -409,14 +476,16 @@ def backward_slots(binned, xys, conics, colors, opacity, v_out, img_height,
         rc = lib.rasterize_backward(
             *(_build.ptr(t) for t in i32 + f32), _build.ptr(v), xys.shape[0],
             img_height, img_width, tb_x, tb_y, row0, num_rows, out_h, cap,
-            _LAYOUT_ID[layout], r_out, s, _build.ptr(out), _build.stream_ptr(dev),
+            _LAYOUT_ID[layout], int(fast_color), r_out, s, _build.ptr(out),
+            _build.stream_ptr(dev),
         )
     _build.check(lib, rc, "rasterize_backward")
-    backward_slots.launches += 1
+    (backward_slots.fast if fast_color else backward_slots).launches += 1
     return out
 
 
 backward_slots.launches = 0
+backward_slots.fast = FastCounter("backward_slots_fast")
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -424,7 +493,7 @@ def _bwd_lib() -> ctypes.CDLL:
     if not getattr(lib, "_gsvc_bound", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.rasterize_backward.restype = i32
-        lib.rasterize_backward.argtypes = [vp] * 10 + [i32] * 11 + [i64, vp, vp]
+        lib.rasterize_backward.argtypes = [vp] * 10 + [i32] * 12 + [i64, vp, vp]
         lib._gsvc_bound = True
     return lib
 
@@ -463,13 +532,17 @@ class RasterizeSum(torch.autograd.Function):
     Forward: K4 / K5 / K4-rows by layout. Backward: K6 into the slots,
     then the K3 reduction. Saves the inputs and the binning; the forward's
     per-lane data is not kept (K6 gathers it again). `tile_rows` renders
-    a tile-row span, whose gradient reaches only the span's lanes."""
+    a tile-row span, whose gradient reaches only the span's lanes;
+    `fast_color` runs the fast-colour variants both ways."""
 
     @staticmethod
-    def forward(ctx, xys, conics, colors, opacity, binned, geom, layout, tile_rows):
-        out = FORWARD[layout](binned, xys, conics, colors, opacity, *geom, tile_rows)
+    def forward(ctx, xys, conics, colors, opacity, binned, geom, layout, tile_rows,
+                fast_color):
+        out = FORWARD[layout](binned, xys, conics, colors, opacity, *geom, tile_rows,
+                              fast_color)
         ctx.save_for_backward(xys, conics, colors, opacity, *binned)
         ctx.geom, ctx.layout, ctx.tile_rows = geom, layout, tile_rows
+        ctx.fast_color = fast_color
         return out
 
     @staticmethod
@@ -477,29 +550,32 @@ class RasterizeSum(torch.autograd.Function):
         xys, conics, colors, opacity, *b = ctx.saved_tensors
         need = ctx.needs_input_grad[:4]
         if not any(need):
-            return (None,) * 8
+            return (None,) * 9
         binned = BinnedSplats(*b)
         vslots = backward_slots(binned, xys, conics, colors, opacity,
-                                v_out.contiguous(), *ctx.geom, ctx.layout, ctx.tile_rows)
+                                v_out.contiguous(), *ctx.geom, ctx.layout, ctx.tile_rows,
+                                ctx.fast_color)
         grads = reduce_slot_grads(vslots, binned.gauss_slot_start)
         grads = [g.reshape(t.shape).to(t.dtype) if nd else None
                  for g, t, nd in zip(grads, (xys, conics, colors, opacity), need)]
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def rasterize_sum(binned: BinnedSplats, xys, conics, colors, opacity,
                   img_height: int, img_width: int,
                   tile_bounds: Tuple[int, int, int], block_w: int = 16,
                   block_h: int = 16, cap: int = 256, layout: str = "image",
-                  tile_rows=None):
+                  tile_rows=None, fast_color: bool = False):
     """Differentiable sum render through the kernel wrappers, over the grid
-    or the tile-row span `tile_rows` (`span_height`)."""
+    or the tile-row span `tile_rows` (`span_height`); `fast_color` takes
+    the fast-colour variants."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
     geom = (img_height, img_width, tuple(tile_bounds), block_w, block_h, cap)
     if not (torch.is_grad_enabled() and any(
             t.requires_grad for t in (xys, conics, colors, opacity))):
         # an eval render: no autograd node, no saved tensors
-        return FORWARD[layout](binned, xys, conics, colors, opacity, *geom, tile_rows)
+        return FORWARD[layout](binned, xys, conics, colors, opacity, *geom, tile_rows,
+                               fast_color)
     return RasterizeSum.apply(xys, conics, colors, opacity, binned, geom, layout,
-                              tile_rows)
+                              tile_rows, fast_color)

@@ -113,13 +113,16 @@ def synthetic_key_inputs(n: int, tb, budget: int, seed: int, device="cpu",
                      kept_nth.sum(dtype=torch.int32), budget, tb[0], tb[0] * tb[1])
 
 
-def render(sc: Scene, means, L, colors, layout: str = "image") -> torch.Tensor:
+def render(sc: Scene, means, L, colors, layout: str = "image",
+           fast_color: bool = False) -> torch.Tensor:
     """The harnesses' forward: projection and the full API render through
-    the kernels (backend "cuda", the scene's budget), differentiable."""
+    the kernels (backend "cuda", the scene's budget), differentiable;
+    `fast_color` through the fast-colour kernels (bench.py's
+    `--color-bf16`)."""
     xys, depths, radii, conics, nth = project_gaussians_2d(means, L, sc.H, sc.W, sc.tb)
     return rasterize_gaussians_sum(xys, depths, radii, conics, nth, colors, sc.opacity,
                                    sc.H, sc.W, backend="cuda", layout=layout,
-                                   max_intersects=sc.budget)
+                                   max_intersects=sc.budget, fast_color=fast_color)
 
 
 def slot_owners(gauss_slot_start: torch.Tensor, s: int) -> torch.Tensor:

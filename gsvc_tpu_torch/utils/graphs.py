@@ -134,13 +134,17 @@ class FitPlan(NamedTuple):
 
 
 def run_fit(state: T, plan: FitPlan, device, graph: Optional[bool],
-            stop: Optional[Callable[[T], bool]] = None) -> T:
+            stop: Optional[Callable[[T], bool]] = None,
+            before: Optional[Callable[[T, int], None]] = None) -> T:
     """The steps of `plan` from `state`: eager steps by plan.step, plain ones
     through `runner(device, graph)`; `stop(state)`, asked after each step,
-    ends the fit early. The graph is freed when the fit returns."""
+    ends the fit early; `before(state, k)` runs before the fit's k-th step
+    (0-based). The graph is freed when the fit returns."""
     eager_steps = (eager for _first, count, eager in plan.runs for _ in range(count))
     with runner(device, graph) as run:
-        for eager in eager_steps:
+        for k, eager in enumerate(eager_steps):
+            if before is not None:
+                before(state, k)
             if eager:
                 state = plan.step(state)
             else:
@@ -151,13 +155,14 @@ def run_fit(state: T, plan: FitPlan, device, graph: Optional[bool],
 
 
 def kernel_counters() -> tuple:
-    """The kernel wrappers whose `launches` a replay adds to."""
+    """The kernel wrappers whose `launches` a replay adds to, and the
+    counters of their fast-colour kernels."""
     from gsvc_tpu_torch.ops import fill_cuda, rasterize_cuda
 
+    raster = (rasterize_cuda.forward_image, rasterize_cuda.forward_chw,
+              rasterize_cuda.forward_rows, rasterize_cuda.backward_slots)
     return (fill_cuda.fill_decode_keys, fill_cuda.rank_cap_decode,
-            fill_cuda.segmented_cumsum, rasterize_cuda.forward_image,
-            rasterize_cuda.forward_chw, rasterize_cuda.forward_rows,
-            rasterize_cuda.backward_slots)
+            fill_cuda.segmented_cumsum, *raster, *(w.fast for w in raster))
 
 
 def launch_counts() -> dict:

@@ -7,6 +7,9 @@ backward branch that holds no other) with the most `MUFU.EX2`; each pair
 evaluates one exponential, so a count over the loop divided by its
 `MUFU.EX2` count is a count a pair. Counts are static: a gated branch
 inside the loop counts in full, whether or not a pair takes it.
+`EXPF` counts the range reduction of the accurate `expf` (its `FFMA.SAT`
+and `FFMA.RM`); `__expf`, the fast-colour mode's, has none: one `FMUL` by
+log2(e) before its `MUFU.EX2`.
 
     python -m gsvc_tpu_torch.utils.sass build/librasterize_fwd-<hash>.so
 
@@ -32,7 +35,8 @@ _FUNC = re.compile(r"^\s*Function\s*:\s*(\S+)")
 _INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b")
-_NAME = re.compile(r"\d([A-Za-z_]+_kernel)I((?:Li-?\d+E)+)E")
+_NAME = re.compile(r"\d([A-Za-z_]+_kernel)I((?:L[ib]-?\d+E)+)E")
+EXPF_REDUCTION = ("FFMA.SAT", "FFMA.RM")
 
 Instr = Tuple[int, str, Optional[int]]  # address, opcode, branch target
 
@@ -103,16 +107,18 @@ def loop_mix(instrs: List[Instr]) -> Optional[dict]:
     counts = Counter(op.split(".")[0] for _a, op, _t in body)
     pairs = sum(op == "MUFU.EX2" for _a, op, _t in body)
     per_pair = {c: counts[c] / pairs for c in CLASSES}
+    per_pair["EXPF"] = sum(op.startswith(EXPF_REDUCTION) for _a, op, _t in body) / pairs
     per_pair["all"] = len(body) / pairs
     return {"instructions": len(body), "pairs": pairs, "per_pair": per_pair}
 
 
 def pretty(name: str) -> str:
-    """`forward_kernel<2,0>` for a mangled template kernel name."""
+    """`forward_kernel<2,0>` for a mangled template kernel name (a bool
+    argument as 0 or 1)."""
     m = _NAME.search(name)
     if not m:
         return name
-    return f"{m.group(1)}<{','.join(re.findall(r'Li(-?\d+)E', m.group(2)))}>"
+    return f"{m.group(1)}<{','.join(re.findall(r'L[ib](-?\d+)E', m.group(2)))}>"
 
 
 def cuobjdump() -> Optional[str]:
@@ -143,7 +149,7 @@ def library_mix(lib_path) -> Optional[Dict[str, dict]]:
 def describe(kernel: str, mix: dict) -> str:
     per = mix["per_pair"]
     return (f"{kernel}: loop of {mix['instructions']} instructions, {mix['pairs']} pairs; "
-            "a pair " + " ".join(f"{c} {per[c]:.2f}" for c in (*CLASSES, "all")
+            "a pair " + " ".join(f"{c} {per[c]:.2f}" for c in (*CLASSES, "EXPF", "all")
                                    if per[c] > 0))
 
 

@@ -233,6 +233,13 @@ def test_fit_frame_trace_matches_jax():
         imgs[0].numpy(), rep.render_frame(once.params, once.alive, cfg).numpy())
 
 
+def test_fit_frame_trace_graph_true_on_cpu_raises():
+    _jcfg, cfg = _fit_cfgs(iterations=2)
+    state = rep.init_train_state(cfg, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="graph=True needs a CUDA device"):
+        rep.fit_frame_trace(state, torch.from_numpy(_gt(3)), cfg, graph=True)
+
+
 @pytest.mark.parametrize("h,valid_h", [(32, 20), (48, 33), (32, 0)])
 def test_make_rows_target_valid_h_matches_jax(h, valid_h):
     gt = np.random.default_rng(h).uniform(size=(h, W, 3)).astype(np.float32)
@@ -453,3 +460,37 @@ def test_compress_cli_reads_jax_checkpoint_and_jax_decodes_its_streams(tmp_path)
         img = bitstream.render_decoded(*dec, cfg).numpy()
         assert img.std() > 0.01
         np.testing.assert_allclose(img, jimg, rtol=0, atol=1e-5)
+
+
+def test_sweep_scripts_chain_on_the_cpu(tmp_path):
+    """gsvc_tpu_torch/scripts/sh_train_representation.sh, then
+    sh_train_compression.sh, on a 2-frame 48x32 clip with DEVICE=cpu: the
+    compression sweep reads the checkpoint the representation sweep wrote
+    and codes both frames."""
+    import os
+    import subprocess
+    import sys
+
+    scripts = Path(__file__).resolve().parents[1] / "gsvc_tpu_torch" / "scripts"
+    _write_yuv(tmp_path / "clip.yuv", _frames(1, 2))
+    env = dict(os.environ, DATA_DIR=str(tmp_path), VIDEOS="clip.yuv", NUM_POINTS="40",
+               IMAGE_LENGTH="2", WIDTH=str(W), HEIGHT=str(H), DEVICE="cpu",
+               OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(sys.path))
+    rep_run = subprocess.run(
+        ["bash", str(scripts / "sh_train_representation.sh"), "--kdetect_points", "30",
+         "--kdetect_iterations", "10"],
+        cwd=tmp_path, env=dict(env, ITERATIONS="30"), capture_output=True, text=True,
+        timeout=300)
+    assert rep_run.returncode == 0, rep_run.stderr
+    ckpt = tmp_path / "checkpoints/models/clip/GaussianVideo_30_40/gmodels_state_dict.npz"
+    assert ckpt.is_file()
+    comp_run = subprocess.run(
+        ["bash", str(scripts / "sh_train_compression.sh")], cwd=tmp_path,
+        env=dict(env, REPR_ITERATIONS="30", ITERATIONS="20"), capture_output=True,
+        text=True, timeout=300)
+    assert comp_run.returncode == 0, comp_run.stderr
+    assert "model=./checkpoints/models/clip/GaussianVideo_30_40/" in comp_run.stdout
+    bits = tmp_path / "checkpoints_quant/models/clip/GaussianVideo_20_40/bitstream"
+    assert sorted(p.name for p in bits.iterdir()) == ["frame_1.gsvc", "frame_2.gsvc"]
+    log = tmp_path / "checkpoints_quant/result_compress/clip/GaussianVideo_20_40/train.txt"
+    assert sorted(_psnrs(log.read_text())) == [1, 2]

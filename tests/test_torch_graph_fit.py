@@ -569,6 +569,26 @@ def test_graph_fit_equals_eager_fit(dev, mode, start):
 
 
 @pytest.mark.cuda
+def test_graph_fit_frame_trace_equals_eager(dev):
+    """fit_frame_trace with its plain steps and traced renders replayed,
+    across the removal threshold's control step (it 4000, which rebuilds
+    the splats), bitwise the same trace with graph=False."""
+    cfg = _cfg(**CARD, isremoval=True, removal_rate=0.2, iterations=250)
+    gt = _gt(256, 256, seed=4, device=dev)
+    renders = graphs.RenderGraph.replays
+    a, b, eager = _three(lambda graph: rep.fit_frame_trace(
+        _rep_state(cfg, start=3900, device=dev), gt, cfg, trace_every=25,
+        draws=torch.Generator(device=dev).manual_seed(3), graph=graph))
+    assert graphs.RenderGraph.replays - renders == 2 * 9  # the first render captures
+    assert eager[0].it == 4150 and eager[0].lr_frozen
+    assert eager[1].shape == (10, 256, 256, 3)
+    for got in (a, b):
+        _assert_same_rep(got[0], eager[0])
+        assert torch.equal(got[1], eager[1])
+    assert not torch.equal(eager[1][3], eager[1][4])  # renders of iterations 100, 125
+
+
+@pytest.mark.cuda
 def test_graph_pre_train_equals_eager(dev):
     cfg = _cfg(**CARD, iterations=250)
     gt = _gt(256, 256, seed=2, device=dev)

@@ -559,3 +559,67 @@ def test_alpha_gradients_match_plain_autograd(dev):
     for a, b in zip(*grads):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# -- the fast-colour mode (`fast_color=True`) -------------------------------------
+
+
+@pytest.mark.parametrize("n,hw,seed,budget,cap,big", [
+    (500, (37, 83), 0, 16384, 256, False), (400, (40, 56), 2, 8192, 256, True),
+    (120, (32, 32), 4, 4096, 4, False), (0, (48, 64), 1, 64, 256, False), _CAPPED,
+])
+def test_fast_color_kernels_match_plain_versions(dev, n, hw, seed, budget, cap, big):
+    """K4 (image, rows), K5 and K6's fast-colour variants against their plain
+    versions (renders max-abs 1e-4 off the pixels near the alpha gate, K6
+    within 1e-4 of the largest entry), two launches bitwise equal, each
+    counted on its own counter and not on the exact kernel's."""
+    H, W = hw
+    tb, (_m, _l, colors, opacity), (xys, _d, radii, conics, nth) = _scene(
+        dev, n, H, W, seed, big)
+    binned = bin_gaussians(xys, radii, nth, tb, 16, 16, budget, cap=cap)
+    args = (binned, xys, conics, colors, opacity, H, W, tb, 16, 16, cap)
+    ref = rasterize_cuda.rasterize_forward_torch(*args, fast_color=True)
+    near = rasterize_cuda.near_gate(binned, xys, conics, opacity, H, W, tb, cap, True)
+    for store in ("image", "chw", "rows"):
+        wrapper = rasterize_cuda.FORWARD[store]
+        before = (wrapper.launches, wrapper.fast.launches)
+        out = wrapper(*args, fast_color=True)
+        again = wrapper(*args, fast_color=True)
+        torch.cuda.synchronize()
+        assert (wrapper.launches, wrapper.fast.launches) == (before[0], before[1] + 2)
+        assert torch.equal(out, again), store
+        img = (out if store == "image" else out.permute(1, 2, 0) if store == "chw"
+               else rasterize_cuda.rows_to_image(out, tb[0], tb[1], H, W))
+        err = (img - ref).abs().amax(-1)
+        assert float(torch.where(near, 0.0, err).max()) <= 1e-4, store
+        assert not torch.equal(out, wrapper(*args)) or n == 0  # the exact kernel differs
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn((H, W, 3), device=dev, generator=gen)
+    want = rasterize_cuda.rasterize_backward_torch(*args[:5], v, *args[5:], fast_color=True)
+    for layout, vv in (("image", v), ("chw", v.permute(2, 0, 1).contiguous()),
+                       ("rows", image_to_rows(v, H, W))):
+        before = rasterize_cuda.backward_slots.fast.launches
+        got = rasterize_cuda.backward_slots(*args[:5], vv, *args[5:], layout=layout,
+                                            fast_color=True)
+        again = rasterize_cuda.backward_slots(*args[:5], vv, *args[5:], layout=layout,
+                                              fast_color=True)
+        torch.cuda.synchronize()
+        assert rasterize_cuda.backward_slots.fast.launches == before + 2
+        assert torch.equal(got, again), layout
+        _close(got, want)
+
+
+def test_fast_color_gradients_match_plain_autograd(dev):
+    H, W = 72, 88
+    tb, (_m, _l, colors, opacity), (xys, _d, radii, conics, nth) = _scene(dev, 600, H, W, 7)
+    binned = bin_gaussians(xys, radii, nth, tb, 16, 16, 16384)
+    wgt = torch.rand((H, W, 3), device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    grads = []
+    for kernels in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (xys, conics, colors, opacity)]
+        a = (binned, *leaves, H, W, tb, 16, 16, 256)
+        img = (rasterize_cuda.rasterize_sum(*a, fast_color=True) if kernels
+               else rasterize_cuda.rasterize_forward_torch(*a, fast_color=True))
+        grads.append(torch.autograd.grad(torch.sum((img - 0.3) ** 2 * wgt), leaves))
+    for a, b in zip(*grads):
+        _close(a, b)

@@ -28,6 +28,9 @@ the CPU.
   against `--tile_shards 1`: the same files, written once, K-frames and
   splat counts exact, PSNR a frame within 0.1 dB, decoded PSNR within
   0.1 dB of the encoder's.
+- `scripts/validate_1080p_sharding.py`'s twin at a ragged 72-row frame
+  (4.5 tile rows) on 2 and 4 ranks: every shard count MATCH within the JAX
+  script's limits (|dloss| 1e-5, params 2e-3, image 5e-3).
 """
 
 import dataclasses
@@ -577,3 +580,14 @@ def test_tile_shards_2_through_the_clis(tmp_path, capsys):
     enc = _psnrs((two / "result/synth/GaussianVideo_20_40/train.txt").read_text())
     dec = _psnrs((dec_out / "decode.txt").read_text())
     assert set(dec) == {1, 2, 3} and all(abs(dec[f] - enc[f]) < 0.1 for f in enc)
+
+
+def test_validate_sharding_twin_matches_on_ragged_spans(capsys):
+    from gsvc_tpu_torch.scripts import validate_1080p_sharding as val
+
+    assert val.main(["--device", "cpu", "--height", "72", "--width", "64",
+                     "--shards", "2,4", "--timeout", "300"]) == 0
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith("--tile_shards")]
+    assert [ln.split()[1] for ln in lines] == ["2", "4"]
+    assert all(ln.endswith(" MATCH") for ln in lines), out
