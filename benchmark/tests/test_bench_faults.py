@@ -1,0 +1,44 @@
+"""A run with the timed path broken underneath reads `correct` false: each
+fault a cell can have (`benchmark/harness/faults.py`), planted in the port
+at a tiny size on the CPU (the harness's look for a card skipped, the rest
+of a run driven); a fault that only a card's run reaches (a graph's
+replays) is planted there."""
+
+from __future__ import annotations
+
+import pytest
+import torch
+from conftest import CELLS, SEED, tiny_cell, tiny_run
+
+from benchmark.harness import faults
+from benchmark.harness.core import Run
+from benchmark.harness.runner import execute
+
+CASES = [(c, f) for c in CELLS for f in faults.BY_LOOP[tiny_cell(c).traffic["loop"]]]
+
+
+@pytest.mark.parametrize("name,fault", CASES,
+                         ids=[f"{c}-{f.__name__}" for c, f in CASES])
+def test_fault_reads_incorrect(name, fault, monkeypatch):
+    fault(monkeypatch.setattr)
+    cell = tiny_cell(name)
+    out = execute(tiny_run(cell), cell.loop())
+    assert not out.correct, out.checks
+
+
+CARD_CASES = [(c, f) for c in CELLS for f in faults.CARD_ONLY[tiny_cell(c).traffic["loop"]]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,fault", CARD_CASES,
+                         ids=[f"{c}-{f.__name__}" for c, f in CARD_CASES])
+def test_card_fault_reads_incorrect(name, fault, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fault lives in the card's graph replays")
+    from benchmark.run import build_kernels
+
+    build_kernels()
+    fault(monkeypatch.setattr)
+    cell = tiny_cell(name)
+    out = execute(Run(cell, SEED, 1.0, False, torch.device("cuda", 0)), cell.loop())
+    assert not out.correct, out.checks
