@@ -290,6 +290,22 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def graph_totals() -> tuple:
+    """The recorder's graph totals so far, (step, render) graphs, each
+    (captures, replays, capture seconds)."""
+    from gsvc_tpu_torch.utils.profiling import RECORDER
+
+    return tuple(tuple(RECORDER.counters.get(f"graph.{kind}.{k}", 0)
+                       for k in ("captures", "replays", "capture_s"))
+                 for kind in ("step", "render"))
+
+
+def graph_delta(before: tuple) -> tuple:
+    """`graph_totals()` since `before`."""
+    return tuple(tuple(a - b for a, b in zip(now, then))
+                 for now, then in zip(graph_totals(), before))
+
+
 def errors(got, want):
     """(max-abs error, max-abs error over the largest entry of want)."""
     err = float((got - want).abs().max())
@@ -365,7 +381,6 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
     from gsvc_tpu_torch.drivers import represent as represent_cli
     from gsvc_tpu_torch.io import process_yuv_video
     from gsvc_tpu_torch.models.represent import render_frame
-    from gsvc_tpu_torch.utils.graphs import RenderGraph, StepGraph
     from gsvc_tpu_torch.scripts.encoder_drift import (
         ENC_ITERS,
         QAT_ITERS,
@@ -389,13 +404,11 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
          ("fill_decode_keys", "rank_cap_decode", "forward_image")),
     ]
     total = {c.__name__: 0 for c in counters}
-    graph = StepGraph
     for name, main, argv, needed in clis:
         err = io.StringIO()
         for c in counters:
             c.launches = 0
-        graph.captures, graph.replays, graph.capture_seconds = 0, 0, 0.0
-        RenderGraph.captures, RenderGraph.replays, RenderGraph.capture_seconds = 0, 0, 0.0
+        totals = graph_totals()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(err):
@@ -404,6 +417,7 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
         secs = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         launches = {c.__name__: c.launches for c in counters}
+        (fit_caps, fit_reps, fit_cap_s), (ren_caps, ren_reps, ren_cap_s) = graph_delta(totals)
         sys.stderr.write(err.getvalue())
         if rc != 0:
             fail(f"{name} returned {rc}")
@@ -412,16 +426,16 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
         missing = [k for k in needed if launches[k] <= 0]
         if missing:
             fail(f"kernels not launched by {name}: {missing}; launches {launches}")
-        if name != "decode" and graph.replays == 0:
+        if name != "decode" and fit_reps == 0:
             fail(f"{name}: no fit replayed a CUDA graph")
-        if RenderGraph.replays == 0:
+        if ren_reps == 0:
             fail(f"{name}: no render replayed a CUDA graph")
         for k, v in launches.items():
             total[k] += v
-        print(f"phase 6 {name}: {secs:.2f} s; fits: {graph.captures} graph captures in "
-              f"{graph.capture_seconds:.3f} s, {graph.replays} replays; renders: "
-              f"{RenderGraph.captures} captures in {RenderGraph.capture_seconds:.3f} s, "
-              f"{RenderGraph.replays} replays; peak device memory {peak_gb:.2f} GiB; "
+        print(f"phase 6 {name}: {secs:.2f} s; fits: {fit_caps} graph captures in "
+              f"{fit_cap_s:.3f} s, {fit_reps} replays; renders: "
+              f"{ren_caps} captures in {ren_cap_s:.3f} s, "
+              f"{ren_reps} replays; peak device memory {peak_gb:.2f} GiB; "
               f"launches {launches}")
     if total != ENCODER_LAUNCHES:
         fail(f"phase 6 launches {total}, the eager encoder's {ENCODER_LAUNCHES}")
@@ -1731,14 +1745,13 @@ def trace_phase(torch, dev, smi, gt) -> None:
     traced renders as graph replays, against graph=False, bitwise."""
     from gsvc_tpu_torch.config import FrameConfig
     from gsvc_tpu_torch.models.represent import fit_frame_trace, init_train_state
-    from gsvc_tpu_torch.utils.graphs import RenderGraph, StepGraph
 
     cfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=TRACE_ITERS,
                       isremoval=True)
     runs = {}
     for graph in (None, False):
         state = init_train_state(cfg, generator=torch.Generator().manual_seed(0), device=dev)
-        before = (StepGraph.replays, RenderGraph.replays)
+        before = graph_totals()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         final, images = fit_frame_trace(state, gt, cfg, trace_every=TRACE_EVERY,
@@ -1746,8 +1759,8 @@ def trace_phase(torch, dev, smi, gt) -> None:
                                         graph=graph)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        runs[graph] = (final, images, secs,
-                       (StepGraph.replays - before[0], RenderGraph.replays - before[1]))
+        (_c, step_reps, _s), (_c, render_reps, _s) = graph_delta(before)
+        runs[graph] = (final, images, secs, (step_reps, render_reps))
     (a, imgs_a, secs_a, rep_a), (b, imgs_b, secs_b, rep_b) = runs[None], runs[False]
     count = TRACE_ITERS // TRACE_EVERY
     if imgs_a.shape != (count, H, W, 3) or not torch.isfinite(imgs_a).all():
@@ -1836,7 +1849,6 @@ def main() -> int:
     from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum
     from gsvc_tpu_torch.scripts.common import scene
     from gsvc_tpu_torch.utils import graphs, sass, work
-    from gsvc_tpu_torch.utils.graphs import RenderGraph, StepGraph
     from gsvc_tpu_torch.utils.profiling import device_loop_time, event_ms
 
     # -- phase 1: build --------------------------------------------------
@@ -2078,14 +2090,14 @@ def main() -> int:
         runs = [("eager", decode_run(bs, k_file, Path(tmp) / "0", H, W, eager=True))]
         for c in counters:
             c.launches = 0
-        RenderGraph.captures, RenderGraph.replays = 0, 0
+        totals = graph_totals()
         t0 = time.perf_counter()
         runs.append(("graph", decode_run(bs, k_file, Path(tmp) / "1", H, W)))
         eval_img = render_frame(frame, alive, frame_cfg("auto"), layout="chw")
         torch.cuda.synchronize()
         slice_s = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters}
-        captures, replays = RenderGraph.captures, RenderGraph.replays
+        captures, replays, _secs = graph_delta(totals)[1]
         runs += [("graph", decode_run(bs, k_file, Path(tmp) / "2", H, W)),
                  ("eager", decode_run(bs, k_file, Path(tmp) / "3", H, W, eager=True))]
         for name, run in runs:
@@ -2153,9 +2165,9 @@ def main() -> int:
 
     def replayed(fn):
         """fn()'s result, failing unless it replayed a CUDA graph."""
-        before = StepGraph.replays
+        before = graph_totals()
         out = fn()
-        if StepGraph.replays == before:
+        if graph_delta(before)[0][1] == 0:
             fail("a fit with graphs replayed none")
         return out
 
@@ -2163,12 +2175,12 @@ def main() -> int:
                        iterations=TRAIN_ITERS, isremoval=True)
     for c in counters:
         c.launches = 0
-    StepGraph.capture_seconds = 0.0
+    totals = graph_totals()
     t0 = time.perf_counter()
     psnr0, res = replayed(lambda: fit(kcfg))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    capture_s = StepGraph.capture_seconds
+    capture_s = graph_delta(totals)[0][2]
     train_launches = {c.__name__: c.launches for c in counters}
     missing = [k for k in train_kernels if train_launches[k] <= 0]
     if missing:

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import functools
 import io
-import time
 from typing import Optional
 
 import numpy as np
@@ -34,6 +33,7 @@ from gsvc_tpu_torch.compress.entropy import (
 from gsvc_tpu_torch.config import FrameConfig
 from gsvc_tpu_torch.core import CHOLESKY_BOUND
 from gsvc_tpu_torch.utils import graphs
+from gsvc_tpu_torch.utils.profiling import RECORDER
 
 CHOL_BITS = 6
 _RENDERS = graphs.RenderCache(maxsize=8)
@@ -98,28 +98,30 @@ def pack_frame(
 def encode_frame(state, cfg: FrameConfig, frame_type: str) -> bytes:
     """A fitted `models.compress.CompressState` -> its byte stream: exactly
     what `measure_bits` counts, in the container of `pack_frame`.
-    `frame_type` is "K" (frame mode) or "P" (delta mode); `cfg` is accepted
-    for the JAX signature's sake."""
+    `frame_type` is "K" (frame mode) or "P" (delta mode); `cfg` gives only
+    the config's iterations to the `qat.encode` span it is
+    (`utils.profiling.RECORDER`)."""
     from gsvc_tpu_torch.compress.quantizers import (
         UniformQuantParams,
         residual_vq_forward,
         uniform_quantize,
     )
 
-    del cfg
     p = state.params
 
     def host(t):
         return t.detach().cpu().numpy()
 
-    with torch.no_grad():
-        _deq, codes = uniform_quantize(
-            p.cholesky, UniformQuantParams(scale=p.q_scale, beta=p.q_beta), CHOL_BITS)
-        _colors, idx, _l, _ = residual_vq_forward(p.features_dc, state.vq, False)
-    return pack_frame(
-        host(p.xyz).astype(np.float32).astype(np.float16), host(p.q_scale),
-        host(p.q_beta), host(codes), host(state.vq.embed), host(idx), frame_type,
-    )
+    with RECORDER("qat.encode", device=state.loss.device, splats=p.xyz.shape[0],
+                  iterations=cfg.iterations):
+        with torch.no_grad():
+            _deq, codes = uniform_quantize(
+                p.cholesky, UniformQuantParams(scale=p.q_scale, beta=p.q_beta), CHOL_BITS)
+            _colors, idx, _l, _ = residual_vq_forward(p.features_dc, state.vq, False)
+        return pack_frame(
+            host(p.xyz).astype(np.float32).astype(np.float16), host(p.q_scale),
+            host(p.q_beta), host(codes), host(state.vq.embed), host(idx), frame_type,
+        )
 
 
 def frame_type(blob: bytes) -> Optional[str]:
@@ -140,59 +142,62 @@ def decode_frame(
     """Bytes -> (means [N,2], cholesky + bound [N,3], colours [N,3]) numpy.
 
     p_* are the P-frame side-information buffers (None for K-frames).
-    `native=False` entropy-decodes with the plain numpy codec. `times`, a
-    dict, gains the host seconds of the rANS decode ("entropy") and of the
-    rest ("unpack").
+    `native=False` entropy-decodes with the plain numpy codec. The parse
+    and the unpacking are `decode.unpack` spans (`utils.profiling.RECORDER`),
+    the rANS decode between them a `decode.entropy` span; `times`, a dict,
+    gains their host seconds as "unpack" and "entropy" (the spans are
+    `timed`: read where the recorder is off too).
     """
-    t0 = time.perf_counter()
-    buf = memoryview(blob)
-    off = 0
+    timed = times is not None
+    with RECORDER("decode.unpack", timed=timed) as parse:
+        buf = memoryview(blob)
+        off = 0
 
-    def take(nbytes):
-        nonlocal off
-        v = buf[off:off + nbytes]
-        off += nbytes
-        return v
+        def take(nbytes):
+            nonlocal off
+            v = buf[off:off + nbytes]
+            off += nbytes
+            return v
 
-    def get():
-        dl = int(np.frombuffer(take(1), np.uint8)[0])
-        dt = np.dtype(bytes(take(dl)).decode())
-        ln = int(np.frombuffer(take(4), np.uint32)[0])
-        return np.frombuffer(take(ln), dt).copy()
+        def get():
+            dl = int(np.frombuffer(take(1), np.uint8)[0])
+            dt = np.dtype(bytes(take(dl)).decode())
+            ln = int(np.frombuffer(take(4), np.uint32)[0])
+            return np.frombuffer(take(ln), dt).copy()
 
-    n = int(np.frombuffer(take(4), np.uint32)[0])
-    q = int(np.frombuffer(take(4), np.uint32)[0])
-    k = int(np.frombuffer(take(4), np.uint32)[0])
-    xyz16 = get().reshape(n, 2)
-    q_scale = get()
-    q_beta = get()
-    c_comp, c_counts, c_unique = get(), get(), get()
-    embed = get().reshape(q, k, 3)
-    i_comp, i_counts, i_unique = get(), get(), get()
+        n = int(np.frombuffer(take(4), np.uint32)[0])
+        q = int(np.frombuffer(take(4), np.uint32)[0])
+        k = int(np.frombuffer(take(4), np.uint32)[0])
+        xyz16 = get().reshape(n, 2)
+        q_scale = get()
+        q_beta = get()
+        c_comp, c_counts, c_unique = get(), get(), get()
+        embed = get().reshape(q, k, 3)
+        i_comp, i_counts, i_unique = get(), get(), get()
 
-    t1 = time.perf_counter()
-    codes = decompress_matrix_flatten_categorical(
-        c_comp, c_counts, c_unique, n * 3, (n, 3), native=native
-    ).astype(np.float32)
-    idx = decompress_matrix_flatten_categorical(
-        i_comp, i_counts, i_unique, q * n, (n, q), native=native
-    )
-    entropy = time.perf_counter() - t1
-    chol_deq = codes * q_scale[None, :] + q_beta[None, :]
-    colors = np.zeros((n, 3), np.float32)
-    for s in range(q):
-        colors += embed[s][idx[:, s]]
+    with RECORDER("decode.entropy", timed=timed) as entropy:
+        codes = decompress_matrix_flatten_categorical(
+            c_comp, c_counts, c_unique, n * 3, (n, 3), native=native
+        ).astype(np.float32)
+        idx = decompress_matrix_flatten_categorical(
+            i_comp, i_counts, i_unique, q * n, (n, q), native=native
+        )
+    with RECORDER("decode.unpack", timed=timed) as unpack:
+        chol_deq = codes * q_scale[None, :] + q_beta[None, :]
+        colors = np.zeros((n, 3), np.float32)
+        for s in range(q):
+            colors += embed[s][idx[:, s]]
 
-    def side(a, cols):
-        return np.zeros((n, cols), np.float32) if a is None else np.asarray(a, np.float32)
+        def side(a, cols):
+            return np.zeros((n, cols), np.float32) if a is None else np.asarray(a, np.float32)
 
-    raw = torch.from_numpy(xyz16.astype(np.float32) + side(p_xyz, 2))
-    means = torch.tanh(raw).numpy()
-    chol = chol_deq + np.asarray(CHOLESKY_BOUND, np.float32) + side(p_cholesky, 3)
-    out = means, chol, colors + side(p_features_dc, 3)
-    if times is not None:
-        times["entropy"] = times.get("entropy", 0.0) + entropy
-        times["unpack"] = times.get("unpack", 0.0) + time.perf_counter() - t0 - entropy
+        raw = torch.from_numpy(xyz16.astype(np.float32) + side(p_xyz, 2))
+        means = torch.tanh(raw).numpy()
+        chol = chol_deq + np.asarray(CHOLESKY_BOUND, np.float32) + side(p_cholesky, 3)
+        out = means, chol, colors + side(p_features_dc, 3)
+    if timed:
+        times["entropy"] = times.get("entropy", 0.0) + entropy.host_s
+        times["unpack"] = times.get("unpack", 0.0) + parse.host_s + unpack.host_s
     return out
 
 

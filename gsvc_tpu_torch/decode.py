@@ -30,14 +30,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# the last `main` run's seconds by stage, summed over its frames: the rANS
-# decode ("entropy") and the rest of decode_frame ("unpack") on the host
-# clock; the copy of the splats to the device ("h2d"), the render
-# ("render"; "capture" for the eager first render of a graph and its
-# capture) and the uint8 conversion with its copy back ("d2h"), each on
-# the device's clock where it is a card (CUDA events, the host's
-# elsewhere); the raw and PNG writes ("write") on the host clock; and
-# "frames"
+# the last `main` run's seconds by stage, summed over its frames: a view of
+# its spans (`utils.profiling.RECORDER`; `timed`, so read where the
+# recorder is off too).
+# The rANS decode ("entropy", `decode.entropy`) and the rest of
+# decode_frame ("unpack", `decode.unpack`) on the host clock; the copy of
+# the splats to the device ("h2d", `decode.h2d`), the render ("render";
+# "capture" for the eager first render of a graph and its capture: a
+# `decode.render` span, attribute capture) and the uint8 conversion with
+# its copy back ("d2h", `decode.d2h`), each on the device's clock where it
+# is a card (the spans' CUDA events, the host's elsewhere); the raw and PNG
+# writes ("write", `decode.write`) on the host clock; and "frames"
 STAGES: dict = {}
 
 
@@ -46,31 +49,6 @@ def to_uint8(img: torch.Tensor) -> torch.Tensor:
     multiply, round half to even, as numpy's
     `(np.clip(img, 0, 1) * 255.0).round().astype(np.uint8)`."""
     return (torch.clamp(img, 0.0, 1.0) * 255.0).round().to(torch.uint8)
-
-
-class _Clock:
-    """Marks between a frame's stages: CUDA events on a card (read after the
-    frame's copy back has synchronised), the host clock elsewhere."""
-
-    def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
-        self.marks: list = []
-
-    def mark(self, stage: str) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-        else:
-            ev = time.perf_counter()
-        self.marks.append((stage, ev))
-
-    def add_to(self, stages: dict) -> None:
-        """Add the seconds from each mark to the next to the later mark's
-        stage, then forget the marks."""
-        for (_s, a), (stage, b) in zip(self.marks, self.marks[1:]):
-            secs = a.elapsed_time(b) / 1e3 if self.cuda else b - a
-            stages[stage] = stages.get(stage, 0.0) + secs
-        self.marks = []
 
 
 def parse_args(argv):
@@ -118,6 +96,7 @@ def main(argv=None) -> int:
     from gsvc_tpu_torch.config import FrameConfig
     from gsvc_tpu_torch.drivers.common import load_gmodels, resolve_device
     from gsvc_tpu_torch.ops.projection import project_gaussians_2d
+    from gsvc_tpu_torch.utils.profiling import RECORDER
 
     device = resolve_device(args.device)
 
@@ -192,7 +171,6 @@ def main(argv=None) -> int:
         )
     budget = int(np.ceil(n_isect * 1.1 / 8192)) * 8192
 
-    clock = _Clock(device)
     host8 = torch.empty((args.height, args.width, 3), dtype=torch.uint8,
                         pin_memory=device.type == "cuda")
     with open(out_dir / "decoded.rgb", "wb") as raw:
@@ -203,23 +181,25 @@ def main(argv=None) -> int:
                 backend=args.backend, max_intersects=budget,
             )
             render = decoded_renderer(means.shape[0], cfg, device)
-            clock.mark("start")
-            render.load(means, chol, colors)
-            clock.mark("h2d")
+            with RECORDER("decode.h2d", device=device, timed=True) as h2d:
+                render.load(means, chol, colors)
             stage = "capture" if render.capturing else "render"
-            img_t = render()  # a graph's output: read before the next frame's
-            clock.mark(stage)
-            host8.copy_(to_uint8(img_t), non_blocking=True)
-            clock.mark("d2h")
+            with RECORDER("decode.render", device=device, timed=True,
+                          capture=render.capturing) as rendered:
+                img_t = render()  # a graph's output: read before the next frame's
+            with RECORDER("decode.d2h", device=device, timed=True) as d2h:
+                host8.copy_(to_uint8(img_t), non_blocking=True)
             if device.type == "cuda":
                 torch.cuda.current_stream(device).synchronize()
-            clock.add_to(STAGES)
-            t_write = time.perf_counter()
-            img8 = host8.numpy()
-            raw.write(img8)  # host8 itself, no copy
-            if png:
-                Image.fromarray(img8).save(out_dir / f"frame_{frame_num}.png")
-            STAGES["write"] = STAGES.get("write", 0.0) + time.perf_counter() - t_write
+            with RECORDER("decode.write", timed=True) as write:
+                img8 = host8.numpy()
+                raw.write(img8)  # host8 itself, no copy
+                if png:
+                    Image.fromarray(img8).save(out_dir / f"frame_{frame_num}.png")
+            RECORDER.resolve()  # the frame's events have completed
+            for key, span in (("h2d", h2d), (stage, rendered), ("d2h", d2h),
+                              ("write", write)):
+                STAGES[key] = STAGES.get(key, 0.0) + span.seconds
 
             line = (
                 f"Frame_{frame_num}: {args.height}x{args.width}, "

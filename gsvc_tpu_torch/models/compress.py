@@ -70,7 +70,7 @@ from gsvc_tpu_torch.ops.projection import project_gaussians_2d
 from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
 from gsvc_tpu_torch.optim.adan import AdanState, adan_host_step, adan_init, adan_step_
 from gsvc_tpu_torch.utils import graphs
-from gsvc_tpu_torch.utils.profiling import _sync
+from gsvc_tpu_torch.utils.profiling import RECORDER, _sync
 
 CHOL_BITS = 6  # UniformQuantizer(bits=6), GaussianSplats_Compress.py:37
 
@@ -114,40 +114,42 @@ def init_compress_state(gmodel: dict, p_gmodel: Optional[dict] = None,
 
     Frame mode (K-frames): parameters straight from gmodel
     (train_video_Compress.py:74-80). Delta mode (P-frames): trainable
-    params = gmodel - p_gmodel, frozen buffers = p_gmodel (:51-72)."""
+    params = gmodel - p_gmodel, frozen buffers = p_gmodel (:51-72). A
+    `qat.init` span (`utils.profiling.RECORDER`)."""
+    with RECORDER("qat.init", device=device, splats=int(np.shape(gmodel["_xyz"])[0])):
+        def t(a):  # a copy: the fit updates the parameters in place
+            return torch.tensor(np.asarray(a, np.float32), device=device)
 
-    def t(a):  # a copy: the fit updates the parameters in place
-        return torch.tensor(np.asarray(a, np.float32), device=device)
+        xyz, chol, feat = t(gmodel["_xyz"]), t(gmodel["_cholesky"]), t(gmodel["_features_dc"])
+        if p_gmodel is not None:
+            if p_gmodel["_xyz"].shape != gmodel["_xyz"].shape:
+                # the reference's delta model needs one splat count per GOP; a
+                # represent run shorter than its control threshold (4000 its
+                # with --is_rm, 1000 with --is_ad) can leave K- and P-frames
+                # with different counts
+                raise ValueError(
+                    f"delta mode: the frame has {gmodel['_xyz'].shape[0]} splats, "
+                    f"the previous frame {p_gmodel['_xyz'].shape[0]}")
+            p_xyz, p_chol, p_feat = (t(p_gmodel[k])
+                                     for k in ("_xyz", "_cholesky", "_features_dc"))
+            xyz, chol, feat = xyz - p_xyz, chol - p_chol, feat - p_feat
+        else:
+            p_xyz, p_chol, p_feat = (torch.zeros_like(a) for a in (xyz, chol, feat))
+        uq = uniform_quantizer_init(3, CHOL_BITS, device=device)
+        params = CompressParams(xyz=xyz, cholesky=chol, features_dc=feat,
+                                q_scale=uq.scale, q_beta=uq.beta)
 
-    xyz, chol, feat = t(gmodel["_xyz"]), t(gmodel["_cholesky"]), t(gmodel["_features_dc"])
-    if p_gmodel is not None:
-        if p_gmodel["_xyz"].shape != gmodel["_xyz"].shape:
-            # the reference's delta model needs one splat count per GOP; a
-            # represent run shorter than its control threshold (4000 its
-            # with --is_rm, 1000 with --is_ad) can leave K- and P-frames
-            # with different counts
-            raise ValueError(
-                f"delta mode: the frame has {gmodel['_xyz'].shape[0]} splats, "
-                f"the previous frame {p_gmodel['_xyz'].shape[0]}")
-        p_xyz, p_chol, p_feat = (t(p_gmodel[k]) for k in ("_xyz", "_cholesky", "_features_dc"))
-        xyz, chol, feat = xyz - p_xyz, chol - p_chol, feat - p_feat
-    else:
-        p_xyz, p_chol, p_feat = (torch.zeros_like(a) for a in (xyz, chol, feat))
-    uq = uniform_quantizer_init(3, CHOL_BITS, device=device)
-    params = CompressParams(xyz=xyz, cholesky=chol, features_dc=feat,
-                            q_scale=uq.scale, q_beta=uq.beta)
+        def scalar(v):
+            return torch.tensor(v, dtype=torch.float32, device=device)
 
-    def scalar(v):
-        return torch.tensor(v, dtype=torch.float32, device=device)
-
-    # the fit updates params in place, so the snapshot starts as a copy
-    best_params = CompressParams(**{k: v.clone() for k, v in _p2d(params).items()})
-    return CompressState(
-        params=params, vq=residual_vq_init(2, 8, 3, device), opt=adan_init(_p2d(params)),
-        it=0, best_psnr=scalar(float("-inf")), best_params=best_params,
-        best_vq=residual_vq_init(2, 8, 3, device), loss=scalar(float("inf")),
-        psnr=scalar(0.0), p_xyz=p_xyz, p_cholesky=p_chol, p_features_dc=p_feat,
-    )
+        # the fit updates params in place, so the snapshot starts as a copy
+        best_params = CompressParams(**{k: v.clone() for k, v in _p2d(params).items()})
+        return CompressState(
+            params=params, vq=residual_vq_init(2, 8, 3, device), opt=adan_init(_p2d(params)),
+            it=0, best_psnr=scalar(float("-inf")), best_params=best_params,
+            best_vq=residual_vq_init(2, 8, 3, device), loss=scalar(float("inf")),
+            psnr=scalar(0.0), p_xyz=p_xyz, p_cholesky=p_chol, p_features_dc=p_feat,
+        )
 
 
 def _quantized_geometry(params: CompressParams, p_xyz, p_cholesky):
@@ -345,7 +347,7 @@ def fit_compress(state: CompressState, gt: torch.Tensor, cfg: FrameConfig,
     slice) every step runs eagerly and graph=True raises."""
     graph = _sharded_graph(graph, shard)
     state = graphs.run_fit(state, qat_plan(state, gt, cfg, draws, shard), gt.device,
-                           graph)
+                           graph, kind="qat", cfg=cfg)
     return _reload_best(state) if reload_best else state
 
 
@@ -376,17 +378,20 @@ def _coded_bits(symbols: torch.Tensor) -> int:
 def measure_bits(state: CompressState, cfg: FrameConfig) -> Tuple[dict, torch.Tensor]:
     """Eval-mode bit accounting + the reconstructed image ([H, W, 3]).
 
-    Returns ({"m_bit", "s_bit", "r_bit", "c_bit", "bpp"}, image)."""
-    p = state.params
-    n = p.xyz.shape[0]
-    img, _l, chol_codes, _vq = forward_quantize(
-        p, state.vq, state.p_xyz, state.p_cholesky, state.p_features_dc, cfg,
-        training=False)
-    m_bit = 16 * n * 2  # fp16 means (GaussianSplats_Compress.py:72)
-    s_bit = _coded_bits(chol_codes) + p.q_scale.numel() * 32 + p.q_beta.numel() * 32
-    _colors, idx, _loss, _ = residual_vq_forward(p.features_dc, state.vq, False)
-    c_bit = state.vq.embed.numel() * 32 + _coded_bits(idx)
-    r_bit = 0
-    bpp = (m_bit + s_bit + r_bit + c_bit) / cfg.H / cfg.W
-    return ({"m_bit": m_bit, "s_bit": s_bit, "r_bit": r_bit, "c_bit": c_bit,
-             "bpp": bpp}, img)
+    Returns ({"m_bit", "s_bit", "r_bit", "c_bit", "bpp"}, image). A
+    `qat.bits` span (`utils.profiling.RECORDER`)."""
+    with RECORDER("qat.bits", device=state.loss.device, splats=state.params.xyz.shape[0],
+                  iterations=cfg.iterations):
+        p = state.params
+        n = p.xyz.shape[0]
+        img, _l, chol_codes, _vq = forward_quantize(
+            p, state.vq, state.p_xyz, state.p_cholesky, state.p_features_dc, cfg,
+            training=False)
+        m_bit = 16 * n * 2  # fp16 means (GaussianSplats_Compress.py:72)
+        s_bit = _coded_bits(chol_codes) + p.q_scale.numel() * 32 + p.q_beta.numel() * 32
+        _colors, idx, _loss, _ = residual_vq_forward(p.features_dc, state.vq, False)
+        c_bit = state.vq.embed.numel() * 32 + _coded_bits(idx)
+        r_bit = 0
+        bpp = (m_bit + s_bit + r_bit + c_bit) / cfg.H / cfg.W
+        return ({"m_bit": m_bit, "s_bit": s_bit, "r_bit": r_bit, "c_bit": c_bit,
+                 "bpp": bpp}, img)

@@ -68,6 +68,7 @@ from gsvc_tpu_torch.optim.adan import (
 from gsvc_tpu_torch.optim.schedule import step_lr
 from gsvc_tpu_torch.utils import graphs
 from gsvc_tpu_torch.utils.losses import loss_fn
+from gsvc_tpu_torch.utils.profiling import RECORDER
 
 Draws = Union[None, torch.Generator, Callable[[int], tuple]]
 
@@ -175,35 +176,36 @@ def init_train_state(
     """Fresh state, optionally warm-started from a previous frame's splats
     (train_video_Represent.py:64-69: xyz/cholesky/features copied, rgb_W
     restarts at its init value). `uniforms` / `generator` feed
-    `init_splats`."""
-    rgb_w_value = 0.01 if cfg.isremoval else 1.0
-    params, alive = init_splats(
-        cfg.num_points, capacity=cfg.max_num_points, rgb_w_value=rgb_w_value,
-        uniforms=uniforms, generator=generator, device=device,
-    )
-    if warm is not None:
-        count = warm_count if warm_count is not None else cfg.num_points
-        m = torch.arange(cfg.max_num_points, device=device) < count
-        with torch.no_grad():
-            params = GaussianFrame(
-                torch.where(m[:, None], warm.xyz, params.xyz),
-                torch.where(m[:, None], warm.cholesky, params.cholesky),
-                torch.where(m[:, None], warm.features_dc, params.features_dc),
-                params.rgb_w.detach().clone(),
-            )
-        alive = m
+    `init_splats`. A `represent.init` span (`utils.profiling.RECORDER`)."""
+    with RECORDER("represent.init", device=device, splats=cfg.num_points):
+        rgb_w_value = 0.01 if cfg.isremoval else 1.0
+        params, alive = init_splats(
+            cfg.num_points, capacity=cfg.max_num_points, rgb_w_value=rgb_w_value,
+            uniforms=uniforms, generator=generator, device=device,
+        )
+        if warm is not None:
+            count = warm_count if warm_count is not None else cfg.num_points
+            m = torch.arange(cfg.max_num_points, device=device) < count
+            with torch.no_grad():
+                params = GaussianFrame(
+                    torch.where(m[:, None], warm.xyz, params.xyz),
+                    torch.where(m[:, None], warm.cholesky, params.cholesky),
+                    torch.where(m[:, None], warm.features_dc, params.features_dc),
+                    params.rgb_w.detach().clone(),
+                )
+            alive = m
 
-    def scalar(v, dtype):
-        return torch.tensor(v, dtype=dtype, device=device)
+        def scalar(v, dtype):
+            return torch.tensor(v, dtype=dtype, device=device)
 
-    return TrainState(
-        params=params, alive=alive, opt=adan_init(_trainable(params)), it=0,
-        lr_frozen=False, best_loss=scalar(float("inf"), torch.float32),
-        patience=scalar(0, torch.int32),
-        grace=cfg.stable_control if (cfg.isdensity or cfg.isremoval) else 0,
-        stop=scalar(False, torch.bool), loss=scalar(float("inf"), torch.float32),
-        psnr=scalar(0.0, torch.float32), max_overflow=scalar(0, torch.int32),
-    )
+        return TrainState(
+            params=params, alive=alive, opt=adan_init(_trainable(params)), it=0,
+            lr_frozen=False, best_loss=scalar(float("inf"), torch.float32),
+            patience=scalar(0, torch.int32),
+            grace=cfg.stable_control if (cfg.isdensity or cfg.isremoval) else 0,
+            stop=scalar(False, torch.bool), loss=scalar(float("inf"), torch.float32),
+            psnr=scalar(0.0, torch.float32), max_overflow=scalar(0, torch.int32),
+        )
 
 
 def _clip01(x: torch.Tensor) -> torch.Tensor:
@@ -618,9 +620,12 @@ def fit_frame(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
     stop cannot come within the next patience - p steps: the device is
     read about once per early_stop_patience steps, not every step.
     gt: [H, W, 3] float32 in [0, 1]. `graph`: see `fit_frame_partial`.
+    The final render is a `represent.render` span.
     """
     state = fit_frame_partial(state, gt, cfg.iterations, cfg, lambda_value, draws, graph)
-    return FitResult(state=state, image=render_frame(state.params, state.alive, cfg))
+    with RECORDER("represent.render", device=gt.device, splats=cfg.num_points):
+        image = render_frame(state.params, state.alive, cfg)
+    return FitResult(state=state, image=image)
 
 
 def _rows_target_for(gt: torch.Tensor, cfg: FrameConfig,
@@ -668,16 +673,16 @@ def fit_frame_partial(state: TrainState, gt: torch.Tensor, limit: int,
         return state
     next_check = state.it
 
-    def stop(s: TrainState) -> bool:
+    def stop(s: TrainState, read) -> bool:
         nonlocal next_check
         if s.grace < 0 and s.it >= next_check:
-            p = int(s.patience)
+            p = read(lambda: int(s.patience))
             next_check = s.it + cfg.early_stop_patience - p
             return p >= cfg.early_stop_patience
         return False
 
     plan = fit_plan(state, gt, lim, cfg, lambda_value, draws, shard)
-    return graphs.run_fit(state, plan, gt.device, graph, stop)
+    return graphs.run_fit(state, plan, gt.device, graph, stop, kind="represent", cfg=cfg)
 
 
 def _sharded_graph(graph: Optional[bool], shard) -> Optional[bool]:
@@ -730,7 +735,8 @@ def fit_frame_trace(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
                 traced.load(*splats(s))
                 images[(k + 1) // trace_every - 1].copy_(traced())
 
-        state = graphs.run_fit(state, plan, gt.device, graph, before=trace)
+        state = graphs.run_fit(state, plan, gt.device, graph, before=trace, kind="trace",
+                               cfg=cfg)
     return state, images
 
 
@@ -762,6 +768,6 @@ def pre_train_frame(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
     detection pass (SimpleTrainer2d.pre_train, train_video_Represent.py:117-133).
     `graph` as in `fit_frame_partial`."""
     plan = pre_train_plan(state, gt, cfg, lambda_value)
-    state = graphs.run_fit(state, plan, gt.device, graph)
+    state = graphs.run_fit(state, plan, gt.device, graph, kind="pretrain", cfg=cfg)
     return FitResult(state=state,
                      image=render_frame(state.params, state.alive, cfg))

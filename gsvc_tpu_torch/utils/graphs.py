@@ -42,6 +42,8 @@ from typing import Callable, Hashable, NamedTuple, Optional, Sequence, Tuple, Ty
 import numpy as np
 import torch
 
+from gsvc_tpu_torch.utils.profiling import RECORDER
+
 T = TypeVar("T")
 WARMUP = 3  # eager plain steps on a side stream before the capture
 
@@ -135,22 +137,44 @@ class FitPlan(NamedTuple):
 
 def run_fit(state: T, plan: FitPlan, device, graph: Optional[bool],
             stop: Optional[Callable[[T], bool]] = None,
-            before: Optional[Callable[[T, int], None]] = None) -> T:
+            before: Optional[Callable[[T, int], None]] = None,
+            kind: str = "fit", cfg=None) -> T:
     """The steps of `plan` from `state`: eager steps by plan.step, plain ones
-    through `runner(device, graph)`; `stop(state)`, asked after each step,
-    ends the fit early; `before(state, k)` runs before the fit's k-th step
-    (0-based). The graph is freed when the fit returns."""
-    eager_steps = (eager for _first, count, eager in plan.runs for _ in range(count))
-    with runner(device, graph) as run:
-        for k, eager in enumerate(eager_steps):
+    through `runner(device, graph)`; `stop(state, read)`, asked after each
+    step, ends the fit early, reading device values only through
+    `read(fn)` (the runner's `read`); `before(state, k)` runs before the
+    fit's k-th step (0-based). The graph is freed when the fit returns.
+
+    The fit is a `fit` span (`profiling.RECORDER`) with the attributes
+    kind, first and last (the plan's first and last step), the config's
+    `iterations` and `num_points` as splats (where `cfg` is given), and,
+    once it ends, its counts: eager steps, warmups, captures, replays and
+    host reads (`read`). Inside it: a `fit.eager` span an eager step,
+    the runner's `fit.warmup`, `graph.capture` and `fit.replays` spans,
+    and `fit.sync` spans."""
+    steps = [(i, eager) for first, count, eager in plan.runs
+             for i in range(first, first + count)]
+    attrs = {"kind": kind, "first": steps[0][0] if steps else None,
+             "last": steps[-1][0] if steps else None}
+    if cfg is not None:
+        attrs.update(iterations=cfg.iterations, splats=cfg.num_points)
+    eager_steps = 0
+    with RECORDER("fit", device=device, **attrs) as span, runner(device, graph) as run:
+        for k, (i, eager) in enumerate(steps):
             if before is not None:
                 before(state, k)
             if eager:
-                state = plan.step(state)
+                run.pause()
+                with RECORDER("fit.eager", device=device, step=i):
+                    state = plan.step(state)
+                eager_steps += 1
             else:
                 state = run(lambda s=state: plan.step(s), lambda s=state: plan.after_plain(s))
-            if stop is not None and stop(state):
+            if stop is not None and stop(state, run.read):
                 break
+        if span is not None:
+            span.attrs.update(eager=eager_steps, warmups=run.warmed, captures=run.captured,
+                              replays=run.replayed, reads=run.reads)
     return state
 
 
@@ -171,7 +195,14 @@ def launch_counts() -> dict:
 
 
 class Eager:
-    """Runs each plain step as it comes (the CPU, or graph=False)."""
+    """Runs each plain step as it comes (the CPU, or graph=False). A
+    runner's counts of its fit: warm-up steps (`warmed`), captures,
+    replays and host reads (`read`)."""
+
+    warmed = captured = replayed = 0
+
+    def __init__(self):
+        self.reads = 0
 
     def __enter__(self):
         return self
@@ -182,8 +213,40 @@ class Eager:
     def __call__(self, step: Callable[[], T], after_plain: Callable[[], T]) -> T:
         return step()
 
+    def pause(self) -> None:
+        """End the current run of replays (none here)."""
 
-class StepGraph:
+    def read(self, fn: Callable[[], T]) -> T:
+        """fn(), a read of device values inside the fit (its stop rule's),
+        as a `fit.sync` span: the fit's run of replays ends first, so its
+        device time holds no wait for the host; the fit counts the read."""
+        self.pause()
+        self.reads += 1
+        with RECORDER("fit.sync"):
+            return fn()
+
+
+class _Totals(type):
+    """The graph classes' process totals, `captures`, `replays` and
+    `capture_seconds`: views of the recorder's counters
+    `graph.<kind>.captures`, `.replays` and `.capture_s`."""
+
+    def _counter(suffix: str):
+        def get(cls):
+            return RECORDER.counters.get(f"graph.{cls.kind}.{suffix}", 0)
+
+        def put(cls, value) -> None:
+            RECORDER.counters[f"graph.{cls.kind}.{suffix}"] = value
+
+        return property(get, put)
+
+    captures = _counter("captures")
+    replays = _counter("replays")
+    capture_seconds = _counter("capture_s")
+    del _counter
+
+
+class StepGraph(Eager, metaclass=_Totals):
     """The plain steps of one fit as replays of one CUDA graph.
 
     A call `(step, after_plain)` takes one plain step: step() eagerly on a
@@ -192,18 +255,23 @@ class StepGraph:
     after_plain(). step() must read and write only tensors that outlive the
     graph. The totals over a process, like the kernels' launch counters:
     `captures`, `replays` and `capture_seconds` (host seconds a capture
-    takes, the graph's instantiation included)."""
+    takes, the graph's instantiation included), the recorder's counters
+    `graph.step.*`. Each warm-up step is a `fit.warmup` span; each run of
+    consecutive replays a `fit.replays` span (attribute replays), which
+    `pause()` ends."""
 
-    captures = 0
-    replays = 0
-    capture_seconds = 0.0
+    kind = "step"
 
     def __init__(self, device):
+        super().__init__()
         self.device = torch.device(device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.side: Optional[torch.cuda.Stream] = None
         self.warmed = 0
+        self.captured = 0
+        self.replayed = 0
         self.counts: list = []
+        self._run = None  # the open fit.replays span, the replays before it
 
     def __enter__(self):
         return self
@@ -217,64 +285,84 @@ class StepGraph:
                 self.warmed += 1
                 return self._on_side(step)
             out = self._capture(step)
-            self.replay()
+            self._replay_in_run()
             return out
-        self.replay()
+        self._replay_in_run()
         return after_plain()
+
+    def _replay_in_run(self) -> None:
+        if self._run is None:
+            self._run = (RECORDER.open("fit.replays", self.device), self.replayed)
+        self.replay()
+        self.replayed += 1
+
+    def pause(self) -> None:
+        """End the current run of replays: its `fit.replays` span closes."""
+        if self._run is not None:
+            span, before = self._run
+            self._run = None
+            RECORDER.close(span, replays=self.replayed - before)
 
     def _on_side(self, step: Callable[[], T]) -> T:
         if self.side is None:
             self.side = side_stream(self.device)
-        main = torch.cuda.current_stream(self.device)
-        self.side.wait_stream(main)
-        with torch.cuda.stream(self.side):
-            out = step()
-        main.wait_stream(self.side)
+        with RECORDER("fit.warmup", device=self.device):
+            main = torch.cuda.current_stream(self.device)
+            self.side.wait_stream(main)
+            with torch.cuda.stream(self.side):
+                out = step()
+            main.wait_stream(self.side)
         return out
 
     def _capture(self, step: Callable[[], T]) -> T:
-        self.graph, out, self.counts, secs = _capture(step, self.device, self.side)
-        StepGraph.capture_seconds += secs
-        StepGraph.captures += 1
+        self.graph, out, self.counts = _capture(step, self.device, self.side, self.kind)
+        self.captured += 1
         return out
 
     def replay(self) -> None:
         _replay(self.graph, self.counts)
-        StepGraph.replays += 1
+        RECORDER.add("graph.step.replays")
 
     def close(self) -> None:
         """Free the graph and its memory pool, once its replays have run
         (the pool's memory may then go to other streams)."""
+        self.pause()
         if self.graph is not None:
             _free(self.graph, self.device)
             self.graph = None
 
 
-def _capture(fn: Callable[[], T], device, stream) -> tuple:
+def _capture(fn: Callable[[], T], device, stream, kind: str) -> tuple:
     """fn() captured into a new CUDA graph on `stream`: (the graph, fn's
-    result, [(kernel wrapper, launches)] the capture saw, host seconds).
-    On the given stream, without `torch.cuda.graph`'s device sync and
-    release of every cached block (which the next calls would allocate
-    again); the graph's own memory pool holds what fn allocates. The
-    capture ran nothing, so its launch counts are taken back off the
-    counters: they belong to each replay (`_replay`)."""
+    result, [(kernel wrapper, launches)] the capture saw). On the given
+    stream, without `torch.cuda.graph`'s device sync and release of every
+    cached block (which the next calls would allocate again); the graph's
+    own memory pool holds what fn allocates. The capture ran nothing, so
+    its launch counts are taken back off the counters: they belong to each
+    replay (`_replay`). A `graph.capture` span (attribute graph: `kind`);
+    its host seconds, the graph's instantiation included, add to the
+    recorder's `graph.<kind>.capture_s` and the capture to
+    `graph.<kind>.captures`."""
     counters = kernel_counters()
     before = [c.launches for c in counters]
     graph = torch.cuda.CUDAGraph()
-    t0 = time.perf_counter()
-    main = torch.cuda.current_stream(device)
-    stream.wait_stream(main)
-    with torch.cuda.device(device), torch.cuda.stream(stream):
-        graph.capture_begin()
-        try:
-            out = fn()
-        finally:
-            graph.capture_end()
-    main.wait_stream(stream)
+    with RECORDER("graph.capture", device=device, graph=kind):
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(device)
+        stream.wait_stream(main)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            graph.capture_begin()
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+        main.wait_stream(stream)
+        RECORDER.add(f"graph.{kind}.capture_s", time.perf_counter() - t0)
+    RECORDER.add(f"graph.{kind}.captures")
     counts = [(c, c.launches - b) for c, b in zip(counters, before)]
     for c, b in zip(counters, before):
         c.launches = b
-    return graph, out, counts, time.perf_counter() - t0
+    return graph, out, counts
 
 
 def _replay(graph: torch.cuda.CUDAGraph, counts: list) -> None:
@@ -373,7 +461,7 @@ class EagerRender:
         return None
 
 
-class RenderGraph(EagerRender):
+class RenderGraph(EagerRender, metaclass=_Totals):
     """A render of fixed input tensors as replays of one CUDA graph.
 
     The first call renders eagerly on the current stream (a real render:
@@ -385,11 +473,10 @@ class RenderGraph(EagerRender):
     copy it before the next call, on the same stream. A failed capture or
     replay raises. A replay adds the capture's launch counts to the
     kernels' counters, so the counts equal an eager run's. The totals over
-    a process: `captures`, `replays` and `capture_seconds`."""
+    a process: `captures`, `replays` and `capture_seconds`, the recorder's
+    counters `graph.render.*` (a render records no span of its own)."""
 
-    captures = 0
-    replays = 0
-    capture_seconds = 0.0
+    kind = "render"
 
     def __init__(self, fn: Callable[..., torch.Tensor], inputs: Sequence[torch.Tensor],
                  device):
@@ -402,14 +489,13 @@ class RenderGraph(EagerRender):
     def __call__(self) -> torch.Tensor:
         if self.graph is not None:
             _replay(self.graph, self.counts)
-            RenderGraph.replays += 1
+            RECORDER.add("graph.render.replays")
             return self.output
         out = super().__call__()
         with torch.no_grad():
-            self.graph, self.output, self.counts, secs = _capture(
-                lambda: self.fn(*self.inputs), self.device, side_stream(self.device))
-        RenderGraph.capture_seconds += secs
-        RenderGraph.captures += 1
+            self.graph, self.output, self.counts = _capture(
+                lambda: self.fn(*self.inputs), self.device, side_stream(self.device),
+                self.kind)
         return out
 
     @property

@@ -17,10 +17,19 @@ number. The driver-level helpers of gsvc_tpu's module, `trace` (a
 torch.profiler Chrome trace in place of jax.profiler's), `time_fn` and
 `StepTimer`, time on the host clock and run on either device, syncing a
 CUDA result before they read the clock.
+
+`StepTimer` is also the port's recorder of spans and counters, and
+`RECORDER` its process-wide instance: the fits (`utils.graphs.run_fit`:
+`fit`, `fit.eager`, `fit.warmup`, `graph.capture`, `fit.replays`,
+`fit.sync`), the encoder's stages (`represent.init`, `represent.render`,
+`qat.init`, `qat.bits`, `qat.encode`) and the decoder's (`decode.*`)
+record into it, at the granularity of steps and stages, with device
+seconds from timing events that it reads without a sync.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import os
@@ -111,31 +120,217 @@ def time_fn(
     return (time.perf_counter() - t0) / iters
 
 
+class Span:
+    """One span of the recorder (`StepTimer`).
+
+    name; id; parent, the id of the span open around it (None at the top);
+    root, the id of the outermost span open around it (its own at the
+    top): the fit or library call that caused it; t0 / t1, host start and
+    end in ns on CLOCK_REALTIME (`time.time_ns`), the clock of
+    torch.profiler's events; attrs, a dict or None. On a CUDA device,
+    device_s is the device seconds between the span's two events and
+    device_t0 the seconds from its anchor's start event (the start event
+    of the outermost span around it that recorded events) to its own, so
+    spans of one root share an origin; both None until the events are
+    read (`StepTimer.resolve`), and for ever where the span recorded
+    none."""
+
+    __slots__ = ("name", "id", "parent", "root", "t0", "t1", "attrs", "device_s",
+                 "device_t0", "_events", "_anchor", "_rf")
+
+    def __init__(self, name: str, sid: int, parent: Optional["Span"]):
+        self.name, self.id = name, sid
+        self.parent = None if parent is None else parent.id
+        self.root = sid if parent is None else parent.root
+        self.t0 = self.t1 = 0
+        self.attrs: Optional[dict] = None
+        self.device_s: Optional[float] = None
+        self.device_t0: Optional[float] = None
+        self._events = None  # (device index, start event, end event)
+        self._anchor = None if parent is None else parent._anchor
+        self._rf = None
+
+    @property
+    def host_s(self) -> float:
+        return (self.t1 - self.t0) / 1e9
+
+    @property
+    def seconds(self) -> float:
+        """Device seconds where the span has them, else host seconds."""
+        return self.host_s if self.device_s is None else self.device_s
+
+    def __repr__(self) -> str:
+        return (f"Span({self.name!r}, id={self.id}, parent={self.parent}, root={self.root}, "
+                f"host_s={self.host_s:.6f}, device_s={self.device_s}, attrs={self.attrs})")
+
+
 class StepTimer:
-    """Per-phase wall-clock accumulator for driver-level observability.
+    """Spans and counters: the port's one recorder (`RECORDER` is the
+    process-wide instance its layers record into), and a per-phase
+    wall-clock accumulator for driver-level observability.
 
     Usage:
         timer = StepTimer()
         with timer("fit"):   ...
         with timer("eval", sync=img):  ...
         print(timer.report())
+
+    `timer(name, device=None, timed=False, **attrs)` records a span
+    (`Span`): its host interval, its parent and root, and `attrs` (more
+    may be added when it closes, `close(span, **attrs)`); `open` / `close`
+    do the same for a span that outlives one block. The recorder is
+    single-threaded: spans nest in the order they open and close. `totals`
+    and `counts` sum each name's host seconds and spans.
+
+    Where `device` is a CUDA device, the span records a timing event on
+    the device's current stream at entry and another at exit (pooled), but
+    none on a stream under capture, so none inside a graph. The events are
+    read lazily (`resolve`, which the recorder runs itself now and then):
+    only events that `query()` finds complete, so the recorder never
+    synchronises the device. While a torch.profiler session is active a
+    span is also a `record_function` range of its own name, so traces show
+    the program's spans above the device's kernels, on one clock.
+
+    Closed spans are kept in a ring of `capacity` (the oldest go first;
+    `counters["spans.dropped"]` counts them). `counters` holds named
+    process totals that code adds to (`add`): the graph classes' captures,
+    replays and capture seconds (`utils.graphs`). `enabled` False records
+    no span, no event and no range (counters still count: their readers
+    check the graphs with them), but for a span opened `timed`, whose
+    seconds its caller reads itself (the decoder's stages): that one is
+    still timed, its events included, and is kept nowhere (id 0, no
+    parent, not in the ring, the totals or a profiler trace). `RECORDER`
+    starts enabled unless the environment sets GSVC_SPANS=0.
     """
 
-    def __init__(self):
+    def __init__(self, capacity: int = 65536, enabled: bool = True,
+                 clock: Callable[[], int] = time.time_ns):
         self.totals: dict = {}
         self.counts: dict = {}
+        self.counters: dict = {}
+        self.enabled = enabled
+        self.clock = clock
+        self._ring: collections.deque = collections.deque(maxlen=capacity)
+        self._pending: list = []  # closed spans whose events are unread
+        self._pool: dict = {}  # device index -> free timing events
+        self._stack: list = []  # the open spans, innermost last
+        self._last_id = 0
 
     @contextlib.contextmanager
-    def __call__(self, name: str, sync=None):
-        t0 = time.perf_counter()
+    def __call__(self, name: str, sync=None, device=None, timed=False, **attrs):
+        span = self.open(name, device, timed, **attrs)
         try:
-            yield
+            yield span
         finally:
             if sync is not None:
                 _sync_tree(sync)
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+            self.close(span)
+
+    def open(self, name: str, device=None, timed=False, **attrs) -> Optional[Span]:
+        """Open a span inside the innermost open one (when disabled, None,
+        or a span kept nowhere where `timed`)."""
+        if not self.enabled:
+            if not timed:
+                return None
+            span = Span(name, 0, None)
+        else:
+            self._last_id += 1
+            span = Span(name, self._last_id, self._stack[-1] if self._stack else None)
+        if attrs:
+            span.attrs = attrs
+        index = _cuda_index(device)
+        if index is not None and not torch.cuda.is_current_stream_capturing():
+            start = self._mark(index)
+            if span._anchor is None:
+                span._anchor = start
+            span._events = (index, start, None)
+        if span.id and torch.autograd._profiler_enabled():
+            # record_function's light twin: a range ~0.2 us from the clock's reading, not ~3 us
+            span._rf = torch._C._profiler._RecordFunctionFast(name)
+            span._rf.__enter__()
+        span.t0 = self.clock()
+        if span.id:
+            self._stack.append(span)
+        return span
+
+    def close(self, span: Optional[Span], **attrs) -> None:
+        """Close `span` (and any span still open inside it), adding attrs."""
+        if span is None:
+            return
+        if span.id:
+            stack = self._stack
+            while stack and stack[-1] is not span:
+                self.close(stack[-1])
+            if stack:
+                stack.pop()
+        if span._events is not None:
+            index, start, _ = span._events
+            if torch.cuda.is_current_stream_capturing():
+                span._events = None
+            else:
+                span._events = (index, start, self._mark(index))
+                self._pending.append(span)
+        if span._rf is not None:  # the range ends, then the clock is read: as close as at entry
+            span._rf.__exit__(None, None, None)
+            span._rf = None
+        span.t1 = self.clock()
+        if attrs:
+            span.attrs = {**(span.attrs or {}), **attrs}
+        if not span.id:  # timed for its caller alone
+            self.resolve()
+            return
+        dt = span.host_s
+        self.totals[span.name] = self.totals.get(span.name, 0.0) + dt
+        self.counts[span.name] = self.counts.get(span.name, 0) + 1
+        if len(self._ring) == self._ring.maxlen:
+            self.add("spans.dropped")
+        self._ring.append(span)
+        if span.parent is None or len(self._pending) >= 256:
+            self.resolve()
+
+    def _mark(self, index: int) -> torch.cuda.Event:
+        """A timing event recorded on the current stream of device `index`."""
+        pool = self._pool.setdefault(index, [])
+        ev = pool.pop() if pool else torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(index))
+        return ev
+
+    def resolve(self) -> None:
+        """Read the events of the closed spans, in the order they closed, as
+        far as they have completed (never waiting for the device), and
+        pool them again. A span's anchor belongs to a span that closed
+        after it, so it is pooled only once every span that refers to it
+        has been read."""
+        done = 0
+        for span in self._pending:
+            index, start, end = span._events
+            anchor = span._anchor
+            if not (end.query() and start.query() and anchor.query()):
+                break
+            span.device_s = start.elapsed_time(end) / 1e3
+            span.device_t0 = anchor.elapsed_time(start) / 1e3
+            span._events = span._anchor = None
+            self._pool.setdefault(index, []).extend((start, end))
+            done += 1
+        del self._pending[:done]
+
+    def spans(self, name: Optional[str] = None, after: int = 0) -> list:
+        """The spans kept, in the order they closed (their events read as
+        far as they have completed): those named `name`, with ids above
+        `after` (`last_id` read before the work)."""
+        self.resolve()
+        return [s for s in self._ring
+                if s.id > after and (name is None or s.name == name)]
+
+    @property
+    def last_id(self) -> int:
+        """The id of the last span opened (0 before any): spans opened later
+        have larger ids."""
+        return self._last_id
+
+    def add(self, counter: str, value=1) -> None:
+        """Add `value` to a named counter."""
+        self.counters[counter] = self.counters.get(counter, 0) + value
 
     def report(self) -> str:
         lines = []
@@ -146,6 +341,21 @@ class StepTimer:
                 f" ({total / n * 1e3:.2f} ms/call)"
             )
         return "\n".join(lines)
+
+
+def _cuda_index(device) -> Optional[int]:
+    """The CUDA device index of `device` (its current device where it has
+    no index), or None where it is no CUDA device."""
+    if device is None:
+        return None
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+RECORDER = StepTimer(enabled=os.environ.get("GSVC_SPANS", "1") != "0")
 
 
 def _require_cuda(what: str, t: Optional[torch.Tensor] = None) -> None:
