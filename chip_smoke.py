@@ -15,7 +15,11 @@ the first fault:
    cluster size, and the inner-loop instruction mix of K4/K5 and K6 a
    (pixel, lane) pair from the built libraries' SASS (`utils.sass`; "not
    measured" without cuobjdump), failing unless each fast-colour kernel's
-   loop takes one MUFU.EX2 a pair and none of expf's range reduction;
+   loop takes one MUFU.EX2 a pair and none of expf's range reduction, and
+   unless Adan's update (csrc/adan.cu) holds as many FFMA, FMUL and FADD
+   as the same source built with -fmad=false (nvcc fused none of its
+   multiplies and adds: its FFMAs are the IEEE division's and square
+   root's own), which its bitwise equality with the plain update needs;
 2. kernels: K1 (fill_decode_keys), K2 (rank_cap_decode), K4 (forward,
    [H,W,3] and the tile-row "rows" store), K5 (forward, [3,H,W]), K6
    (backward into the expansion slots) and K3 (segmented cumsum) on the
@@ -52,7 +56,7 @@ the first fault:
    must have replayed, and no binning budget may overflow; then a few
    adaptive-control steps (the P-frame mode), which revive splats, a
    pre-train and a QAT fit, each with graphs and with graph=False, bitwise
-   equal;
+   equal; the fit must launch Adan's kernel;
 5. times: each kernel beside its plain version (K1 and K2 also on both
    wide scenes, and `torch.sort` of the keys at each layout), the eval render
    (projection + binning + render + clip, "chw") in frames per second (a
@@ -60,7 +64,10 @@ the first fault:
    graph, whose frame must equal the eager one bitwise), and
    a plain train step in ms, eagerly and as a graph replay (represent with
    the rows loss and with the image loss, QAT), against the all-PyTorch
-   path's eager step, all with CUDA events;
+   path's eager step, all with CUDA events; Adan's kernel on the represent
+   step's leaves at N and ADAN_WIDE_N splats, bitwise its plain version
+   (`optim.adan.adan_update_torch_`, one PyTorch op at a time), timed
+   beside it and its bound;
 6. the encoder: a 4-frame 1080p I420 clip (the bench scene, the same moved
    by a few pixels, then a cut to another seed's scene and its move),
    through `python -m gsvc_tpu_torch.drivers.represent` (10k splats,
@@ -70,12 +77,12 @@ the first fault:
    and leaves a P-frame, every fit beats its starting render's PSNR, no
    budget overflow is reported, the bitstream trailers match K_frames.txt,
    each decoded PSNR is within 0.1 dB of the compress stage's, the fits
-   replayed graphs, and the launch counts of K1-K6 over the three CLIs are
-   the eager encoder's (`ENCODER_LAUNCHES`); it prints per-frame fit
-   seconds, QAT ms a step, eval fps and bpp, each CLI's fit and render
-   graph captures,
-   capture seconds, replays and peak device memory, and each coded frame's
-   sha256 beside the eager encoder's (`ENCODER_SHA256`, equal or not);
+   replayed graphs, and the launch counts of K1-K6 and Adan's kernel over
+   the three CLIs are the eager encoder's (`ENCODER_LAUNCHES`); it prints
+   per-frame fit seconds, QAT ms a step, eval fps and bpp, each CLI's fit
+   and render graph captures, capture seconds, replays and peak device
+   memory, and each coded frame's sha256 beside the eager encoder's
+   (`ENCODER_SHA256`, equal or not);
 7. the profiling path (`gsvc_tpu_torch.scripts`): the harnesses' kernels
    against their plain versions (P1's K4 variants within max-abs 1e-4 and
    within 1e-4 of the plain render's largest entry, which must not be 0,
@@ -263,7 +270,7 @@ ENCODER_LAUNCHES = {"fill_decode_keys": 18487, "rank_cap_decode": 18487,
                     "forward_rows": 17660, "backward_slots": 17660,
                     "segmented_cumsum": 17660, "forward_chw": 808, "forward_image": 19,
                     "forward_image_fast": 0, "forward_chw_fast": 0, "forward_rows_fast": 0,
-                    "backward_slots_fast": 0}
+                    "backward_slots_fast": 0, "adan_update": 17568}
 ENCODER_SHA256 = ("8e76cbd280e9cef0", "40c8b44f5d5a4e3d", "afe1be16eebdc54a",
                   "0ac06a4d66f84cbc")
 # phase 12: the 3D pipeline's SH degree, the cut size (H, W, N) of A2's check
@@ -280,8 +287,12 @@ FAST_TOL, FAST_GRAD_TOL = 6.5e-3, 4e-3
 FAST_KERNELS = ("forward_image_fast", "forward_chw_fast", "forward_rows_fast",
                 "backward_slots_fast")
 TRACE_ITERS, TRACE_EVERY = 400, 50
+# phase 5: the splats of Adan's second timing (the paper's highest rate
+# point); phase 7's harnesses run the host-float `adan_step`, never its kernel
+ADAN_WIDE_N = 50000
+PLAIN_ADAN = ("adan_update",)
 LIBS = ("fill", "segsum", "rasterize_fwd", "rasterize_bwd", "profile_kernel_parts",
-        "profile_bwd_variants", "probe_transpose", "rasterize_alpha")
+        "profile_bwd_variants", "probe_transpose", "rasterize_alpha", "adan")
 NATIVE = ("rans", "yuv")  # host C++ (gsvc_tpu_torch/native), built with g++
 
 
@@ -396,10 +407,10 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
     clis = [
         ("represent", represent_cli.main, run.represent,
          ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
-          "segmented_cumsum", "forward_chw")),
+          "segmented_cumsum", "forward_chw", "adan_update")),
         ("compress", compress_cli.main, run.compress,
          ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
-          "segmented_cumsum", "forward_chw")),
+          "segmented_cumsum", "forward_chw", "adan_update")),
         ("decode", decode_cli.main, run.decode,
          ("fill_decode_keys", "rank_cap_decode", "forward_image")),
     ]
@@ -566,6 +577,90 @@ def timed_row(smi, phase, name, src, replaces, counter, err, kern, plain, work,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
+def adan_unfused() -> None:
+    """Phase 1: Adan's kernel (csrc/adan.cu) holds as many FFMA, FMUL and
+    FADD as the same source built with -fmad=false, where nvcc contracts no
+    multiply and add: every FFMA it has belongs to the IEEE division and
+    square root, so each of the update's own operations rounds once, as the
+    plain update's kernels round them."""
+    from gsvc_tpu_torch import _build
+    from gsvc_tpu_torch.utils import sass
+
+    counts = sass.library_counts(_build.library_path("adan"))
+    if counts is None:
+        print("phase 1 sass adan: not measured (no cuobjdump)")
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "libadan-nofmad.so"
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-fmad=false", "-I",
+                              str(_build.CSRC_DIR), "-o", str(out),
+                              str(_build.CSRC_DIR / "adan.cu")],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            fail(f"phase 1: adan.cu with -fmad=false did not build:\n{res.stderr}")
+        unfused = sass.library_counts(out)
+    classes = ("FFMA", "FMUL", "FADD")
+    for kernel in sorted(counts):
+        got = {c: counts[kernel][c] for c in classes}
+        want = {c: unfused[kernel][c] for c in classes}
+        print(f"phase 1 sass adan {kernel}: {got}; built with -fmad=false {want}")
+        if got != want:
+            fail(f"phase 1: Adan's kernel {kernel} fuses multiplies and adds: {got}, "
+                 f"with -fmad=false {want}")
+
+
+def adan_row(torch, dev, smi, n: int) -> dict:
+    """Phase 5: Adan's kernel on the represent step's leaves ([n, 2], [n, 3],
+    [n, 3], [n, 1]; a table row of step 2, fresh), first bitwise its plain
+    version (`adan_update_torch_`, one PyTorch op at a time), then timed
+    beside it and its bound (`utils.work.adan_work`)."""
+    from gsvc_tpu_torch.optim import adan, adan_cuda
+    from gsvc_tpu_torch.utils import work
+
+    gen = torch.Generator(device=dev).manual_seed(n)
+    shapes = {"xyz": (n, 2), "cholesky": (n, 3), "features_dc": (n, 3), "rgb_w": (n, 1)}
+    counts = [n * s[1] for s in shapes.values()]
+
+    def tree(scale=1.0, positive=False):
+        out = {k: torch.randn(s, device=dev, generator=gen) * scale for k, s in shapes.items()}
+        return {k: v.abs() for k, v in out.items()} if positive else out
+
+    params, grads = tree(), tree(1e-2)
+    state = adan.AdanState(step=1, fresh={k: True for k in shapes}, exp_avg=tree(1e-3),
+                           exp_avg_sq=tree(1e-5, True), exp_avg_diff=tree(1e-4),
+                           neg_pre_grad=tree(1e-2))
+    table = torch.tensor(adan.adan_table([(1, 1e-2), (2, 1e-2)], device=dev), device=dev)
+    row = torch.tensor(1, dtype=torch.int64, device=dev)
+    fresh = torch.tensor(True, device=dev)
+    kw = dict(betas=(0.98, 0.92, 0.99), eps=1e-8)
+
+    def clone():
+        return ({k: v.clone() for k, v in params.items()}, dataclasses.replace(state, **{
+            f: {k: v.clone() for k, v in getattr(state, f).items()}
+            for f in ("exp_avg", "exp_avg_sq", "exp_avg_diff", "neg_pre_grad")}))
+
+    def leaves(p, st):
+        return [(p[k], grads[k], st.exp_avg[k], st.exp_avg_sq[k], st.exp_avg_diff[k],
+                 st.neg_pre_grad[k]) for k in shapes]
+
+    (pk, sk), (pp, sp) = clone(), clone()
+    adan_cuda.adan_update(leaves(pk, sk), table, row, fresh, None, no_prox=False, **kw)
+    adan.adan_update_torch_(pp, grads, sp, table, row, fresh, max_grad_norm=0.0,
+                            no_prox=False, **kw)
+    for a, b in zip(leaves(pk, sk), leaves(pp, sp)):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"Adan's kernel at {n} splats differs from its plain version")
+    lk = leaves(pk, sk)
+    name = f"O1 adan_update, represent leaves at {n} splats"
+    return timed_row(
+        smi, 5, name, "gsvc_tpu_torch/csrc/adan.cu",
+        "none: gsvc_tpu/optim/adan.py, fused by XLA", "adan_update", 0.0,
+        lambda: adan_cuda.adan_update(lk, table, row, fresh, None, no_prox=False, **kw),
+        lambda: adan.adan_update_torch_(pp, grads, sp, table, row, fresh, max_grad_norm=0.0,
+                                        no_prox=False, **kw),
+        work.adan_work(counts))
+
+
 def profiling_phase(torch, dev, smi, sc, v_rows, counters) -> list:
     """Phase 7: the new kernels of the profiling harnesses against their
     plain versions at 1080p/10k, timed; then the six harnesses' mains with
@@ -657,7 +752,8 @@ def profiling_phase(torch, dev, smi, sc, v_rows, counters) -> list:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in every}
-    missing = [k for k, v in launches.items() if (v <= 0) != (k in FAST_KERNELS)]
+    missing = [k for k, v in launches.items()
+               if (v <= 0) != (k in FAST_KERNELS + PLAIN_ADAN)]
     if missing:
         fail(f"kernels not launched, or fast-colour kernels launched, on the profiling "
              f"path: {missing}; launches {launches}")
@@ -1874,6 +1970,7 @@ def main() -> int:
             if kernel.endswith((",4>", ",1>")) and (per["EXPF"] > 0 or per["MUFU"] != 1):
                 fail(f"phase 1: the fast-colour kernel {kernel} takes expf's range "
                      f"reduction ({per['EXPF']:.2f} a pair) or {per['MUFU']:.2f} MUFU a pair")
+    adan_unfused()
     if argv == ["--profile"]:
         profile_steps(np, torch, dev, smi)
         return 0
@@ -2082,7 +2179,7 @@ def main() -> int:
     serve_kernels = ("fill_decode_keys", "rank_cap_decode", "forward_image",
                      "forward_chw")
     train_kernels = ("fill_decode_keys", "rank_cap_decode", "forward_rows",
-                     "backward_slots", "segmented_cumsum")
+                     "backward_slots", "segmented_cumsum", "adan_update")
     with tempfile.TemporaryDirectory() as tmp:
         # the decoder's runs: eager, graph (the main path), graph (its capture
         # cached), eager
@@ -2322,6 +2419,7 @@ def main() -> int:
     library = {"K2 rank_cap_decode": lambda: torch.searchsorted(tiles, tile_range)}
     kernels = [timed_row(smi, 5, *row, bounds[row[0]], library.get(row[0]))
                for row in timed]
+    kernels += [adan_row(torch, dev, smi, n) for n in (N, ADAN_WIDE_N)]
     # K1 and K2 on the wide scenes, (grid, row); their launches are phase
     # 9's point on the same grid
     wide_rows = []

@@ -284,7 +284,7 @@ def make_train_step_quantize(cfg: FrameConfig, shard: Optional[TileShard] = None
                                                         shard)
         with torch.no_grad():
             psnr = 10.0 * torch.log10(1.0 / torch.clamp(recon, min=1e-20))
-            opt = adan_step_(_p2d(state.params), grads, state.opt, twins.scalars,
+            opt = adan_step_(_p2d(state.params), grads, state.opt, twins.table, twins.row,
                              twins.fresh, betas=cfg.betas, eps=cfg.eps)
             twins.row.add_(1)
             improved = psnr > state.best_psnr

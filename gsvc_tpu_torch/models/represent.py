@@ -580,7 +580,7 @@ def make_train_step(cfg: FrameConfig, lambda_value: float = 0.0,
                 opt = adan_reset_moments_(opt, twins.fresh)
                 opt = dataclasses.replace(opt, step=opt.step + 1)
             else:
-                opt = adan_step_(_trainable(params), grads, opt, twins.scalars,
+                opt = adan_step_(_trainable(params), grads, opt, twins.table, twins.row,
                                  twins.fresh, betas=cfg.betas, eps=cfg.eps)
             if hit_threshold:
                 opt = dataclasses.replace(opt, step=0)
@@ -752,7 +752,8 @@ def pre_train_plan(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
         loss, sq, grads = _loss_and_grads(state, gt, cfg, lambda_value, rows_target)
         with torch.no_grad():
             opt = adan_step_(_trainable(state.params), grads, state.opt,
-                             twins.scalars, twins.fresh, betas=cfg.betas, eps=cfg.eps)
+                             twins.table, twins.row, twins.fresh, betas=cfg.betas,
+                             eps=cfg.eps)
             twins.row.add_(1)
             state.loss.copy_(loss)
             state.psnr.copy_(_psnr(cfg, sq))

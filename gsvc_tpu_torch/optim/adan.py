@@ -2,21 +2,28 @@
 
 PyTorch port of gsvc_tpu/optim/adan.py, the functional form of the
 reference's vendored torch Adan (optimizer.py:238-293). Parameters,
-gradients and moments are dicts of tensors keyed like `_trainable`;
-the update is plain elementwise PyTorch under `torch.no_grad()` (the JAX
-package has no kernel here either). The step counter and the per-leaf
-`fresh` flags are host values, so no update needs a host sync.
+gradients and moments are dicts of tensors keyed like `_trainable`. The
+step counter and the per-leaf `fresh` flags are host values, so no update
+needs a host sync.
 
 Two forms of one update. `adan_step` takes the step's scalars as host
-floats and returns new tensors. `adan_step_`, the fits' form, takes them
-as [] device tensors, a row of a table made once a fit (`adan_table`), and
-the fresh flag as a [] bool tensor, and writes its results into the
-parameters' and the state's own tensors with `copy_`: a CUDA graph of the
-step then replays every later step. Both give the same bits: a multiply by
-a [] tensor rounds as one by the float, `torch.where` on the flag copies,
-and a division by a Python float, which PyTorch computes on a CUDA tensor
-as a multiply by its float32 reciprocal (div_true_kernel_cuda), is taken
-from a table that holds that reciprocal (`_div`).
+floats and returns new tensors, by `_update`: plain elementwise PyTorch
+under `torch.no_grad()`, one op at a time (gsvc_tpu's jnp, which XLA fuses
+into one update). `adan_step_`, the fits' form, takes them as a table made
+once a fit (`adan_table`) and a [] int64 device tensor holding the step's
+row, the fresh flag as a [] bool tensor, and writes its results into the
+parameters' and the state's own tensors: a CUDA graph of the step then
+replays every later step. On CUDA tensors it is one launch of a
+hand-written kernel for every leaf (`optim.adan_cuda`, csrc/adan.cu),
+which reads the row, the flag and the clip factor on the device; on CPU
+tensors it runs `_update` and `copy_`s its results
+(`adan_update_torch_`). All give the same
+bits: a multiply by a [] tensor rounds as one by the float, `torch.where`
+on the flag copies, a division by a Python float, which PyTorch computes
+on a CUDA tensor as a multiply by its float32 reciprocal
+(div_true_kernel_cuda), is taken from a table that holds that reciprocal
+(`_div`), and the kernel does `_update`'s float32 operations in its order,
+each rounded once.
 
 Update rule per step t:
     g       <- g * clip                      (global-norm clip factor)
@@ -35,10 +42,12 @@ g itself, so the difference term is zero (optimizer.py:187-189).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from gsvc_tpu_torch.optim import adan_cuda
 
 Tree = Dict[str, torch.Tensor]
 
@@ -118,6 +127,15 @@ def _div(x: torch.Tensor, d) -> torch.Tensor:
     return x / d
 
 
+def _clip_factor(grads, eps, max_grad_norm) -> Optional[torch.Tensor]:
+    """The global-norm clip factor of the gradients, a [] tensor (None where
+    max_grad_norm is 0: no clip)."""
+    if max_grad_norm <= 0.0:
+        return None
+    gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+    return torch.clamp(max_grad_norm / (gnorm + eps), max=1.0)
+
+
 def _update(params, grads, state: AdanState, sc, fresh, betas, eps,
             max_grad_norm, no_prox):
     """The update's arithmetic: (params, m, n, d, -g) dicts of new tensors.
@@ -125,10 +143,7 @@ def _update(params, grads, state: AdanState, sc, fresh, betas, eps,
     host flags or one [] bool tensor for every leaf."""
     b1, b2, b3 = betas
     step_size, step_size_diff, bc3_sqrt, decay, shrink = sc
-    clip = None
-    if max_grad_norm > 0.0:
-        gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
-        clip = torch.clamp(max_grad_norm / (gnorm + eps), max=1.0)
+    clip = _clip_factor(grads, eps, max_grad_norm)
 
     new_p, m_new, n_new, d_new, npg_new = {}, {}, {}, {}, {}
     for k, p in params.items():
@@ -182,26 +197,52 @@ def adan_step_(
     params: Mapping[str, torch.Tensor],
     grads: Mapping[str, torch.Tensor],
     state: AdanState,
-    scalars: Sequence[torch.Tensor],
+    table: torch.Tensor,
+    row: torch.Tensor,
     fresh: torch.Tensor,
     betas: Tuple[float, float, float] = (0.98, 0.92, 0.99),
     eps: float = 1e-8,
     max_grad_norm: float = 0.0,
     no_prox: bool = False,
 ) -> AdanState:
-    """`adan_step` on the fit's own tensors: the step's `scalars` are a row
-    of `adan_table` ([] tensors) and `fresh` the [] bool twin of the state's
-    flags. The new parameters go into `params`' tensors and the moments into
-    the state's, by `copy_`; `fresh` is set False. Returns the state with
-    step + 1 and its flags False."""
-    new = _update(params, grads, state, scalars, fresh, betas, eps, max_grad_norm,
-                  no_prox)
+    """`adan_step` on the fit's own tensors: the step's scalars are row
+    `row` ([] int64) of `table` (`adan_table` for the parameters' device)
+    and `fresh` the [] bool twin of the state's flags. The new parameters
+    go into `params`' tensors and the moments into the state's; `fresh` is
+    set False. On CUDA tensors one kernel launch does it all
+    (`adan_cuda.adan_update`); on CPU tensors its plain version
+    (`adan_update_torch_`). Returns the state with step + 1 and its flags
+    False."""
+    if next(iter(params.values())).is_cuda:
+        # autograd may hand a gradient over transposed (features_dc's); the
+        # kernel reads each leaf's tensors as one contiguous range
+        leaves = [(p, grads[k].contiguous(), state.exp_avg[k], state.exp_avg_sq[k],
+                   state.exp_avg_diff[k], state.neg_pre_grad[k])
+                  for k, p in params.items()]
+        adan_cuda.adan_update(leaves, table, row, fresh,
+                              _clip_factor(grads, eps, max_grad_norm), betas, eps, no_prox)
+    else:
+        adan_update_torch_(params, grads, state, table, row, fresh, betas, eps,
+                           max_grad_norm, no_prox)
+    fresh.fill_(False)
+    return adan_host_step(state)
+
+
+@torch.no_grad()
+def adan_update_torch_(params, grads, state: AdanState, table: torch.Tensor,
+                       row: torch.Tensor, fresh: torch.Tensor, betas, eps: float,
+                       max_grad_norm: float, no_prox: bool) -> None:
+    """The plain version of `adan_step_`'s update, on either device: the
+    row's scalars as [] tensors, `_update` one PyTorch op at a time, its
+    results `copy_`d into the parameters and the state (on a card, 31
+    kernels a leaf; the kernel's yardstick in `chip_smoke.py`). Leaves
+    `fresh` as it is."""
+    scalars = torch.index_select(table, 0, row.view(1))[0].unbind()
+    new = _update(params, grads, state, scalars, fresh, betas, eps, max_grad_norm, no_prox)
     for dst, src in zip((params, state.exp_avg, state.exp_avg_sq, state.exp_avg_diff,
                          state.neg_pre_grad), new):
         for k, t in src.items():
             dst[k].copy_(t)
-    fresh.fill_(False)
-    return adan_host_step(state)
 
 
 def adan_host_step(state: AdanState) -> AdanState:

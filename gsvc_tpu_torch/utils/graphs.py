@@ -37,7 +37,7 @@ import collections
 import contextlib
 import functools
 import time
-from typing import Callable, Hashable, NamedTuple, Optional, Sequence, Tuple, TypeVar
+from typing import Callable, Hashable, NamedTuple, Optional, Sequence, TypeVar
 
 import numpy as np
 import torch
@@ -64,7 +64,7 @@ class Twins(NamedTuple):
 
     table [R, 5] float32: Adan's scalars of the fit's steps, a row a step
       in order (`optim.adan.adan_table`), which fold in the StepLR rate;
-    row [] int64: the row of the next step;
+    row [] int64: the row of the next step (Adan reads it on the device);
     fresh [] bool: Adan re-seeds its previous gradient (`AdanState.fresh`);
     grace [] int32: the early-stop grace countdown (represent fits only).
     """
@@ -73,11 +73,6 @@ class Twins(NamedTuple):
     row: torch.Tensor
     fresh: torch.Tensor
     grace: Optional[torch.Tensor] = None
-
-    @property
-    def scalars(self) -> Tuple[torch.Tensor, ...]:
-        """The next step's row of `table`, as [] tensors (no host read)."""
-        return torch.index_select(self.table, 0, self.row.view(1))[0].unbind()
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -179,14 +174,16 @@ def run_fit(state: T, plan: FitPlan, device, graph: Optional[bool],
 
 
 def kernel_counters() -> tuple:
-    """The kernel wrappers whose `launches` a replay adds to, and the
-    counters of their fast-colour kernels."""
+    """The kernel wrappers whose `launches` a replay adds to: K1-K6, the
+    counters of their fast-colour kernels, and Adan's update."""
     from gsvc_tpu_torch.ops import fill_cuda, rasterize_cuda
+    from gsvc_tpu_torch.optim import adan_cuda
 
     raster = (rasterize_cuda.forward_image, rasterize_cuda.forward_chw,
               rasterize_cuda.forward_rows, rasterize_cuda.backward_slots)
     return (fill_cuda.fill_decode_keys, fill_cuda.rank_cap_decode,
-            fill_cuda.segmented_cumsum, *raster, *(w.fast for w in raster))
+            fill_cuda.segmented_cumsum, *raster, *(w.fast for w in raster),
+            adan_cuda.adan_update)
 
 
 def launch_counts() -> dict:

@@ -11,6 +11,10 @@ inside the loop counts in full, whether or not a pair takes it.
 and `FFMA.RM`); `__expf`, the fast-colour mode's, has none: one `FMUL` by
 log2(e) before its `MUFU.EX2`.
 
+`library_counts` counts each whole kernel's instructions by class, for
+a kernel with no such loop (Adan's update: `chip_smoke.py` holds its
+FFMA, FMUL and FADD to a build with `-fmad=false`).
+
     python -m gsvc_tpu_torch.utils.sass build/librasterize_fwd-<hash>.so
 
 prints each kernel's loop mix; it needs `cuobjdump` (the CUDA toolkit's,
@@ -130,20 +134,39 @@ def cuobjdump() -> Optional[str]:
     return None
 
 
-def library_mix(lib_path) -> Optional[Dict[str, dict]]:
-    """{kernel: loop_mix} of every kernel in a built library that has an
-    inner loop; None where there is no cuobjdump."""
+def _sass(lib_path) -> Optional[Dict[str, List[Instr]]]:
+    """`functions` of a built library's SASS; None where there is no
+    cuobjdump."""
     tool = cuobjdump()
     if tool is None:
         return None
-    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
+    return functions(subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                                    text=True, check=True, timeout=300).stdout)
+
+
+def library_mix(lib_path) -> Optional[Dict[str, dict]]:
+    """{kernel: loop_mix} of every kernel in a built library that has an
+    inner loop; None where there is no cuobjdump."""
+    funcs = _sass(lib_path)
+    if funcs is None:
+        return None
     out = {}
-    for name, instrs in functions(text).items():
+    for name, instrs in funcs.items():
         mix = loop_mix(instrs)
         if mix is not None:
             out[pretty(name)] = mix
     return out
+
+
+def library_counts(lib_path) -> Optional[Dict[str, Counter]]:
+    """{kernel: its instructions counted by class (the mnemonic before its
+    first '.')} over each whole function of a built library; None where
+    there is no cuobjdump."""
+    funcs = _sass(lib_path)
+    if funcs is None:
+        return None
+    return {pretty(name): Counter(op.split(".")[0] for _a, op, _t in instrs)
+            for name, instrs in funcs.items()}
 
 
 def describe(kernel: str, mix: dict) -> str:

@@ -263,3 +263,12 @@ def alpha_work(n: int, c_dim: int, total: int, num_tiles: int, H: int, W: int,
         "A2 alpha_backward": (a2_bytes, A2_OPS[0] * bwd_pairs
                               + (A2_OPS[1] + A2_OPS[2] * c_dim) * contrib),
     }
+
+
+def adan_work(counts) -> tuple:
+    """(bytes, operations) of one Adan update (csrc/adan.cu) of leaves of
+    `counts` elements: an element reads p, g, m, n, d and -g_prev and writes
+    all but g (44 bytes), and does 13 multiplies, 8 adds, a square root and
+    two divisions (24 operations; a clip adds a multiply)."""
+    elements = sum(int(c) for c in counts)
+    return 44 * elements, 24 * elements

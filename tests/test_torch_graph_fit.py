@@ -29,7 +29,9 @@ in parameters, mask, moments, counters, loss, best loss and patience, and
 two graph fits equal each other; each replays and counts the eager fit's
 kernel launches; the fits' Adan equals the host-float Adan bitwise on CUDA
 tensors (PyTorch divides a CUDA tensor by a Python float as a multiply by
-its float32 reciprocal); the new eager fit equals the replaced step there.
+its float32 reciprocal); the new eager fit equals the replaced step there;
+a 1080p/10k removal fit of 300 steps on graphs equals graph=False bitwise,
+every Adan update of both one launch of its kernel (csrc/adan.cu).
 """
 
 import dataclasses
@@ -296,7 +298,7 @@ def _adan_both(fresh, max_grad_norm, weight_decay, no_prox, device):
             host = adan.adan_reset_moments(host)
             fit = adan.adan_reset_moments_(fit, twins.fresh)
         hp, host = adan.adan_step(hp, t(grads[i]), host, lr, weight_decay=weight_decay, **kw)
-        fit = adan.adan_step_(fp, t(grads[i]), fit, twins.scalars, twins.fresh, **kw)
+        fit = adan.adan_step_(fp, t(grads[i]), fit, twins.table, twins.row, twins.fresh, **kw)
         twins.row.add_(1)
         first = hp if first is None else first
     return hp, host, fp, fit, first
@@ -655,3 +657,35 @@ def test_eager_fit_equals_the_replaced_steps_on_the_card(dev):
     new = comp.fit_compress(comp.init_compress_state(g, pg, dev), gt, qcfg,
                             reload_best=False, draws=torch.Generator().manual_seed(0))
     _assert_same_qat(new, old)
+
+
+@pytest.mark.cuda
+def test_graph_fit_at_1080p_equals_eager_with_adan_on_its_kernel(dev, monkeypatch):
+    """A 1080p/10k represent fit of 300 steps (removal control at 100, 200
+    and 300, which rebuild the mask and skip the update) on graphs equals
+    the fit with graph=False bitwise. Every update of either runs on Adan's
+    kernel, none through `_update`: one launch an eager step that updates,
+    a warm-up and a replay."""
+    from gsvc_tpu_torch.optim import adan_cuda
+    from gsvc_tpu_torch.utils.profiling import RECORDER
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA fit ran Adan's plain update")
+
+    monkeypatch.setattr(adan, "_update", plain)
+    cfg = _cfg(h=1080, w=1920, n=10_000, cap=10_000, isremoval=True, iterations=300,
+               densification_interval=100)
+    gt = _gt(1080, 1920, device=dev)
+    fits = []
+    for graph in (None, False):
+        before, last = adan_cuda.adan_update.launches, RECORDER.last_id
+        fits.append(rep.fit_frame_partial(_rep_state(cfg, device=dev), gt, 300, cfg,
+                                          graph=graph))
+        torch.cuda.synchronize()
+        span = RECORDER.spans("fit", after=last)[-1].attrs
+        rebuilt = 3  # the control steps 100, 200, 300
+        assert adan_cuda.adan_update.launches - before == 300 - rebuilt
+        if graph is None:  # the eager runner counts only its control steps
+            assert span["replays"] > 0
+            assert span["eager"] + span["warmups"] + span["replays"] == 300
+    _assert_same_rep(fits[0], fits[1])

@@ -24,12 +24,18 @@ variants max-abs 1e-4 and within 1e-4 of the plain version's largest
 entry (no_acc's outputs are ~1e-5) against their plain versions, P5's
 job-based C and D and K6's pixel splits F and G within 1e-4 of K6's
 largest slot, P6's transposes exactly (each of its tile shapes, rows not
-a multiple of 4 and an input that is not 16-byte aligned).
+a multiple of 4 and an input that is not 16-byte aligned). Adan's update
+(csrc/adan.cu, one launch for every leaf of a step) bitwise `_update` on
+the same CUDA tensors, for the represent and QAT leaf sets at 0 to 50,000
+splats, odd and misaligned leaves, fresh or not, a clip, no_prox, and as
+a CUDA graph replayed across table rows.
 
 The scene "capped" (1,500 big splats on 64x64) puts more than the cap of
 256 lanes on every tile, where the kernels' staged lanes fill their
 shared buffers and K6 must leave the capped lanes' slots exactly 0.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -39,7 +45,9 @@ from gsvc_tpu_torch.ops import fill_cuda, rasterize_cuda
 from gsvc_tpu_torch.ops.binning import bin_gaussians, default_max_intersects, key_inputs
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
 from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum
+from gsvc_tpu_torch.optim import adan, adan_cuda
 from gsvc_tpu_torch.scripts.common import synthetic_key_inputs
+from gsvc_tpu_torch.utils import graphs
 
 pytestmark = pytest.mark.cuda
 
@@ -623,3 +631,110 @@ def test_fast_color_gradients_match_plain_autograd(dev):
         grads.append(torch.autograd.grad(torch.sum((img - 0.3) ** 2 * wgt), leaves))
     for a, b in zip(*grads):
         _close(a, b)
+
+
+# -- Adan's update: every leaf of a step in one launch -----------------------------
+
+
+_ADAN_SETS = {"represent": lambda n: [(n, 2), (n, 3), (n, 3), (n, 1)],
+              "qat": lambda n: [(n, 2), (n, 3), (n, 3), (3,), (3,)]}
+# fresh, max_grad_norm, weight_decay, no_prox
+_ADAN_CASES = [(True, 0.0, 0.0, False), (False, 0.0, 0.0, False),
+               (False, 0.05, 0.02, False), (False, 0.0, 0.02, True)]
+_MOMENTS = ("exp_avg", "exp_avg_sq", "exp_avg_diff", "neg_pre_grad")
+
+
+def _adan_inputs(shapes, dev, seed, offset=0):
+    """(params, grads, AdanState) of random float32 leaves on dev. With an
+    offset each tensor is a contiguous view `offset` floats into a buffer of
+    its own (not 16-byte aligned where offset % 4 != 0); without, the
+    features' gradient is transposed, as autograd hands it over."""
+    rng = np.random.default_rng(seed)
+
+    def t(s, scale, positive=False):
+        a = rng.normal(size=s) * scale
+        a = torch.as_tensor(np.abs(a) if positive else a, dtype=torch.float32)
+        if not offset:
+            return a.to(dev)
+        buf = torch.zeros(a.numel() + offset, device=dev)
+        view = buf[offset:].view(s)
+        view.copy_(a)
+        return view
+
+    names = [f"leaf{i}" for i in range(len(shapes))]
+    params = {k: t(s, 1.0) for k, s in zip(names, shapes)}
+    grads = {k: t(s, 1e-2) for k, s in zip(names, shapes)}
+    if not offset:
+        grads["leaf2"] = grads["leaf2"].t().contiguous().t()
+    moments = {f: {k: t(s, sc, f == "exp_avg_sq") for k, s in zip(names, shapes)}
+               for f, sc in zip(_MOMENTS, (1e-3, 1e-5, 1e-4, 1e-2))}
+    return params, grads, adan.AdanState(step=6, fresh={k: False for k in names}, **moments)
+
+
+def _adan_tensors(params, state):
+    return [*params.values(), *(t for f in _MOMENTS for t in getattr(state, f).values())]
+
+
+@pytest.mark.parametrize("leaf_set", sorted(_ADAN_SETS))
+@pytest.mark.parametrize("n,offset", [(0, 0), (1, 0), (777, 0), (10_000, 0), (50_000, 0),
+                                      (1, 1), (777, 1), (10_001, 3)])
+@pytest.mark.parametrize("fresh,max_grad_norm,weight_decay,no_prox", _ADAN_CASES)
+def test_adan_kernel_equals_plain_update(dev, leaf_set, n, offset, fresh, max_grad_norm,
+                                         weight_decay, no_prox):
+    """One launch a call, bitwise `_update` on the same CUDA tensors: the
+    represent and QAT leaf sets, empty, single and odd leaves, misaligned
+    ones (the scalar path), fresh or not, a clip, no_prox."""
+    shapes = _ADAN_SETS[leaf_set](n)
+    table = torch.tensor(adan.adan_table([(6, 2e-3), (7, 1e-3), (8, 5e-4)], (0.98, 0.92, 0.99),
+                                         weight_decay, dev), device=dev)
+    row = torch.tensor(1, dtype=torch.int64, device=dev)
+    kw = dict(betas=(0.98, 0.92, 0.99), eps=1e-8, max_grad_norm=max_grad_norm,
+              no_prox=no_prox)
+    params, grads, state = _adan_inputs(shapes, dev, seed=n + offset, offset=offset)
+    flag = torch.tensor(fresh, device=dev)
+    scalars = torch.index_select(table, 0, row.view(1))[0].unbind()
+    want = adan._update(params, grads, state, scalars, flag.clone(), **kw)
+    before = adan_cuda.adan_update.launches
+    out = adan.adan_step_(params, grads, state, table, row, flag, **kw)
+    torch.cuda.synchronize()
+    assert adan_cuda.adan_update.launches == before + 1
+    assert out.step == 7 and not bool(flag)
+    got = [params, state.exp_avg, state.exp_avg_sq, state.exp_avg_diff, state.neg_pre_grad]
+    for name, g, w in zip(("p", "m", "n", "d", "-g"), got, want):
+        for k in g:
+            assert torch.equal(g[k], w[k]), (name, k)
+
+
+def test_adan_kernel_replays_equal_eager_updates(dev):
+    """A `StepGraph` of the update (3 eager warm-ups, then a capture replayed
+    5 times, each on the next table row) equals 8 eager updates bitwise;
+    each counts one launch an update."""
+    steps = [(s, 1e-3 * 0.9 ** s) for s in range(1, 9)]
+    table = torch.tensor(adan.adan_table(steps, device=dev), device=dev)
+    runs = []
+    for graph in (True, False):
+        params, grads, state = _adan_inputs(_ADAN_SETS["represent"](10_000), dev, seed=5)
+        row = torch.zeros((), dtype=torch.int64, device=dev)
+        fresh = torch.ones((), dtype=torch.bool, device=dev)
+        box = [dataclasses.replace(state, fresh={k: True for k in state.fresh})]
+
+        def step(box=box, params=params, grads=grads, row=row, fresh=fresh):
+            box[0] = adan.adan_step_(params, grads, box[0], table, row, fresh)
+            row.add_(1)
+            return box[0]
+
+        def after(box=box):
+            box[0] = adan.adan_host_step(box[0])
+            return box[0]
+
+        before, replays = adan_cuda.adan_update.launches, graphs.StepGraph.replays
+        with graphs.StepGraph(dev) if graph else graphs.Eager() as run:
+            for _ in steps:
+                run(step, after)
+        torch.cuda.synchronize()
+        assert adan_cuda.adan_update.launches - before == len(steps)
+        assert graphs.StepGraph.replays - replays == (5 if graph else 0)
+        assert box[0].step == 6 + len(steps) and int(row) == len(steps)
+        runs.append(_adan_tensors(params, box[0]))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
