@@ -105,7 +105,10 @@ the first fault:
    with phase 8's checks, failing unless every frame kept at least 65,536
    splats (so the fits, the decoder and their K1 / K2 ran on wide keys);
    each prints the key layout, the eval fps, seconds a frame and each
-   CLI's peak memory;
+   CLI's peak memory, and fails unless every represent and QAT fit's `fit`
+   span names 4-byte keys at 1080p and 8-byte keys at 4K UHD (17-bit
+   gauss fields) and the recorder's `binning.keys` / `binning.key_bytes`
+   moved with them;
 10. the tile-sharded trainer (`parallel/sharded.py`), its ranks spawned by
    `parallel.launch` (gloo), SHARD_RANKS of them sharing the card:
    (a) K4 rows / image, K5 and K6 at every tile-row span of 2, 3 and 4
@@ -237,6 +240,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 H, W, N = 1080, 1920, 10000
 RENDER_TOL = 1e-4
@@ -261,6 +265,9 @@ MH_OVER_FACTOR, MH_OVER_ITERS = 2, 500
 # field (int32 at 1080p, int64 at 4K UHD), phase 9's frames at each grid,
 # and the small cap phase 2 also holds K2 to on those keys
 WIDE_N, WIDE_GRIDS, RD_WIDE_FRAMES = 100000, ((1080, 1920), (2160, 3840)), 2
+# the binning keys' bytes that phase 9's represent and QAT fits name in their
+# `fit` spans at each grid: int32 at 1080p, int64 at 4K UHD (17-bit fields)
+WIDE_KEY_BYTES = {(1080, 1920): 4, (2160, 3840): 8}
 WIDE_CAP = 4
 # phase 6's kernel launches and coded frames as the eager encoder made them
 # (`python -m gsvc_tpu_torch.scripts.encoder_drift --eager`: every fit step
@@ -504,23 +511,30 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
 
 
 def rd_point_phase(torch, smi, counters, tmp: Path, phase: int, n: int, frames: int,
-                   min_kept: int = 0, width: int = W, height: int = H) -> dict:
+                   min_kept: int = 0, width: int = W, height: int = H,
+                   key_bytes: Optional[int] = None) -> dict:
     """Phases 8 and 9: a reduced RD point of `n` splats and `frames` frames
     of width x height through `run_rd_point.run_point` (its three CLIs),
     checked: every frame decoded within the point's tolerance of its
     encoder PSNR, a P-frame in the stream, no budget overflow reported,
-    K1-K6 launched, every frame keeping at least `min_kept` splats. Returns
-    the point's launches."""
+    K1-K6 launched, every frame keeping at least `min_kept` splats; with
+    `key_bytes`, every represent and QAT `fit` span names keys of that
+    many bytes with a 17-bit gauss field, and the recorder's binning
+    counters moved (at 4-byte keys, 4 bytes a key; past them, more).
+    Returns the point's launches."""
     import contextlib
     import io
 
     from gsvc_tpu_torch.ops.fill_cuda import key_layout
     from gsvc_tpu_torch.scripts import run_rd_point as rd
     from gsvc_tpu_torch.scripts.encoder_drift import ENC_ITERS, QAT_ITERS
+    from gsvc_tpu_torch.utils.profiling import RECORDER
 
     err = io.StringIO()
     for c in counters:
         c.launches = 0
+    mark = RECORDER.last_id
+    binning = {k: RECORDER.counters.get(k, 0) for k in ("binning.keys", "binning.key_bytes")}
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
         point = rd.run_point(tmp, frames, n, ENC_ITERS, QAT_ITERS, width=width,
@@ -542,6 +556,20 @@ def rd_point_phase(torch, smi, counters, tmp: Path, phase: int, n: int, frames: 
     if len(point["splats_kept"]) != frames or min(point["splats_kept"]) < min_kept:
         fail(f"RD point of phase {phase}: splats kept {point['splats_kept']}, want "
              f"{frames} frames of at least {min_kept}")
+    binning = {k: RECORDER.counters.get(k, 0) - v for k, v in binning.items()}
+    fits = [s.attrs for s in RECORDER.spans("fit", after=mark)
+            if s.attrs.get("kind") in ("represent", "qat")]
+    if key_bytes is not None:
+        named = sorted({(a.get("key_bytes"), a.get("gauss_bits")) for a in fits})
+        keys, nbytes = binning["binning.keys"], binning["binning.key_bytes"]
+        if not fits or named != [(key_bytes, 17)]:
+            fail(f"RD point of phase {phase}: its fits' spans name keys (bytes, gauss bits) "
+                 f"{named}, want ({key_bytes}, 17)")
+        if keys <= 0 or (nbytes == 4 * keys) != (key_bytes == 4) or nbytes > 8 * keys:
+            fail(f"RD point of phase {phase}: binning counters {binning} for "
+                 f"{key_bytes}-byte keys")
+        print(f"phase {phase} binning [{smi}]: {len(fits)} represent and QAT fits on "
+              f"{key_bytes}-byte keys, 17-bit gauss fields; {binning}")
     layout = key_layout(((width + 15) // 16) * ((height + 15) // 16), n)
     print(f"phase {phase} RD point [{smi}]: {width}x{height}, {n} splats (keys: a "
           f"{layout.gauss_bits}-bit gauss field, {str(layout.dtype)[6:]}), {frames} "
@@ -2526,7 +2554,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             wide_launches[(wh, ww)] = rd_point_phase(
                 torch, smi, counters, Path(tmp), 9, WIDE_N, RD_WIDE_FRAMES,
-                min_kept=1 << 16, width=ww, height=wh)
+                min_kept=1 << 16, width=ww, height=wh, key_bytes=WIDE_KEY_BYTES[(wh, ww)])
     for grid, k in wide_rows:
         k["launches"] = wide_launches[grid][k["launches"]]
         kernels.append(k)

@@ -347,7 +347,7 @@ def fit_compress(state: CompressState, gt: torch.Tensor, cfg: FrameConfig,
     slice) every step runs eagerly and graph=True raises."""
     graph = _sharded_graph(graph, shard)
     state = graphs.run_fit(state, qat_plan(state, gt, cfg, draws, shard), gt.device,
-                           graph, kind="qat", cfg=cfg)
+                           graph, kind="qat", cfg=cfg, capacity=state.params.xyz.shape[0])
     return _reload_best(state) if reload_best else state
 
 

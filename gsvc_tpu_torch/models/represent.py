@@ -682,7 +682,8 @@ def fit_frame_partial(state: TrainState, gt: torch.Tensor, limit: int,
         return False
 
     plan = fit_plan(state, gt, lim, cfg, lambda_value, draws, shard)
-    return graphs.run_fit(state, plan, gt.device, graph, stop, kind="represent", cfg=cfg)
+    return graphs.run_fit(state, plan, gt.device, graph, stop, kind="represent", cfg=cfg,
+                          capacity=state.alive.shape[0])
 
 
 def _sharded_graph(graph: Optional[bool], shard) -> Optional[bool]:
@@ -736,7 +737,7 @@ def fit_frame_trace(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
                 images[(k + 1) // trace_every - 1].copy_(traced())
 
         state = graphs.run_fit(state, plan, gt.device, graph, before=trace, kind="trace",
-                               cfg=cfg)
+                               cfg=cfg, capacity=state.alive.shape[0])
     return state, images
 
 
@@ -769,6 +770,7 @@ def pre_train_frame(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
     detection pass (SimpleTrainer2d.pre_train, train_video_Represent.py:117-133).
     `graph` as in `fit_frame_partial`."""
     plan = pre_train_plan(state, gt, cfg, lambda_value)
-    state = graphs.run_fit(state, plan, gt.device, graph, kind="pretrain", cfg=cfg)
+    state = graphs.run_fit(state, plan, gt.device, graph, kind="pretrain", cfg=cfg,
+                           capacity=state.alive.shape[0])
     return FitResult(state=state,
                      image=render_frame(state.params, state.alive, cfg))

@@ -55,7 +55,9 @@ values, 6.2 MB for [9, 81920]).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. `<wrapper>.launches` counts the calls that
-launched it.
+launched it. Every K1 call, kernel or plain version, adds the keys it
+wrote and their bytes to the recorder's counters `binning.keys` and
+`binning.key_bytes` (`utils.profiling.RECORDER`).
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ from typing import NamedTuple
 import torch
 
 from gsvc_tpu_torch import _build
+from gsvc_tpu_torch.utils.profiling import RECORDER
 
 
 class KeyLayout(NamedTuple):
@@ -128,9 +131,9 @@ def fill_decode_keys(
     `key_layout(num_tiles, n)` (`binning.KeyInputs.k1` holds these
     arguments)."""
     if not starts.is_cuda:
-        return fill_decode_keys_torch(
+        return _counted(fill_decode_keys_torch(
             starts, tmin_x, tmin_y, bbox_w, total_kept, num_slots, tb_x, num_tiles,
-        )
+        ))
     dev = starts.device
     n = starts.shape[0]
     ints = (starts, tmin_x, tmin_y, bbox_w)
@@ -151,10 +154,19 @@ def fill_decode_keys(
         )
     _build.check(lib, rc, "fill_decode_keys")
     fill_decode_keys.launches += 1
-    return keys
+    return _counted(keys)
 
 
 fill_decode_keys.launches = 0
+
+
+def _counted(keys: torch.Tensor) -> torch.Tensor:
+    """`keys`, added to the recorder's counters `binning.keys` and
+    `binning.key_bytes` (host side; a graph replay adds what its capture
+    added, `utils.graphs.REPLAYED_COUNTERS`)."""
+    RECORDER.add("binning.keys", keys.numel())
+    RECORDER.add("binning.key_bytes", keys.numel() * keys.element_size())
+    return keys
 
 
 def rank_cap_decode_torch(sorted_keys: torch.Tensor, cap: int, n: int,

@@ -133,7 +133,7 @@ class FitPlan(NamedTuple):
 def run_fit(state: T, plan: FitPlan, device, graph: Optional[bool],
             stop: Optional[Callable[[T], bool]] = None,
             before: Optional[Callable[[T, int], None]] = None,
-            kind: str = "fit", cfg=None) -> T:
+            kind: str = "fit", cfg=None, capacity: Optional[int] = None) -> T:
     """The steps of `plan` from `state`: eager steps by plan.step, plain ones
     through `runner(device, graph)`; `stop(state, read)`, asked after each
     step, ends the fit early, reading device values only through
@@ -142,17 +142,26 @@ def run_fit(state: T, plan: FitPlan, device, graph: Optional[bool],
 
     The fit is a `fit` span (`profiling.RECORDER`) with the attributes
     kind, first and last (the plan's first and last step), the config's
-    `iterations` and `num_points` as splats (where `cfg` is given), and,
-    once it ends, its counts: eager steps, warmups, captures, replays and
-    host reads (`read`). Inside it: a `fit.eager` span an eager step,
-    the runner's `fit.warmup`, `graph.capture` and `fit.replays` spans,
-    and `fit.sync` spans."""
+    `iterations` and `num_points` as splats (where `cfg` is given), the
+    binning keys' width in bytes and gauss field in bits, `key_bytes` and
+    `gauss_bits` (`ops.fill_cuda.key_layout` at the config's grid and the
+    state's `capacity` of splat rows, where both are given), and, once it
+    ends, its counts: eager steps, warmups, captures, replays and host
+    reads (`read`). Inside it: a `fit.eager` span an eager step, the
+    runner's `fit.warmup`, `graph.capture` and `fit.replays` spans, and
+    `fit.sync` spans."""
     steps = [(i, eager) for first, count, eager in plan.runs
              for i in range(first, first + count)]
     attrs = {"kind": kind, "first": steps[0][0] if steps else None,
              "last": steps[-1][0] if steps else None}
     if cfg is not None:
         attrs.update(iterations=cfg.iterations, splats=cfg.num_points)
+        if capacity is not None:
+            from gsvc_tpu_torch.ops import fill_cuda
+
+            tb_x, tb_y, _ = cfg.tile_bounds
+            layout = fill_cuda.key_layout(tb_x * tb_y, capacity)
+            attrs.update(key_bytes=layout.dtype.itemsize, gauss_bits=layout.gauss_bits)
     eager_steps = 0
     with RECORDER("fit", device=device, **attrs) as span, runner(device, graph) as run:
         for k, (i, eager) in enumerate(steps):
@@ -171,6 +180,11 @@ def run_fit(state: T, plan: FitPlan, device, graph: Optional[bool],
             span.attrs.update(eager=eager_steps, warmups=run.warmed, captures=run.captured,
                               replays=run.replayed, reads=run.reads)
     return state
+
+
+# The recorder's counters that captured work adds to, and so each replay
+# adds to as the capture saw: the keys K1 writes (`ops.fill_cuda`).
+REPLAYED_COUNTERS = ("binning.keys", "binning.key_bytes")
 
 
 def kernel_counters() -> tuple:
@@ -268,6 +282,7 @@ class StepGraph(Eager, metaclass=_Totals):
         self.captured = 0
         self.replayed = 0
         self.counts: list = []
+        self.added: dict = {}
         self._run = None  # the open fit.replays span, the replays before it
 
     def __enter__(self):
@@ -312,12 +327,13 @@ class StepGraph(Eager, metaclass=_Totals):
         return out
 
     def _capture(self, step: Callable[[], T]) -> T:
-        self.graph, out, self.counts = _capture(step, self.device, self.side, self.kind)
+        self.graph, out, self.counts, self.added = _capture(step, self.device, self.side,
+                                                            self.kind)
         self.captured += 1
         return out
 
     def replay(self) -> None:
-        _replay(self.graph, self.counts)
+        _replay(self.graph, self.counts, self.added)
         RECORDER.add("graph.step.replays")
 
     def close(self) -> None:
@@ -331,17 +347,19 @@ class StepGraph(Eager, metaclass=_Totals):
 
 def _capture(fn: Callable[[], T], device, stream, kind: str) -> tuple:
     """fn() captured into a new CUDA graph on `stream`: (the graph, fn's
-    result, [(kernel wrapper, launches)] the capture saw). On the given
-    stream, without `torch.cuda.graph`'s device sync and release of every
-    cached block (which the next calls would allocate again); the graph's
-    own memory pool holds what fn allocates. The capture ran nothing, so
-    its launch counts are taken back off the counters: they belong to each
+    result, [(kernel wrapper, launches)] the capture saw, {recorder counter:
+    its addition} of `REPLAYED_COUNTERS`). On the given stream, without
+    `torch.cuda.graph`'s device sync and release of every cached block
+    (which the next calls would allocate again); the graph's own memory
+    pool holds what fn allocates. The capture ran nothing, so its launch
+    counts and counter additions are taken back off: they belong to each
     replay (`_replay`). A `graph.capture` span (attribute graph: `kind`);
     its host seconds, the graph's instantiation included, add to the
     recorder's `graph.<kind>.capture_s` and the capture to
     `graph.<kind>.captures`."""
     counters = kernel_counters()
     before = [c.launches for c in counters]
+    recorded = {k: RECORDER.counters.get(k, 0) for k in REPLAYED_COUNTERS}
     graph = torch.cuda.CUDAGraph()
     with RECORDER("graph.capture", device=device, graph=kind):
         t0 = time.perf_counter()
@@ -359,14 +377,22 @@ def _capture(fn: Callable[[], T], device, stream, kind: str) -> tuple:
     counts = [(c, c.launches - b) for c, b in zip(counters, before)]
     for c, b in zip(counters, before):
         c.launches = b
-    return graph, out, counts
+    added = {}
+    for k, v in recorded.items():
+        if RECORDER.counters.get(k, 0) != v:
+            added[k] = RECORDER.counters[k] - v
+            RECORDER.counters[k] = v
+    return graph, out, counts, added
 
 
-def _replay(graph: torch.cuda.CUDAGraph, counts: list) -> None:
-    """Replay `graph` on the current stream and count its capture's launches."""
+def _replay(graph: torch.cuda.CUDAGraph, counts: list, added: dict) -> None:
+    """Replay `graph` on the current stream and count its capture's launches
+    and counter additions."""
     graph.replay()
     for c, n in counts:
         c.launches += n
+    for k, v in added.items():
+        RECORDER.add(k, v)
 
 
 def _free(graph: torch.cuda.CUDAGraph, device) -> None:
@@ -482,15 +508,16 @@ class RenderGraph(EagerRender, metaclass=_Totals):
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.output: Optional[torch.Tensor] = None
         self.counts: list = []
+        self.added: dict = {}
 
     def __call__(self) -> torch.Tensor:
         if self.graph is not None:
-            _replay(self.graph, self.counts)
+            _replay(self.graph, self.counts, self.added)
             RECORDER.add("graph.render.replays")
             return self.output
         out = super().__call__()
         with torch.no_grad():
-            self.graph, self.output, self.counts = _capture(
+            self.graph, self.output, self.counts, self.added = _capture(
                 lambda: self.fn(*self.inputs), self.device, side_stream(self.device),
                 self.kind)
         return out

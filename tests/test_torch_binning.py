@@ -229,7 +229,8 @@ def test_plain_k1_k2_wide_keys_match_jax_pair_sort(tb, budget, cap, dtype):
 
 
 # (num_tiles, n, dtype, gauss bits): 1080p, 3840x2160 (32,400 tiles),
-# 4080x2080 (33,150) and the 255 x 255 grid, at the edges of each width
+# 4080x2080 (33,150) and the 255 x 255 grid, at the edges of each width;
+# 3840x2160 at 100,000 splats and 2048x2048 (16,384 tiles) at 70,000
 @pytest.mark.parametrize("num_tiles,n,dtype,bits", [
     (8160, 10000, torch.int32, 16), (8160, 65535, torch.int32, 16),
     (8160, 65536, torch.int32, 17), (8160, 262143, torch.int32, 18),
@@ -238,6 +239,7 @@ def test_plain_k1_k2_wide_keys_match_jax_pair_sort(tb, budget, cap, dtype):
     (32400, 65535, torch.int32, 16), (32400, 65536, torch.int64, 17),
     (33150, 70000, torch.int64, 17), (255 * 255, 2**23 - 1, torch.int64, 23),
     (16383, 65536, torch.int32, 17), (16384, 65536, torch.int64, 17),
+    (32400, 100000, torch.int64, 17), (16384, 70000, torch.int64, 17),
 ])
 def test_key_dtype_follows_the_tile_count(num_tiles, n, dtype, bits):
     layout = fill_cuda.key_layout(num_tiles, n)

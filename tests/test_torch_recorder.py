@@ -15,7 +15,12 @@ On a card (marker `cuda`, skipped without one): a represent fit on CUDA
 graphs records one `graph.capture`, replays its plain steps but the
 warm-ups, gives every `fit.replays` span device seconds, keeps each
 child's device interval inside its parent's, and records no event on a
-stream under capture.
+stream under capture, and its replays add to the binning counters what the
+eager fit adds.
+
+The binning layer's record: a fit's `fit` span names its keys' width and
+gauss field (`key_bytes`, `gauss_bits`), and every K1 call adds its keys
+and their bytes to the counters `binning.keys` and `binning.key_bytes`.
 """
 
 from __future__ import annotations
@@ -199,7 +204,8 @@ def test_eager_fit_frame_spans(control):
     assert all(s.root == fit.id for s in inside)
     assert {s.name for s in inside} <= {"fit.eager", "fit.sync"}  # eager: no graph
     assert fit.attrs == {"kind": "represent", "first": 1, "last": cfg.iterations,
-                         "iterations": cfg.iterations, "splats": N, "eager": eager_runs,
+                         "iterations": cfg.iterations, "splats": N, "key_bytes": 4,
+                         "gauss_bits": 16, "eager": eager_runs,
                          "warmups": 0, "captures": 0, "replays": 0, "reads": len(reads)}
     assert (len(reads) > 0) == (control == "none")  # control's grace outlasts 30 steps
     assert names.count("represent.init") == names.count("represent.render") == 1
@@ -234,10 +240,50 @@ def test_qat_spans(delta):
     by = {s.name: s for s in spans}
     fit = by["fit"]
     assert fit.attrs == {"kind": "qat", "first": 1, "last": 6, "iterations": 6, "splats": n,
+                         "key_bytes": 4, "gauss_bits": 16,
                          "eager": 1, "warmups": 0, "captures": 0, "replays": 0, "reads": 0}
     assert [s.attrs["step"] for s in spans if s.name == "fit.eager"] == [1]  # k-means
     assert by["qat.init"].attrs == {"splats": n}
     assert by["qat.bits"].attrs == by["qat.encode"].attrs == {"splats": n, "iterations": 6}
+
+
+# (H, W, capacity, key bytes, gauss bits): the benchmark's 1080p and 4K UHD
+# points and the edges of the 16-bit field and of int32 keys
+@pytest.mark.parametrize("h,w,cap,key_bytes,bits", [
+    (1080, 1920, 10000, 4, 16), (1080, 1920, 50000, 4, 16), (2160, 3840, 100000, 8, 17),
+    (2160, 3840, 65535, 4, 16), (1080, 1920, 262143, 4, 18), (1080, 1920, 262144, 8, 19),
+])
+def test_fit_span_names_its_key_layout(h, w, cap, key_bytes, bits):
+    """A fit's `fit` span carries its binning keys' width and gauss field,
+    `fill_cuda.key_layout` at the config's grid and the state's capacity;
+    none without a capacity (no step runs here)."""
+    from gsvc_tpu_torch.ops import fill_cuda
+
+    cfg = _cfg(H=h, W=w, num_points=cap, max_num_points=cap, iterations=1)
+    plan = graphs.FitPlan([], lambda s: s, lambda s: s)
+    mark = RECORDER.last_id
+    graphs.run_fit(None, plan, "cpu", None, kind="represent", cfg=cfg, capacity=cap)
+    graphs.run_fit(None, plan, "cpu", None, kind="represent", cfg=cfg)
+    with_cap, without = RECORDER.spans("fit", after=mark)
+    layout = fill_cuda.key_layout(cfg.tile_bounds[0] * cfg.tile_bounds[1], cap)
+    assert (with_cap.attrs["key_bytes"], with_cap.attrs["gauss_bits"]) == (key_bytes, bits)
+    assert key_bytes == layout.dtype.itemsize and bits == layout.gauss_bits
+    assert "key_bytes" not in without.attrs and "gauss_bits" not in without.attrs
+
+
+def test_binning_counters_count_an_eager_fits_keys():
+    """Each step of an eager CPU fit bins once through K1's wrapper (its
+    plain version here): `binning.keys` grows by the budget a step and
+    `binning.key_bytes` by 4 bytes a key (int32 keys at this size); the
+    fit's final render bins once more."""
+    cfg = _cfg(isremoval=True)
+    budget = rep.intersection_budget(cfg)
+    state = rep.init_train_state(cfg, generator=torch.Generator().manual_seed(0))
+    before = {k: RECORDER.counters.get(k, 0) for k in ("binning.keys", "binning.key_bytes")}
+    rep.fit_frame(state, _gt(), cfg, draws=torch.Generator().manual_seed(2))
+    keys = RECORDER.counters["binning.keys"] - before["binning.keys"]
+    assert keys == (cfg.iterations + 1) * budget
+    assert RECORDER.counters["binning.key_bytes"] - before["binning.key_bytes"] == 4 * keys
 
 
 def _blob(n: int = 40, seed: int = 5) -> bytes:
@@ -347,3 +393,25 @@ def test_card_fit_spans(dev, monkeypatch):
         p = by[s.parent]
         assert s.device_t0 >= p.device_t0 - eps, (s, p)
         assert s.device_t0 + s.device_s <= p.device_t0 + p.device_s + eps, (s, p)
+
+
+@pytest.mark.cuda
+def test_card_replays_add_the_binning_counters(dev):
+    """A represent fit on graphs adds to `binning.keys` and
+    `binning.key_bytes` what the same fit adds eagerly: each replay adds
+    what its capture's K1 launch added, the capture itself nothing."""
+    cfg = _cfg(H=256, W=256, num_points=450, max_num_points=500, iterations=40,
+               densification_interval=20)
+    gt = torch.rand((256, 256, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    added = []
+    for graph in (None, False):
+        state = rep.init_train_state(cfg, generator=torch.Generator().manual_seed(0),
+                                     device=dev)
+        before = {k: RECORDER.counters.get(k, 0) for k in graphs.REPLAYED_COUNTERS}
+        replays = graphs.StepGraph.replays
+        rep.fit_frame_partial(state, gt, cfg.iterations, cfg, graph=graph)
+        torch.cuda.synchronize()
+        added.append({k: RECORDER.counters[k] - v for k, v in before.items()})
+        assert (graphs.StepGraph.replays > replays) == (graph is None)
+    assert added[0] == added[1]
+    assert added[0]["binning.keys"] == cfg.iterations * rep.intersection_budget(cfg)
