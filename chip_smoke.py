@@ -67,7 +67,11 @@ the first fault:
    path's eager step, all with CUDA events; Adan's kernel on the represent
    step's leaves at N and ADAN_WIDE_N splats, bitwise its plain version
    (`optim.adan.adan_update_torch_`, one PyTorch op at a time), timed
-   beside it and its bound;
+   beside it and its bound; the rows loss E1 (csrc/rows_loss.cu) at
+   1080p's rows and 4K UHD's, its gradient bitwise its plain version's and
+   its sums within E1_SUM_TOL, timed beside it and its bound, and a step's
+   loss forward and backward through E1 against the chain it replaced
+   (blend, clip, masked L2, autograd), bitwise the same gradient;
 6. the encoder: a 4-frame 1080p I420 clip (the bench scene, the same moved
    by a few pixels, then a cut to another seed's scene and its move),
    through `python -m gsvc_tpu_torch.drivers.represent` (10k splats,
@@ -77,7 +81,7 @@ the first fault:
    and leaves a P-frame, every fit beats its starting render's PSNR, no
    budget overflow is reported, the bitstream trailers match K_frames.txt,
    each decoded PSNR is within 0.1 dB of the compress stage's, the fits
-   replayed graphs, and the launch counts of K1-K6 and Adan's kernel over
+   replayed graphs, and the launch counts of K1-K6, E1 and Adan's kernel over
    the three CLIs are the eager encoder's (`ENCODER_LAUNCHES`); it prints
    per-frame fit seconds, QAT ms a step, eval fps and bpp, each CLI's fit
    and render graph captures, capture seconds, replays and peak device
@@ -277,7 +281,7 @@ ENCODER_LAUNCHES = {"fill_decode_keys": 18487, "rank_cap_decode": 18487,
                     "forward_rows": 17660, "backward_slots": 17660,
                     "segmented_cumsum": 17660, "forward_chw": 808, "forward_image": 19,
                     "forward_image_fast": 0, "forward_chw_fast": 0, "forward_rows_fast": 0,
-                    "backward_slots_fast": 0, "adan_update": 17568}
+                    "backward_slots_fast": 0, "rows_loss": 17660, "adan_update": 17568}
 ENCODER_SHA256 = ("8e76cbd280e9cef0", "40c8b44f5d5a4e3d", "afe1be16eebdc54a",
                   "0ac06a4d66f84cbc")
 # phase 12: the 3D pipeline's SH degree, the cut size (H, W, N) of A2's check
@@ -295,11 +299,14 @@ FAST_KERNELS = ("forward_image_fast", "forward_chw_fast", "forward_rows_fast",
                 "backward_slots_fast")
 TRACE_ITERS, TRACE_EVERY = 400, 50
 # phase 5: the splats of Adan's second timing (the paper's highest rate
-# point); phase 7's harnesses run the host-float `adan_step`, never its kernel
+# point); phase 7's harnesses run the host-float `adan_step` and their own
+# loss chain (`_clip01` and a sum), never Adan's kernel or E1
 ADAN_WIDE_N = 50000
-PLAIN_ADAN = ("adan_update",)
+NOT_IN_HARNESSES = ("rows_loss", "adan_update")
+E1_SUM_TOL = 1e-6  # E1's sums against its plain version's (relative): another order
+E1_STEP_REPS = 5  # phase 5: timed calls of a step's loss through E1 and through the chain
 LIBS = ("fill", "segsum", "rasterize_fwd", "rasterize_bwd", "profile_kernel_parts",
-        "profile_bwd_variants", "probe_transpose", "rasterize_alpha", "adan")
+        "profile_bwd_variants", "probe_transpose", "rasterize_alpha", "adan", "rows_loss")
 NATIVE = ("rans", "yuv")  # host C++ (gsvc_tpu_torch/native), built with g++
 
 
@@ -414,10 +421,10 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
     clis = [
         ("represent", represent_cli.main, run.represent,
          ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
-          "segmented_cumsum", "forward_chw", "adan_update")),
+          "segmented_cumsum", "forward_chw", "rows_loss", "adan_update")),
         ("compress", compress_cli.main, run.compress,
          ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
-          "segmented_cumsum", "forward_chw", "adan_update")),
+          "segmented_cumsum", "forward_chw", "rows_loss", "adan_update")),
         ("decode", decode_cli.main, run.decode,
          ("fill_decode_keys", "rank_cap_decode", "forward_image")),
     ]
@@ -689,6 +696,80 @@ def adan_row(torch, dev, smi, n: int) -> dict:
         work.adan_work(counts))
 
 
+def rows_loss_rows(torch, dev, smi, sc) -> list:
+    """Phase 5: E1 (csrc/rows_loss.cu) at 1080p's rows (K4 rows of the bench
+    scene against a random target) and at 4K UHD's (random rows against a
+    random 3840x2160 target), L2: its gradient bitwise its plain version's,
+    its sums within E1_SUM_TOL relative (the entry's `max_abs_err`: the
+    largest over gradient and sums), two launches bitwise equal; timed
+    beside its plain version and its bound (`utils.work.rows_loss_work`),
+    and a step's loss both ways, forward and backward (CUDA events behind
+    a spin kernel): E1 with its backward's multiply, and the chain it
+    replaced (blend, clip, masked difference, squared sum and autograd's
+    backward)."""
+    from gsvc_tpu_torch.config import FrameConfig
+    from gsvc_tpu_torch.models.represent import _clip01, make_rows_target
+    from gsvc_tpu_torch.ops import loss_cuda, rasterize_cuda
+    from gsvc_tpu_torch.ops.rasterize import blend_background
+    from gsvc_tpu_torch.utils import work
+    from gsvc_tpu_torch.utils.profiling import event_ms
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    total = sc.binned.num_intersects
+    cases = {(H, W): rasterize_cuda.forward_rows(*sc.rargs), WIDE_GRIDS[1]: None}
+    out = []
+    for (th, tw), raw in cases.items():
+        tag = f"{tw}x{th}"
+        cfg = FrameConfig(H=th, W=tw, num_points=1, max_num_points=1, iterations=1)
+        gt_rows, mask = make_rows_target(
+            torch.rand((th, tw, 3), device=dev, generator=gen), cfg)
+        if raw is None:
+            raw = torch.rand(gt_rows.shape, device=dev, generator=gen) * 1.2 - 0.1
+        args = (raw, gt_rows, mask, total)
+        got = loss_cuda.rows_loss(*args)
+        want = loss_cuda.rows_loss_torch(*args)
+        if not torch.equal(got[0], want[0]):
+            fail(f"E1 at {tag}: its gradient differs from its plain version's at "
+                 f"{int((got[0] != want[0]).sum())} entries")
+        rel = max(abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(got[1:], want[1:]))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))  # gd, loss, sq
+        if rel > E1_SUM_TOL:
+            fail(f"E1 at {tag}: its sums differ from the plain version's by {rel:.3g} relative")
+        if not all(torch.equal(a, b) for a, b in zip(got, loss_cuda.rows_loss(*args))):
+            fail(f"E1 at {tag}: two launches on the same inputs differ")
+        denom = th * tw * 3
+        leaf = raw.clone().requires_grad_()
+
+        def fused(leaf=leaf, args=args, denom=denom):
+            loss, _sq = loss_cuda.RowsLoss.apply(leaf, *args[1:], False)
+            return torch.autograd.grad(loss / denom, leaf)
+
+        def chain(leaf=leaf, gt_rows=gt_rows, mask=mask, total=total, denom=denom):
+            x = blend_background(leaf, total, torch.ones((3,), device=dev), "rows")
+            diff = (_clip01(x) - gt_rows) * mask
+            return torch.autograd.grad(torch.sum(diff * diff) / denom, leaf)
+
+        with torch.enable_grad():
+            if not torch.equal(fused()[0], chain()[0]):
+                fail(f"E1 at {tag}: the gradient through it differs from the chain's")
+            # few calls: their enqueue, autograd's host work included, stays
+            # under the spin kernel, so the events time the device
+            step_ms = {"E1 + its backward": event_ms(fused, E1_STEP_REPS),
+                       "the chain + autograd": event_ms(chain, E1_STEP_REPS)}
+        print(f"phase 5 E1 [{smi}]: {tag} rows {tuple(raw.shape)}, gradient bitwise its plain "
+              f"version's, sums {rel:.3g} relative, max abs {err:.3g} over gradient and sums, "
+              "two launches bitwise equal; a step's loss "
+              "forward and backward, device ms: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in step_ms.items()))
+        out.append(timed_row(
+            smi, 5, f"E1 rows_loss, {tag} rows", "gsvc_tpu_torch/csrc/rows_loss.cu",
+            "none: the blend, clip and L2 chain, fused by XLA", "rows_loss", err,
+            lambda args=args: loss_cuda.rows_loss(*args),
+            lambda args=args: loss_cuda.rows_loss_torch(*args),
+            work.rows_loss_work(*raw.shape)))
+    return out
+
+
 def profiling_phase(torch, dev, smi, sc, v_rows, counters) -> list:
     """Phase 7: the new kernels of the profiling harnesses against their
     plain versions at 1080p/10k, timed; then the six harnesses' mains with
@@ -781,7 +862,7 @@ def profiling_phase(torch, dev, smi, sc, v_rows, counters) -> list:
     secs = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in every}
     missing = [k for k, v in launches.items()
-               if (v <= 0) != (k in FAST_KERNELS + PLAIN_ADAN)]
+               if (v <= 0) != (k in FAST_KERNELS + NOT_IN_HARNESSES)]
     if missing:
         fail(f"kernels not launched, or fast-colour kernels launched, on the profiling "
              f"path: {missing}; launches {launches}")
@@ -1115,7 +1196,7 @@ def sharded_phase(torch, smi, counters, fit_psnr, eager_s, qat_psnr, qat_eager_s
     results = launch(sharded_rank, SHARD_RANKS, timeout=900)
     secs = time.perf_counter() - t0
     need = ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
-            "segmented_cumsum")
+            "segmented_cumsum", "rows_loss")
     for part in ("fit", "adaptive", "qat"):
         if len({r[part]["digest"] for r in results}) != 1:
             fail(f"phase 10 {part}: the ranks' final states differ")
@@ -1171,7 +1252,7 @@ def sharded_cli_phase(torch, smi, counters, clip, tmp: Path, device: str = "cuda
     yuv = tmp / "clip.yuv"
     write_yuv(clip[:SHARD_CLI_FRAMES], yuv)
     need = ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
-            "segmented_cumsum") if device == "cuda" else ()  # the CPU launches none
+            "segmented_cumsum", "rows_loss") if device == "cuda" else ()  # CPU: none
     logs = {}
     for shards in (SHARD_RANKS, 1):
         ck, cq = tmp / f"ck{shards}", tmp / f"cq{shards}"
@@ -1264,7 +1345,7 @@ def multihost_phase(torch, smi, counters, clip, gt, tmp: Path) -> None:
 
     dev = gt.device
     need = ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
-            "segmented_cumsum", "forward_chw") if dev.type == "cuda" else ()  # CPU: none
+            "segmented_cumsum", "forward_chw", "rows_loss") if dev.type == "cuda" else ()
     # the budget sets the length of K3's scan: the same lanes (segments of up
     # to 700) padded to longer rows, and a fit whose budgets both hold it
     s1 = 163840
@@ -2207,7 +2288,7 @@ def main() -> int:
     serve_kernels = ("fill_decode_keys", "rank_cap_decode", "forward_image",
                      "forward_chw")
     train_kernels = ("fill_decode_keys", "rank_cap_decode", "forward_rows",
-                     "backward_slots", "segmented_cumsum", "adan_update")
+                     "backward_slots", "segmented_cumsum", "rows_loss", "adan_update")
     with tempfile.TemporaryDirectory() as tmp:
         # the decoder's runs: eager, graph (the main path), graph (its capture
         # cached), eager
@@ -2448,6 +2529,7 @@ def main() -> int:
     kernels = [timed_row(smi, 5, *row, bounds[row[0]], library.get(row[0]))
                for row in timed]
     kernels += [adan_row(torch, dev, smi, n) for n in (N, ADAN_WIDE_N)]
+    kernels += rows_loss_rows(torch, dev, smi, sc)
     # K1 and K2 on the wide scenes, (grid, row); their launches are phase
     # 9's point on the same grid
     wide_rows = []

@@ -12,8 +12,9 @@ gsvc_tpu/models/compress.py, the reference GaussianSplats_Compress.py):
 
 On the kernel path (backend "cuda", or "auto" on a CUDA device) a step
 renders through the kernels' autograd function with the L2 loss in the
-tile-row layout: K1 and K2 bin, K4 `rows` renders, K6 and K3 take the
-gradient back to the splats. The best snapshot is chosen on the device
+tile-row layout: K1 and K2 bin, K4 `rows` renders, E1 blends, clips and
+takes the loss and its gradient in one pass, K6 and K3 take the gradient
+back to the splats. The best snapshot is chosen on the device
 with torch.where, so a step never waits for the host; the iteration
 counter is a host int.
 
@@ -67,7 +68,7 @@ from gsvc_tpu_torch.models.represent import (
 )
 from gsvc_tpu_torch.ops.binning import budget_overflow, default_max_intersects
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
-from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
+from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum, rasterize_rows_loss
 from gsvc_tpu_torch.optim.adan import AdanState, adan_host_step, adan_init, adan_step_
 from gsvc_tpu_torch.utils import graphs
 from gsvc_tpu_torch.utils.profiling import RECORDER, _sync
@@ -176,10 +177,26 @@ def forward_quantize(
     """Quantize-aware render. Returns (img, vq_loss, chol_codes, new_vq).
 
     Frame mode (p_* all zeros) mirrors GaussianSplats_Compress.py:71-84,
-    delta mode :165-179. layout "rows" renders the tile-row blocks the rows
-    loss reads, "chw" the planar [3, H, W]; tile_rows=(row0, num_rows) only
-    that span of tile rows (image sharding, parallel/sharded.py). `draws`
-    picks the k-means rows of a training forward on an un-initialised VQ."""
+    delta mode :165-179. layout "rows" renders the tile-row blocks of
+    `image_to_rows`, "chw" the planar [3, H, W]; tile_rows=(row0, num_rows)
+    only that span of tile rows (image sharding, parallel/sharded.py).
+    `draws` picks the k-means rows of a training forward on an
+    un-initialised VQ."""
+    splats, l_vqc, chol_codes, new_vq = _quantized_splats(
+        params, vq, p_xyz, p_cholesky, p_features_dc, cfg, training, draws)
+    img = rasterize_gaussians_sum(
+        *splats, cfg.H, cfg.W, cfg.block_h, cfg.block_w,
+        backend=cfg.backend, max_intersects=cfg.max_intersects, layout=layout,
+        tile_rows=tile_rows,
+    )
+    img = _clip01(img) if img.requires_grad else torch.clamp(img, 0.0, 1.0)
+    return img, l_vqc, chol_codes, new_vq
+
+
+def _quantized_splats(params: CompressParams, vq: VQState, p_xyz, p_cholesky, p_features_dc,
+                      cfg: FrameConfig, training: bool, draws: VQDraws = None):
+    """(the rasterizer's splat arguments, vq_loss, chol_codes, new_vq) of
+    `forward_quantize`."""
     means, chol, chol_codes = _quantized_geometry(params, p_xyz, p_cholesky)
     colors, _idx, l_vqc, new_vq = residual_vq_forward(
         params.features_dc, vq, training, draws=draws)
@@ -187,14 +204,7 @@ def forward_quantize(
     xys, depths, radii, conics, nth = project_gaussians_2d(
         means, chol, cfg.H, cfg.W, cfg.tile_bounds, cfg.block_w, cfg.block_h)
     opacity = torch.ones((means.shape[0], 1), dtype=torch.float32, device=means.device)
-    img = rasterize_gaussians_sum(
-        xys, depths, radii, conics, nth, colors, opacity,
-        cfg.H, cfg.W, cfg.block_h, cfg.block_w,
-        backend=cfg.backend, max_intersects=cfg.max_intersects, layout=layout,
-        tile_rows=tile_rows,
-    )
-    img = _clip01(img) if img.requires_grad else torch.clamp(img, 0.0, 1.0)
-    return img, l_vqc, chol_codes, new_vq
+    return (xys, depths, radii, conics, nth, colors, opacity), l_vqc, chol_codes, new_vq
 
 
 @torch.no_grad()
@@ -233,23 +243,26 @@ def _loss_and_grads(state: CompressState, gt: torch.Tensor, cfg: FrameConfig,
     otherwise count once a rank), then recon and the gradients are summed
     over the ranks (gsvc_tpu/models/compress.py:224-268)."""
     tr = {k: v.detach().requires_grad_() for k, v in _p2d(state.params).items()}
-    layout = "image" if rows_target is None else "rows"
     tile_rows = None if shard is None else shard_tile_rows(cfg, shard)
-    img, vq_loss, _codes, new_vq = forward_quantize(
-        CompressParams(**tr), state.vq, state.p_xyz, state.p_cholesky,
-        state.p_features_dc, cfg, training=True, layout=layout,
-        tile_rows=tile_rows, draws=draws,
-    )
+    model = (CompressParams(**tr), state.vq, state.p_xyz, state.p_cholesky,
+             state.p_features_dc, cfg)
     if rows_target is None:
+        img, vq_loss, _codes, new_vq = forward_quantize(
+            *model, training=True, tile_rows=tile_rows, draws=draws)
         diff = img - gt
         valid_h = None if shard is None else shard_valid_h(cfg, shard, tile_rows[0])
         if valid_h is not None:  # the padding rows of a ragged height
             ridx = torch.arange(diff.shape[0], device=diff.device)[:, None, None]
             diff = torch.where(ridx < valid_h, diff, 0.0)
-    else:
-        gt_rows, mask = rows_target
-        diff = (img - gt_rows) * mask  # mask zeroes tile-padding pixels
-    recon = torch.sum(diff * diff) / (cfg.H * cfg.W * 3)
+        sq = torch.sum(diff * diff)
+    else:  # render, clip and L2 in one pass of E1
+        splats, vq_loss, _codes, new_vq = _quantized_splats(*model, training=True,
+                                                            draws=draws)
+        gt_rows, mask = rows_target  # mask zeroes tile-padding pixels
+        sq, _sq = rasterize_rows_loss(
+            *splats, cfg.H, cfg.W, gt_rows, mask, cfg.block_h, cfg.block_w,
+            backend=cfg.backend, max_intersects=cfg.max_intersects, tile_rows=tile_rows)
+    recon = sq / (cfg.H * cfg.W * 3)
     shards = 1 if shard is None else shard.num_shards
     grads = torch.autograd.grad(recon + vq_loss / shards, list(tr.values()))
     recon = recon.detach()

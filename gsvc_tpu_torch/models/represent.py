@@ -4,7 +4,8 @@ gsvc_tpu/models/represent.py): `render_frame(_pos/_rows)`, the train step
 `fit_frame_partial`), `fit_frame_trace` and `pre_train_frame`.
 
 One step is the reference train_iter (GaussianSplats_Represent.py:191-207):
-render, loss, backward (autograd; on the "cuda" backend the rasterizer's
+render, loss, backward (autograd; on the "cuda" backend the L1 / L2 loss
+is E1, one pass from K4's rows to their gradient, and the rasterizer's
 backward is K6 and the K3 reduction), splat control, Adan, StepLR, the
 binning-overflow check and early stopping. Splats live at a fixed capacity
 beside an `alive` mask, as in gsvc_tpu. The port keeps the iteration
@@ -56,7 +57,11 @@ from gsvc_tpu_torch.config import FrameConfig
 from gsvc_tpu_torch.core import GaussianFrame, cholesky_bound, init_splats
 from gsvc_tpu_torch.ops.binning import budget_overflow, default_max_intersects
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
-from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum
+from gsvc_tpu_torch.ops.rasterize import (
+    image_to_rows,
+    rasterize_gaussians_sum,
+    rasterize_rows_loss,
+)
 from gsvc_tpu_torch.optim.adan import (
     AdanState,
     adan_init,
@@ -213,12 +218,11 @@ def _clip01(x: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
 
 
-def _render(params: GaussianFrame, alive, cfg: FrameConfig, layout="image",
-            rgb_w_trainable=True, tile_rows=None) -> torch.Tensor:
-    """The differentiable model.forward(): render + clip to [0, 1]
-    (GaussianSplats_Represent.py:83-90: opacity ones, colours
-    premultiplied by rgb_W, clip outside the rasterizer); `tile_rows` as in
-    `render_frame`."""
+def _splats(params: GaussianFrame, alive, cfg: FrameConfig, rgb_w_trainable=True):
+    """The rasterizer's splat arguments (xys, depths, radii, conics,
+    num_tiles_hit, colors, opacity) of model.forward()
+    (GaussianSplats_Represent.py:83-90: opacity ones, colours premultiplied
+    by rgb_W)."""
     colors = params.get_features if rgb_w_trainable else params.features_dc
     xys, depths, radii, conics, nth = project_gaussians_2d(
         params.get_xyz, params.get_cholesky_elements, cfg.H, cfg.W,
@@ -226,8 +230,15 @@ def _render(params: GaussianFrame, alive, cfg: FrameConfig, layout="image",
     )
     opacity = torch.ones((params.capacity, 1), dtype=torch.float32,
                          device=xys.device)
+    return xys, depths, radii, conics, nth, colors, opacity
+
+
+def _render(params: GaussianFrame, alive, cfg: FrameConfig, layout="image",
+            rgb_w_trainable=True, tile_rows=None) -> torch.Tensor:
+    """The differentiable model.forward(): render + clip to [0, 1] (the clip
+    outside the rasterizer); `tile_rows` as in `render_frame`."""
     img = rasterize_gaussians_sum(
-        xys, depths, radii, conics, nth, colors, opacity,
+        *_splats(params, alive, cfg, rgb_w_trainable),
         cfg.H, cfg.W, cfg.block_h, cfg.block_w,
         backend=cfg.backend, max_intersects=cfg.max_intersects, layout=layout,
         tile_rows=tile_rows,
@@ -308,8 +319,11 @@ def make_rows_target(gt: torch.Tensor, cfg: FrameConfig, valid_h=None):
 
 def _loss_and_psnr(params, alive, gt, cfg: FrameConfig, lambda_value,
                    rows_target=None, shard: Optional[TileShard] = None):
-    """(loss, (sq_sum, render)): the differentiable loss, and the sum of
-    squared error the caller turns into PSNR (detached).
+    """(loss, sq_sum): the differentiable loss, and the sum of squared error
+    the caller turns into PSNR (detached). With `rows_target` the render,
+    its clip and the loss run in the rasterizer's tile-row layout through
+    E1 (`ops.rasterize.rasterize_rows_loss`), which writes no clipped
+    render.
 
     With `shard`, gt (and rows_target) are the shard's slice of the padded
     target, and loss and sq_sum the shard's local terms: the caller reduces
@@ -321,12 +335,12 @@ def _loss_and_psnr(params, alive, gt, cfg: FrameConfig, lambda_value,
     denom = cfg.H * cfg.W * 3
     tile_rows = None if shard is None else shard_tile_rows(cfg, shard)
     if rows_target is not None:
-        rows = _render(params, alive, cfg, "rows", tile_rows=tile_rows)
-        gt_rows, mask = rows_target
-        diff = (rows - gt_rows) * mask  # mask zeroes tile-padding pixels
-        sq = torch.sum(diff * diff)
-        loss = sq if cfg.loss_type == "L2" else torch.sum(torch.abs(diff))
-        return loss / denom, (sq.detach(), rows)
+        gt_rows, mask = rows_target  # mask zeroes tile-padding pixels
+        loss, sq = rasterize_rows_loss(
+            *_splats(params, alive, cfg), cfg.H, cfg.W, gt_rows, mask, cfg.block_h,
+            cfg.block_w, loss_type=cfg.loss_type, backend=cfg.backend,
+            max_intersects=cfg.max_intersects, tile_rows=tile_rows)
+        return loss / denom, sq
     img = _render(params, alive, cfg, tile_rows=tile_rows)
     if shard is not None:
         diff = img - gt
@@ -336,11 +350,11 @@ def _loss_and_psnr(params, alive, gt, cfg: FrameConfig, lambda_value,
             diff = torch.where(ridx < valid_h, diff, 0.0)
         sq = torch.sum(diff * diff)
         loss = sq if cfg.loss_type == "L2" else torch.sum(torch.abs(diff))
-        return loss / denom, (sq.detach(), img)
+        return loss / denom, sq.detach()
     loss = loss_fn(img.permute(2, 0, 1), gt.permute(2, 0, 1), cfg.loss_type,
                    lambda_value=lambda_value)
     sq = torch.sum((img.detach() - gt) ** 2)
-    return loss, (sq, img)
+    return loss, sq
 
 
 def _alive_rank_by_weight(params: GaussianFrame, alive: torch.Tensor) -> torch.Tensor:
@@ -454,7 +468,7 @@ def _loss_and_grads(state: TrainState, gt, cfg: FrameConfig, lambda_value,
     """(loss, sq_sum, grads) of the step; with `shard`, summed over its
     ranks after backward."""
     tr = _trainable(state.params)
-    loss, (sq, _render_out) = _loss_and_psnr(
+    loss, sq = _loss_and_psnr(
         state.params, state.alive, gt, cfg, lambda_value, rows_target, shard)
     grads = torch.autograd.grad(loss, list(tr.values()))
     loss = loss.detach()

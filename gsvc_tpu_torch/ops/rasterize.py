@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from gsvc_tpu_torch.ops import rasterize_cuda
+from gsvc_tpu_torch.ops import loss_cuda, rasterize_cuda
 from gsvc_tpu_torch.ops.binning import bin_gaussians, default_max_intersects
 
 # Per-tile gaussian cap: the reference 3-channel kernel renders only the
@@ -92,6 +92,79 @@ def rasterize_gaussians_sum(
     is as it was, bit for bit.
     """
     del depths
+    img, total = _render_sum(
+        xys, radii, conics, num_tiles_hit, colors, opacity, img_height, img_width,
+        BLOCK_H, BLOCK_W, return_alpha, backend, max_intersects, tile_rows, layout,
+        fast_color)
+    if background is None:
+        background = torch.ones((colors.shape[-1],), dtype=colors.dtype, device=colors.device)
+    img = blend_background(img, total, background, layout)
+    if return_alpha:
+        hw = img.shape[1:] if layout == "chw" else img.shape[:2]
+        return img, torch.zeros(hw, dtype=img.dtype, device=img.device)
+    return img
+
+
+def rasterize_rows_loss(
+    xys: torch.Tensor,
+    depths: torch.Tensor,
+    radii: torch.Tensor,
+    conics: torch.Tensor,
+    num_tiles_hit: torch.Tensor,
+    colors: torch.Tensor,
+    opacity: torch.Tensor,
+    img_height: int,
+    img_width: int,
+    gt_rows: torch.Tensor,
+    mask: torch.Tensor,
+    BLOCK_H: int = 16,
+    BLOCK_W: int = 16,
+    loss_type: str = "L2",
+    backend: str = "auto",
+    max_intersects: Optional[int] = None,
+    tile_rows=None,
+):
+    """(loss, sq) of the layout="rows" render (the default background),
+    clipped to [0, 1], against the tile-row target `gt_rows` under `mask`
+    (`models.represent.make_rows_target`): loss the sum of squared ("L2")
+    or absolute ("L1") masked differences, differentiable, sq the sum of
+    squares. The render's background blend, the clip and the loss run in
+    one pass of E1 (`ops/loss_cuda.py`; its plain version on CPU tensors),
+    whose gradient is bitwise autograd's through `rasterize_gaussians_sum`,
+    the clip and the sum. Arguments as `rasterize_gaussians_sum`'s."""
+    del depths
+    if loss_type not in ("L2", "L1"):
+        raise ValueError(f"the rows loss is L2 or L1, got {loss_type!r}")
+    raw, total = _render_sum(
+        xys, radii, conics, num_tiles_hit, colors, opacity, img_height, img_width,
+        BLOCK_H, BLOCK_W, False, backend, max_intersects, tile_rows, "rows", False)
+    return loss_cuda.RowsLoss.apply(raw, gt_rows, mask, total.to(torch.int32),
+                                    loss_type == "L1")
+
+
+def blend_background(img: torch.Tensor, total: torch.Tensor, background: torch.Tensor,
+                     layout: str) -> torch.Tensor:
+    """`img` where the frame kept an intersection (`total` >= 1), else
+    `background` everywhere: gsplat's zero-intersect fast path as an
+    arithmetic select (no host sync)."""
+    live = (total >= 1).to(img.dtype)
+    bg = background.to(img.dtype)
+    if layout == "rows":
+        # background per block row (t, c) is background[row % 3], as in
+        # gsvc_tpu (the padding rows past 3*tb_x shift that phase)
+        bg = bg[torch.arange(img.shape[0], device=img.device) % 3][:, None]
+    elif layout == "chw":
+        bg = bg[:, None, None]
+    else:
+        bg = bg[None, None, :]
+    return img * live + bg * (1.0 - live)
+
+
+def _render_sum(xys, radii, conics, num_tiles_hit, colors, opacity, img_height, img_width,
+                BLOCK_H, BLOCK_W, return_alpha, backend, max_intersects, tile_rows, layout,
+                fast_color):
+    """(the render before its background blend, the kept intersections) of
+    `rasterize_gaussians_sum`."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     if layout not in rasterize_cuda.LAYOUTS:
@@ -101,8 +174,6 @@ def rasterize_gaussians_sum(
         raise ValueError("layout='rows' holds exactly 3 channels")
     if layout == "rows" and return_alpha:
         raise ValueError("return_alpha unsupported for layout='rows'")
-    if background is None:
-        background = torch.ones((c_dim,), dtype=colors.dtype, device=colors.device)
     tile_bounds = (
         (img_width + BLOCK_W - 1) // BLOCK_W,
         (img_height + BLOCK_H - 1) // BLOCK_H,
@@ -152,20 +223,4 @@ def rasterize_gaussians_sum(
             img = rasterize_cuda.rasterize_forward_torch(*args, layout=layout,
                                                          tile_rows=tile_rows,
                                                          fast_color=fast_color)
-
-    # zero-intersect fast path as an arithmetic select (no host sync)
-    live = (total >= 1).to(img.dtype)
-    bg = background.to(img.dtype)
-    if layout == "rows":
-        # background per block row (t, c) is background[row % 3], as in
-        # gsvc_tpu (the padding rows past 3*tb_x shift that phase)
-        bg = bg[torch.arange(img.shape[0], device=img.device) % 3][:, None]
-    elif layout == "chw":
-        bg = bg[:, None, None]
-    else:
-        bg = bg[None, None, :]
-    img = img * live + bg * (1.0 - live)
-    if return_alpha:
-        hw = img.shape[1:] if layout == "chw" else img.shape[:2]
-        return img, torch.zeros(hw, dtype=img.dtype, device=img.device)
-    return img
+    return img, total

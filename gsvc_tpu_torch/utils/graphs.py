@@ -189,15 +189,16 @@ REPLAYED_COUNTERS = ("binning.keys", "binning.key_bytes")
 
 def kernel_counters() -> tuple:
     """The kernel wrappers whose `launches` a replay adds to: K1-K6, the
-    counters of their fast-colour kernels, and Adan's update."""
-    from gsvc_tpu_torch.ops import fill_cuda, rasterize_cuda
+    counters of their fast-colour kernels, the rows loss E1 and Adan's
+    update."""
+    from gsvc_tpu_torch.ops import fill_cuda, loss_cuda, rasterize_cuda
     from gsvc_tpu_torch.optim import adan_cuda
 
     raster = (rasterize_cuda.forward_image, rasterize_cuda.forward_chw,
               rasterize_cuda.forward_rows, rasterize_cuda.backward_slots)
     return (fill_cuda.fill_decode_keys, fill_cuda.rank_cap_decode,
             fill_cuda.segmented_cumsum, *raster, *(w.fast for w in raster),
-            adan_cuda.adan_update)
+            loss_cuda.rows_loss, adan_cuda.adan_update)
 
 
 def launch_counts() -> dict:

@@ -272,3 +272,15 @@ def adan_work(counts) -> tuple:
     two divisions (24 operations; a clip adds a multiply)."""
     elements = sum(int(c) for c in counts)
     return 44 * elements, 24 * elements
+
+
+def rows_loss_work(rows: int, cols: int) -> tuple:
+    """(bytes, operations) of one E1 launch (csrc/rows_loss.cu) over [rows,
+    cols] tile-row blocks: an element reads K4's raw value, the target and
+    the mask and writes its gradient (16 bytes), and does the blend (a
+    multiply and an add), the clip (two compares), the difference and its
+    mask (a subtract and a multiply), its gradient (an add or a sign, a
+    multiply, two compares, the live multiply) and the squared sum (one
+    fused multiply-add): 12 operations; the partials a CTA are left out."""
+    elements = int(rows) * int(cols)
+    return 16 * elements, 12 * elements

@@ -245,7 +245,7 @@ def test_decode_render_replay_equals_eager(dev):
         "fill_decode_keys": 1, "rank_cap_decode": 1, "segmented_cumsum": 0,
         "forward_image": 1, "forward_chw": 0, "forward_rows": 0, "backward_slots": 0,
         "forward_image_fast": 0, "forward_chw_fast": 0, "forward_rows_fast": 0,
-        "backward_slots_fast": 0, "adan_update": 0}
+        "backward_slots_fast": 0, "rows_loss": 0, "adan_update": 0}
 
 
 @pytest.mark.cuda

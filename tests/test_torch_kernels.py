@@ -28,7 +28,12 @@ a multiple of 4 and an input that is not 16-byte aligned). Adan's update
 (csrc/adan.cu, one launch for every leaf of a step) bitwise `_update` on
 the same CUDA tensors, for the represent and QAT leaf sets at 0 to 50,000
 splats, odd and misaligned leaves, fresh or not, a clip, no_prox, and as
-a CUDA graph replayed across table rows.
+a CUDA graph replayed across table rows. The rows loss E1 (csrc/rows_loss.cu)
+at 1080p's rows, 4K UHD's and a ragged tile-row span, L2 and L1, the kept
+total 0, 1 and more: its gradient bitwise its plain version's, its sums
+within 1e-6 relative, two launches bitwise equal; the per-splat gradients
+through it bitwise autograd's through the chain it replaced; one launch a
+step in replayed represent and QAT fits.
 
 The scene "capped" (1,500 big splats on 64x64) puts more than the cap of
 256 lanes on every tile, where the kernels' staged lanes fill their
@@ -738,3 +743,138 @@ def test_adan_kernel_replays_equal_eager_updates(dev):
         runs.append(_adan_tensors(params, box[0]))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# -- the rows loss: E1 -------------------------------------------------------------
+
+# (image rows, width, valid_h) of E1's cases: 1080p's rows (24,480 x 256), 4K
+# UHD's (97,200 x 256), and the ragged last span of 3 tile-row shards at
+# 1080p (23 tile rows from row 46: 344 pixel rows inside the image, 8,280 x 256)
+_E1_ROWS = {"1080p": (1080, 1920, None), "2160p": (2160, 3840, None),
+            "span": (368, 1920, 344)}
+
+
+def _e1_inputs(dev, size, seed, total=5):
+    """E1's inputs: a rows target and mask (`make_rows_target`), raw rows
+    holding the clip's bounds and ties (exact 0 and 1, below 0, above 1,
+    differences of exactly 0), and the kept total."""
+    from gsvc_tpu_torch.config import FrameConfig
+    from gsvc_tpu_torch.models.represent import make_rows_target
+
+    h, w, valid_h = _E1_ROWS[size]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cfg = FrameConfig(H=h, W=w, num_points=1, max_num_points=1, iterations=1)
+    gt_rows, mask = make_rows_target(torch.rand((h, w, 3), device=dev, generator=g), cfg,
+                                     valid_h)
+    raw = torch.rand(gt_rows.shape, device=dev, generator=g) * 1.6 - 0.3
+    raw[:, :6] = torch.tensor([0.0, 1.0, -0.25, 1.25, 0.0, 1.0], device=dev)
+    gt_rows[:, 4:6] = torch.tensor([0.0, 1.0], device=dev)
+    raw[::5, 10:14] = gt_rows[::5, 10:14]
+    return raw, gt_rows, mask, torch.tensor(total, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("size", sorted(_E1_ROWS))
+@pytest.mark.parametrize("l1", [False, True])
+@pytest.mark.parametrize("total", [5, 0, 1])
+def test_rows_loss_kernel_matches_plain_version(dev, size, l1, total):
+    """E1's gradient bitwise its plain version's, its sums within 1e-6
+    relative, two launches bitwise equal, one launch a call."""
+    from gsvc_tpu_torch.ops import loss_cuda
+
+    args = _e1_inputs(dev, size, 7, total)
+    before = loss_cuda.rows_loss.launches
+    got = loss_cuda.rows_loss(*args, l1)
+    again = loss_cuda.rows_loss(*args, l1)
+    torch.cuda.synchronize()
+    assert loss_cuda.rows_loss.launches == before + 2
+    want = loss_cuda.rows_loss_torch(*args, l1)
+    assert torch.equal(got[0], want[0]) and bool(got[0].any()) == bool(total)
+    for a, b in zip(got[1:], want[1:]):
+        assert abs(float(a) - float(b)) <= 1e-6 * abs(float(b)) and float(b) > 0
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_rows_loss_kernel_refuses_what_it_does_not_take(dev):
+    from gsvc_tpu_torch.ops import loss_cuda
+
+    raw, gt_rows, mask, total = _e1_inputs(dev, "span", 1)
+    with pytest.raises(ValueError, match="rows_loss"):
+        loss_cuda.rows_loss(raw, gt_rows.cpu(), mask, total)
+    with pytest.raises(ValueError, match="rows_loss"):
+        loss_cuda.rows_loss(raw, gt_rows, mask, total.long())
+
+
+@pytest.mark.parametrize("loss_type", ["L2", "L1"])
+def test_rows_loss_gradients_are_the_chains_on_the_card(dev, loss_type):
+    """Through E1 (`rasterize_rows_loss`), the per-splat gradients at
+    1080p/10k are bitwise those of autograd through the rows render, the
+    clip and the masked sum: the gradient K6 reads is the same."""
+    from gsvc_tpu_torch.config import FrameConfig
+    from gsvc_tpu_torch.models.represent import _clip01, make_rows_target
+    from gsvc_tpu_torch.ops import loss_cuda
+    from gsvc_tpu_torch.ops.rasterize import rasterize_rows_loss
+
+    sc = _bench(dev, "1080p")
+    cfg = FrameConfig(H=sc.H, W=sc.W, num_points=sc.n, max_num_points=sc.n, iterations=1)
+    gt = torch.rand((sc.H, sc.W, 3), device=dev, generator=torch.Generator(device=dev)
+                    .manual_seed(3))
+    gt_rows, mask = make_rows_target(gt, cfg)
+    denom = sc.H * sc.W * 3
+    out = []
+    for fused in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (sc.means, sc.L, sc.colors)]
+        xys, depths, radii, conics, nth = project_gaussians_2d(leaves[0], leaves[1], sc.H,
+                                                               sc.W, sc.tb)
+        splats = (xys, depths, radii, conics, nth, leaves[2], sc.opacity, sc.H, sc.W)
+        kw = dict(backend="cuda", max_intersects=sc.budget)
+        before = loss_cuda.rows_loss.launches
+        if fused:
+            loss, sq = rasterize_rows_loss(*splats, gt_rows, mask, loss_type=loss_type, **kw)
+        else:
+            diff = (_clip01(rasterize_gaussians_sum(*splats, layout="rows", **kw))
+                    - gt_rows) * mask
+            sq = torch.sum(diff * diff)
+            loss = sq if loss_type == "L2" else torch.sum(torch.abs(diff))
+        out.append((loss.detach(), sq.detach(),
+                    torch.autograd.grad(loss / denom, leaves)))
+        assert loss_cuda.rows_loss.launches == before + fused
+    (loss, sq, grads), (loss_p, sq_p, grads_p) = out
+    torch.testing.assert_close(loss, loss_p, rtol=1e-6, atol=0)
+    torch.testing.assert_close(sq, sq_p, rtol=1e-6, atol=0)
+    for a, b in zip(grads, grads_p):
+        assert torch.equal(a, b) and float(b.abs().max()) > 0
+
+
+@pytest.mark.parametrize("kind", ["represent", "qat"])
+def test_rows_loss_launches_once_a_replayed_step(dev, kind):
+    """A represent fit and a QAT fit on CUDA graphs launch E1 once a step,
+    replays included (the counter is in `utils.graphs.kernel_counters`)."""
+    from gsvc_tpu_torch.config import FrameConfig
+    from gsvc_tpu_torch.models import compress as comp
+    from gsvc_tpu_torch.models import represent as rep
+    from gsvc_tpu_torch.ops import loss_cuda
+
+    H, W, n, its = 128, 160, 300, 30
+    gen = torch.Generator(device=dev).manual_seed(2)
+    gt = torch.rand((H, W, 3), device=dev, generator=gen)
+    cfg = FrameConfig(H=H, W=W, num_points=n, max_num_points=n, iterations=its,
+                      max_intersects=16384)
+    before = graphs.launch_counts()
+    replays = graphs.StepGraph.replays
+    if kind == "represent":
+        state = rep.init_train_state(cfg, generator=torch.Generator().manual_seed(0),
+                                     device=dev)
+        rep.fit_frame_partial(state, gt, its, cfg)
+    else:
+        rng = np.random.default_rng(4)
+        gmodel = {"_xyz": np.arctanh(rng.uniform(-0.9, 0.9, (n, 2))).astype(np.float32),
+                  "_cholesky": rng.uniform(0, 2, (n, 3)).astype(np.float32),
+                  "_features_dc": rng.uniform(0, 1, (n, 3)).astype(np.float32)}
+        comp.fit_compress(comp.init_compress_state(gmodel, None, dev), gt, cfg,
+                          reload_best=False, draws=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in graphs.launch_counts().items()}
+    assert graphs.StepGraph.replays - replays > 0
+    assert delta["rows_loss"] == delta["forward_rows"] == delta["backward_slots"] == its
+    assert loss_cuda.rows_loss.launches - before["rows_loss"] == its

@@ -19,7 +19,7 @@ from gsvc_tpu.ops.rasterize import rasterize_gaussians_sum as jrasterize
 from gsvc_tpu_torch.ops import rasterize_cuda
 from gsvc_tpu_torch.ops.binning import bin_gaussians, default_max_intersects
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
-from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
+from gsvc_tpu_torch.ops.rasterize import blend_background, rasterize_gaussians_sum
 from gsvc_tpu_torch.ops.rasterize_binned import rasterize_binned
 
 ATOL = 1e-5
@@ -107,6 +107,24 @@ def test_zero_intersects_returns_background(layout):
         got = img.numpy().transpose(1, 2, 0) if layout == "chw" else img.numpy()
         np.testing.assert_array_equal(got, want)
         assert alpha.shape == (H, W) and not alpha.any()
+
+
+@pytest.mark.parametrize("total", [0, 1])
+@pytest.mark.parametrize("layout", ["image", "chw", "rows"])
+def test_blend_background_per_layout(layout, total):
+    """`blend_background`, shared by the renders and E1's plain version:
+    the render where an intersection was kept, else the background in the
+    layout's channel order (rows: block row r holds channel r % 3)."""
+    bg = torch.tensor([0.25, 0.5, 0.75])
+    shape = {"image": (5, 4, 3), "chw": (3, 5, 4), "rows": (7, 8)}[layout]
+    img = torch.rand(shape, generator=torch.Generator().manual_seed(1))
+    got = blend_background(img, torch.tensor(total, dtype=torch.int32), bg, layout)
+    if total:
+        assert torch.equal(got, img)
+        return
+    want = {"image": bg.expand(5, 4, 3), "chw": bg[:, None, None].expand(3, 5, 4),
+            "rows": bg[torch.arange(7) % 3][:, None].expand(7, 8)}[layout]
+    assert torch.equal(got, want)
 
 
 def test_five_channels_route_to_binned():
