@@ -211,9 +211,10 @@ Around each of phases 3 and 4, around each CLI of phase 6, around the
 mains of phase 7, around each point of phases 8 and 9, around each of
 phase 10's fits and CLIs (in each rank), around each host of phase 11,
 around phase 12's path and its scale + rotation render and around phase
-13's fast-colour path, every launch counter is zeroed just before and read
-just after (a host
-process starts at 0); each kernel of that path must have launched. The
+13's fast-colour path, the launches are read as the difference of the
+launch counts (`utils.graphs.launch_counts`) just after and just before
+(a host process starts at none); each kernel of that path must have
+launched. The
 kernels' JSON reports phase 6's counts for K1-K6, those of phase 9's
 point on the same grid for K1 and K2 on wide keys (1080p: int32, 4K UHD:
 int64), phase 7's for the harnesses' kernels, phase 10b's (rank 0) for K4 rows / image and K6 at the
@@ -297,6 +298,10 @@ FAST_TOL, FAST_GRAD_TOL = 6.5e-3, 4e-3
 # other path none (the mode is off by default)
 FAST_KERNELS = ("forward_image_fast", "forward_chw_fast", "forward_rows_fast",
                 "backward_slots_fast")
+# the kernel wrappers whose launches the phases read (names of
+# `utils.graphs.launch_counts`): K1-K6, their fast-colour variants, E1 and
+# Adan's update
+KERNELS = tuple(ENCODER_LAUNCHES)
 TRACE_ITERS, TRACE_EVERY = 400, 50
 # phase 5: the splats of Adan's second timing (the paper's highest rate
 # point); phase 7's harnesses run the host-float `adan_step` and their own
@@ -313,6 +318,27 @@ NATIVE = ("rans", "yuv")  # host C++ (gsvc_tpu_torch/native), built with g++
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def launch_counts() -> dict:
+    """The process's kernel launches so far (`utils.graphs.launch_counts`)."""
+    from gsvc_tpu_torch.utils import graphs
+
+    return graphs.launch_counts()
+
+
+def launches_since(before: dict, names) -> dict:
+    """{name: launches since `before`, an earlier `launch_counts()`} of
+    each kernel wrapper of `names`, 0 where it did not launch."""
+    now = launch_counts()
+    return {k: now.get(k, 0) - before.get(k, 0) for k in names}
+
+
+def graph_launches(graph) -> dict:
+    """{kernel wrapper: launches} that each replay of a `StepGraph` or
+    `RenderGraph` adds: what its capture added to the recorder's
+    `launches.*` counters."""
+    return {k[len("launches."):]: n for k, n in graph.added if k.startswith("launches.")}
 
 
 def graph_totals() -> tuple:
@@ -391,7 +417,7 @@ def plain_step_ms(torch, dev, plan, state, reps: int):
     return eager_ms, replay_ms
 
 
-def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
+def encoder_phase(torch, smi, clip, tmp: Path) -> dict:
     """Phase 6: the 4-frame clip through `drivers.represent`,
     `drivers.compress` and `decode` (each CLI's `main`, with the arguments
     of `scripts.encoder_drift.Run`), checked; returns the launch counts
@@ -428,11 +454,10 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
         ("decode", decode_cli.main, run.decode,
          ("fill_decode_keys", "rank_cap_decode", "forward_image")),
     ]
-    total = {c.__name__: 0 for c in counters}
+    total = {k: 0 for k in KERNELS}
     for name, main, argv, needed in clis:
         err = io.StringIO()
-        for c in counters:
-            c.launches = 0
+        counted = launch_counts()
         totals = graph_totals()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -441,7 +466,7 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        launches = {c.__name__: c.launches for c in counters}
+        launches = launches_since(counted, KERNELS)
         (fit_caps, fit_reps, fit_cap_s), (ren_caps, ren_reps, ren_cap_s) = graph_delta(totals)
         sys.stderr.write(err.getvalue())
         if rc != 0:
@@ -517,7 +542,7 @@ def encoder_phase(torch, smi, counters, clip, tmp: Path) -> dict:
     return total
 
 
-def rd_point_phase(torch, smi, counters, tmp: Path, phase: int, n: int, frames: int,
+def rd_point_phase(torch, smi, tmp: Path, phase: int, n: int, frames: int,
                    min_kept: int = 0, width: int = W, height: int = H,
                    key_bytes: Optional[int] = None) -> dict:
     """Phases 8 and 9: a reduced RD point of `n` splats and `frames` frames
@@ -538,8 +563,7 @@ def rd_point_phase(torch, smi, counters, tmp: Path, phase: int, n: int, frames: 
     from gsvc_tpu_torch.utils.profiling import RECORDER
 
     err = io.StringIO()
-    for c in counters:
-        c.launches = 0
+    counted = launch_counts()
     mark = RECORDER.last_id
     binning = {k: RECORDER.counters.get(k, 0) for k in ("binning.keys", "binning.key_bytes")}
     t0 = time.perf_counter()
@@ -550,7 +574,7 @@ def rd_point_phase(torch, smi, counters, tmp: Path, phase: int, n: int, frames: 
     sys.stderr.write(err.getvalue())
     if "overflow" in err.getvalue():  # a compress WARNING or a represent refit
         fail(f"the RD point of phase {phase} reported an intersection budget overflow")
-    launches = {c.__name__: c.launches for c in counters}
+    launches = launches_since(counted, KERNELS)
     missing = [k for k, v in launches.items() if (v <= 0) != (k in FAST_KERNELS)]
     if missing:
         fail(f"kernels not launched, or fast-colour kernels launched, by the RD point of "
@@ -770,7 +794,7 @@ def rows_loss_rows(torch, dev, smi, sc) -> list:
     return out
 
 
-def profiling_phase(torch, dev, smi, sc, v_rows, counters) -> list:
+def profiling_phase(torch, dev, smi, sc, v_rows) -> list:
     """Phase 7: the new kernels of the profiling harnesses against their
     plain versions at 1080p/10k, timed; then the six harnesses' mains with
     every launch counter zeroed just before and read just after. P1's
@@ -850,9 +874,8 @@ def profiling_phase(torch, dev, smi, sc, v_rows, counters) -> list:
 
     new = [*p1.FORWARD_PARTS.values(), *p5.BACKWARD_JOBS.values(), p6.transpose_last2,
            p6.rows_to_chw]
-    every = list(counters) + new
-    for c in every:
-        c.launches = 0
+    every = KERNELS + tuple(w.__name__ for w in new)
+    counted = launch_counts()
     t0 = time.perf_counter()
     for mod in (p3, p2, p4, p1, p6, p5):
         rc = mod.main(["--iters", str(PROFILE_ITERS)])
@@ -860,7 +883,7 @@ def profiling_phase(torch, dev, smi, sc, v_rows, counters) -> list:
             fail(f"{mod.__name__} returned {rc}")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in every}
+    launches = launches_since(counted, every)
     missing = [k for k, v in launches.items()
                if (v <= 0) != (k in FAST_KERNELS + NOT_IN_HARNESSES)]
     if missing:
@@ -970,8 +993,8 @@ def sharded_rank(rank: int, world_size: int, device: str = "cuda", size=(H, W, N
     cuda:0): the removal-control fit of phase 4 through
     `fit_frame_sharded`, the all_reduce of its step alone, 5 adaptive-control
     steps through `make_sharded_train_step`, then a SHARD_QAT_ITERS QAT fit
-    through `fit_compress_sharded`, each with the launch counters zeroed
-    just before and read just after. Returns digests, PSNRs, seconds and
+    through `fit_compress_sharded`, each with its launches read as the
+    difference of the launch counts just after and just before. Returns digests, PSNRs, seconds and
     launches. (`device`, `size` (H, W, N) and `iters` shrink it to a
     rehearsal on the CPU.)"""
     import numpy as np
@@ -986,7 +1009,6 @@ def sharded_rank(rank: int, world_size: int, device: str = "cuda", size=(H, W, N
     from gsvc_tpu_torch.parallel import sharded
     from gsvc_tpu_torch.parallel.launch import rank_device
     from gsvc_tpu_torch.scripts.common import scene
-    from gsvc_tpu_torch.utils import graphs
 
     H, W, N = size
     train_iters, qat_iters = iters
@@ -1005,22 +1027,19 @@ def sharded_rank(rank: int, world_size: int, device: str = "cuda", size=(H, W, N
     def psnr_of(img) -> float:
         return float(10.0 * torch.log10(1.0 / torch.mean((img - gt) ** 2)))
 
-    def zero() -> None:
-        for c in graphs.kernel_counters():
-            c.launches = 0
-
     out = {}
     kcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=train_iters,
                        isremoval=True)
     state = init_train_state(kcfg, generator=torch.Generator().manual_seed(0), device=dev)
     psnr0 = psnr_of(render_frame(state.params, state.alive, kcfg))
-    zero()
+    counted = launch_counts()
     sync()
     t0 = time.perf_counter()
     res = sharded.fit_frame_sharded(state, gt, kcfg, mesh,
                                     draws=torch.Generator(device=dev).manual_seed(1))
     sync()
-    out["fit"] = {"seconds": time.perf_counter() - t0, "launches": graphs.launch_counts(),
+    out["fit"] = {"seconds": time.perf_counter() - t0,
+                  "launches": launches_since(counted, KERNELS),
                   "digest": _digest(torch, res.state), "psnr0": psnr0,
                   "psnr": psnr_of(res.image), "it": res.state.it,
                   "overflow": int(res.state.max_overflow),
@@ -1041,24 +1060,25 @@ def sharded_rank(rank: int, world_size: int, device: str = "cuda", size=(H, W, N
     step = sharded.make_sharded_train_step(mesh, dcfg,
                                            draws=torch.Generator(device=dev).manual_seed(4))
     states = [init_train_state(dcfg, generator=torch.Generator().manual_seed(3), device=dev)]
-    zero()
+    counted = launch_counts()
     for _ in range(dcfg.iterations):
         states = step(states, gt[None])
     out["adaptive"] = {"digest": _digest(torch, states[0]),
                        "alive": int(states[0].alive.sum()),
-                       "launches": graphs.launch_counts()}
+                       "launches": launches_since(counted, KERNELS)}
     qcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N, iterations=qat_iters)
     gmodel = {"_xyz": np.arctanh(sc.means.cpu().numpy()),
               "_cholesky": sc.L.cpu().numpy() - np.asarray(CHOLESKY_BOUND, np.float32),
               "_features_dc": sc.colors.cpu().numpy()}
     qstate = compress.init_compress_state(gmodel, None, dev)
-    zero()
+    counted = launch_counts()
     sync()
     t0 = time.perf_counter()
     qstate = sharded.fit_compress_sharded(qstate, gt, qcfg, mesh,
                                           draws=torch.Generator().manual_seed(0))
     sync()
-    out["qat"] = {"seconds": time.perf_counter() - t0, "launches": graphs.launch_counts(),
+    out["qat"] = {"seconds": time.perf_counter() - t0,
+                  "launches": launches_since(counted, KERNELS),
                   "digest": _digest(torch, qstate), "best_psnr": float(qstate.best_psnr),
                   "overflow": int(compress.compress_overflow(qstate, qcfg))}
     return out
@@ -1182,7 +1202,7 @@ def span_phase(torch, smi, sc, v_rows) -> list:
     return rows
 
 
-def sharded_phase(torch, smi, counters, fit_psnr, eager_s, qat_psnr, qat_eager_s) -> dict:
+def sharded_phase(torch, smi, fit_psnr, eager_s, qat_psnr, qat_eager_s) -> dict:
     """Phases 10b and 10c: `sharded_rank` on SHARD_RANKS ranks sharing the
     card, checked: the ranks' final states bitwise equal, PSNR rises and
     within PSNR_TOL_DB of the single-process fit with graph=False
@@ -1233,7 +1253,7 @@ def sharded_phase(torch, smi, counters, fit_psnr, eager_s, qat_psnr, qat_eager_s
     return fit["launches"]
 
 
-def sharded_cli_phase(torch, smi, counters, clip, tmp: Path, device: str = "cuda") -> None:
+def sharded_cli_phase(torch, smi, clip, tmp: Path, device: str = "cuda") -> None:
     """Phase 10d: SHARD_CLI_FRAMES frames of phase 6's clip through the
     represent (SHARD_CLI_ITERS its, --is_rm: P-frames keep the K-frame's
     count for the delta compress), compress (SHARD_QAT_ITERS) and decode
@@ -1273,17 +1293,16 @@ def sharded_cli_phase(torch, smi, counters, clip, tmp: Path, device: str = "cuda
                 ("compress", compress_cli, common + [
                     "--iterations", str(SHARD_QAT_ITERS), "--model_path", str(npz),
                     "--k_frames_dir", str(ck), "--checkpoint_dir", str(cq)], ())):
-            for c in counters:
-                c.launches = 0
+            counted = launch_counts()
             if shards > 1:
                 per_rank = launch(cli._rank_main, shards, (argv, *rank_args), timeout=600)
             else:
                 rc = cli.main(argv)
                 if rc != 0:
                     fail(f"phase 10d {name} --tile_shards 1 returned {rc}")
-                per_rank = [{c.__name__: c.launches for c in counters}]
+                per_rank = [launches_since(counted, KERNELS)]
             for rank, launches in enumerate(per_rank):
-                missing = [k for k in need if launches[k] <= 0]
+                missing = [k for k in need if launches.get(k, 0) <= 0]
                 if missing:
                     fail(f"phase 10d {name} --tile_shards {shards}: rank {rank} launched "
                          f"none of {missing}")
@@ -1325,7 +1344,7 @@ def sharded_cli_phase(torch, smi, counters, clip, tmp: Path, device: str = "cuda
                   f"{dec[f]['PSNR']:.4f}" for f in frames))
 
 
-def multihost_phase(torch, smi, counters, clip, gt, tmp: Path) -> None:
+def multihost_phase(torch, smi, clip, gt, tmp: Path) -> None:
     """Phase 11: the budget's effect on K3 (measured) and on a fit, then
     phase 6's clip through the represent CLI on one host and on MH_HOSTS
     host processes, first with K-frames that overflow their budget, the
@@ -1448,14 +1467,13 @@ def multihost_phase(torch, smi, counters, clip, gt, tmp: Path) -> None:
                     "--device", dev.type]
             t0 = time.perf_counter()
             for host in host_ids[h]:
-                for c in counters:
-                    c.launches = 0
+                counted = launch_counts()
                 rc = compress_cli.main(argv + ([] if host is None else
                                                ["--hosts", str(h), "--host_id", str(host)]))
                 if rc != 0:
                     fail(f"phase 11 compress host {host} of {h} returned {rc}")
                 launches.setdefault(f"compress {h}", []).append(
-                    {c.__name__: c.launches for c in counters})
+                    launches_since(counted, KERNELS))
             secs[f"compress {h}"] = time.perf_counter() - t0
     finally:
         if nonce is None:
@@ -1464,7 +1482,7 @@ def multihost_phase(torch, smi, counters, clip, gt, tmp: Path) -> None:
             os.environ["GSVC_RUN_NONCE"] = nonce
     for run, per_host in launches.items():
         for host, counts in enumerate(per_host):
-            missing = [k for k in need if counts[k] <= 0]
+            missing = [k for k in need if counts.get(k, 0) <= 0]
             if missing:
                 fail(f"phase 11 {run}: host process {host} launched none of {missing}")
     for what, one, many in (("represent", ck[1], ck[MH_HOSTS]),
@@ -1548,7 +1566,7 @@ def pipeline3d(torch, s: dict, backend: str = "auto"):
     return loss.detach(), grads, outs
 
 
-def pipeline3d_phase(torch, dev, smi, counters) -> list:
+def pipeline3d_phase(torch, dev, smi) -> list:
     """Phase 12: the 3D pipeline at 1080p/10k on the card (see the module
     docstring); returns A1's and A2's rows of the kernels JSON."""
     from gsvc_tpu_torch.ops import rasterize_alpha
@@ -1561,18 +1579,17 @@ def pipeline3d_phase(torch, dev, smi, counters) -> list:
     t_phase = time.perf_counter()
     sc = scene3d(torch, N, H, W, dev)
     tb = sc["cam"][-1]
-    every = tuple(counters) + (rac.alpha_forward, rac.alpha_backward_slots)
+    every = KERNELS + ("alpha_forward", "alpha_backward_slots")
     needed = ("fill_decode_keys", "rank_cap_decode", "alpha_forward", "alpha_backward_slots",
               "segmented_cumsum")
     pipeline3d(torch, sc)  # a warm-up run: its kernels' first calls
     torch.cuda.synchronize()
-    for c in every:
-        c.launches = 0
+    counted = launch_counts()
     t0 = time.perf_counter()
     loss, grads, outs = pipeline3d(torch, sc)
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in every}
+    launches = launches_since(counted, every)
     missing = [k for k in needed if launches[k] <= 0]
     if missing:
         fail(f"phase 12: the 3D pipeline launched none of {missing}; launches {launches}")
@@ -1725,11 +1742,10 @@ def pipeline3d_phase(torch, dev, smi, counters) -> list:
         if int(budget_overflow(proj[4], budget)) != 0:
             fail("phase 12: the scale + rotation scene overflows its budget")
         cols, opac2 = colors5[:, :3].contiguous(), sc["opacity"]
-        for c in every:
-            c.launches = 0
+        counted = launch_counts()
         sr_img = rasterize_gaussians_sum(*proj, cols, opac2, H, W, backend="cuda", layout="chw",
                                          max_intersects=budget)
-        sr_launches = {c.__name__: c.launches for c in every}
+        sr_launches = launches_since(counted, every)
         sr_ref = rasterize_gaussians_sum(*proj, cols, opac2, H, W, backend="torch",
                                          layout="chw", max_intersects=budget)
         sr_err = float((sr_img - sr_ref).abs().max())
@@ -1783,7 +1799,7 @@ def pipeline3d_phase(torch, dev, smi, counters) -> list:
     return rows
 
 
-def fast_color_phase(torch, dev, smi, sc, counters, bounds, gt) -> list:
+def fast_color_phase(torch, dev, smi, sc, bounds, gt) -> list:
     """Phase 13: the fast-colour mode on the bench scene (see the module
     docstring); returns the kernels JSON's rows of its four kernels."""
     from gsvc_tpu_torch.ops import rasterize_cuda as rc
@@ -1865,8 +1881,7 @@ def fast_color_phase(torch, dev, smi, sc, counters, bounds, gt) -> list:
 
     fps = {"exact": [], "fast": []}
     for how in ("exact", "fast", "fast", "exact"):
-        for c in counters:
-            c.launches = 0
+        counted = launch_counts()
         with torch.no_grad(), graphs.render_graph(lambda f=how == "fast": eval_render(f), (),
                                                   dev) as replay:
             first = replay()
@@ -1887,7 +1902,7 @@ def fast_color_phase(torch, dev, smi, sc, counters, bounds, gt) -> list:
                     loss = torch.mean((rows - image_to_rows(gt, H, W)) ** 2)
                     grads = torch.autograd.grad(loss, leaves)
                 torch.cuda.synchronize()
-                launches = {c.__name__: c.launches for c in counters}
+                launches = launches_since(counted, KERNELS)
                 if not (torch.isfinite(image).all() and all(torch.isfinite(g).all()
                                                             for g in grads)):
                     fail("phase 13: the fast-colour path's render or gradients are not finite")
@@ -2284,7 +2299,6 @@ def main() -> int:
                            iterations=1, backend=backend,
                            max_intersects=dec_budget)
 
-    counters = graphs.kernel_counters()
     serve_kernels = ("fill_decode_keys", "rank_cap_decode", "forward_image",
                      "forward_chw")
     train_kernels = ("fill_decode_keys", "rank_cap_decode", "forward_rows",
@@ -2294,15 +2308,14 @@ def main() -> int:
         # cached), eager
         bs, k_file = write_stream(blob, Path(tmp), DECODE_FRAMES)
         runs = [("eager", decode_run(bs, k_file, Path(tmp) / "0", H, W, eager=True))]
-        for c in counters:
-            c.launches = 0
+        counted = launch_counts()
         totals = graph_totals()
         t0 = time.perf_counter()
         runs.append(("graph", decode_run(bs, k_file, Path(tmp) / "1", H, W)))
         eval_img = render_frame(frame, alive, frame_cfg("auto"), layout="chw")
         torch.cuda.synchronize()
         slice_s = time.perf_counter() - t0
-        launches = {c.__name__: c.launches for c in counters}
+        launches = launches_since(counted, KERNELS)
         captures, replays, _secs = graph_delta(totals)[1]
         runs += [("graph", decode_run(bs, k_file, Path(tmp) / "2", H, W)),
                  ("eager", decode_run(bs, k_file, Path(tmp) / "3", H, W, eager=True))]
@@ -2322,8 +2335,7 @@ def main() -> int:
         if not (Path(tmp) / "1" / "decode.txt").is_file():
             fail("decode.txt missing")
     # the decoder's graph: the cache's entry for its splat count and budget
-    replayed = dict((c.__name__, n) for c, n in
-                    decoded_renderer(N, frame_cfg("auto"), dev).counts)
+    replayed = graph_launches(decoded_renderer(N, frame_cfg("auto"), dev))
     inside = {"fill_decode_keys": 1, "rank_cap_decode": 1, "forward_image": 0}
     if (captures, replays) != (1, DECODE_FRAMES - 1) or any(
             replayed.get(k) != 1 for k in inside) or any(  # the eval render adds K1, K2
@@ -2379,15 +2391,14 @@ def main() -> int:
 
     kcfg = FrameConfig(H=H, W=W, num_points=N, max_num_points=N,
                        iterations=TRAIN_ITERS, isremoval=True)
-    for c in counters:
-        c.launches = 0
+    counted = launch_counts()
     totals = graph_totals()
     t0 = time.perf_counter()
     psnr0, res = replayed(lambda: fit(kcfg))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     capture_s = graph_delta(totals)[0][2]
-    train_launches = {c.__name__: c.launches for c in counters}
+    train_launches = launches_since(counted, KERNELS)
     missing = [k for k in train_kernels if train_launches[k] <= 0]
     if missing:
         fail(f"kernels not launched on the training path: {missing}")
@@ -2483,7 +2494,7 @@ def main() -> int:
             end.synchronize()
             call_fps[how].append(100e3 / start.elapsed_time(end))
             if how == "graph":
-                inside = dict((c.__name__, n) for c, n in render.counts)
+                inside = graph_launches(render)
                 if not torch.equal(out, first):
                     fail("the eval render's replay differs from its eager render")
                 if any(inside.get(k) != 1 for k in ("fill_decode_keys", "rank_cap_decode",
@@ -2619,23 +2630,23 @@ def main() -> int:
 
     clip = encoder_clip(sc)  # the bench scene (gt), moved; a cut, moved
     with tempfile.TemporaryDirectory() as tmp:
-        enc_launches = encoder_phase(torch, smi, counters, clip, Path(tmp))
+        enc_launches = encoder_phase(torch, smi, clip, Path(tmp))
     for k in kernels:
         k["launches"] = enc_launches[k["launches"]]
 
     # -- phase 7: the profiling path ------------------------------------
-    kernels += profiling_phase(torch, dev, smi, sc, v_rows, counters)
+    kernels += profiling_phase(torch, dev, smi, sc, v_rows)
 
     # -- phase 8: a reduced RD point ---------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        rd_point_phase(torch, smi, counters, Path(tmp), 8, RD_N, RD_FRAMES)
+        rd_point_phase(torch, smi, Path(tmp), 8, RD_N, RD_FRAMES)
 
     # -- phase 9: wide RD points, every frame past 65,535 splats -----------
     wide_launches = {}
     for wh, ww in WIDE_GRIDS:
         with tempfile.TemporaryDirectory() as tmp:
             wide_launches[(wh, ww)] = rd_point_phase(
-                torch, smi, counters, Path(tmp), 9, WIDE_N, RD_WIDE_FRAMES,
+                torch, smi, Path(tmp), 9, WIDE_N, RD_WIDE_FRAMES,
                 min_kept=1 << 16, width=ww, height=wh, key_bytes=WIDE_KEY_BYTES[(wh, ww)])
     for grid, k in wide_rows:
         k["launches"] = wide_launches[grid][k["launches"]]
@@ -2644,24 +2655,24 @@ def main() -> int:
     # -- phase 10: the tile-sharded trainer, ranks sharing the card ---------
     with torch.no_grad():
         span_rows = span_phase(torch, smi, sc, v_rows)
-    shard_launches = sharded_phase(torch, smi, counters, psnr1, eager_s,
+    shard_launches = sharded_phase(torch, smi, psnr1, eager_s,
                                    float(qat_ref.best_psnr), qat_ref_s)
     for k in span_rows:
         k["launches"] = shard_launches[k["launches"]]
         kernels.append(k)
     with tempfile.TemporaryDirectory() as tmp:
-        sharded_cli_phase(torch, smi, counters, clip, Path(tmp))
+        sharded_cli_phase(torch, smi, clip, Path(tmp))
 
     # -- phase 11: multi-host GOP parallelism, host processes sharing the card
     with tempfile.TemporaryDirectory() as tmp:
-        multihost_phase(torch, smi, counters, clip, gt, Path(tmp))
+        multihost_phase(torch, smi, clip, gt, Path(tmp))
 
     # -- phase 12: the 3D pipeline: projection, SH, A1, A2 ------------------
-    kernels += pipeline3d_phase(torch, dev, smi, counters)
+    kernels += pipeline3d_phase(torch, dev, smi)
 
     # -- phase 13: the fast-colour mode: K4, K5 and K6 on __expf ------------
     torch.set_grad_enabled(True)
-    kernels += fast_color_phase(torch, dev, smi, sc, counters, bounds, gt)
+    kernels += fast_color_phase(torch, dev, smi, sc, bounds, gt)
 
     # -- phase 14: fit_frame_trace on CUDA graphs ---------------------------
     trace_phase(torch, dev, smi, gt)

@@ -8,10 +8,13 @@ and every header, so an edited kernel never loads a stale build. Each
 same way with g++ (`HOST_FLAGS`). A file lock per library serialises
 concurrent builds of it (several processes may start at once); `build_all`
 runs one compiler per source, all at once. A failed build raises with the
-compiler's output. The library is loaded with ctypes; a kernel library
-takes every pointer and the stream as `c_void_p`, and each of its C
-entries returns `cudaGetLastError()`, which `check` turns into an
-exception.
+compiler's output. The library is loaded with ctypes, and `bind` gives
+its C entries their types from a table, once. A kernel library takes
+every pointer and the stream as `c_void_p`, and each of its C entries
+returns `cudaGetLastError()`: `launch` calls an entry on a device's
+current stream, turns its error into an exception (`check`) and counts
+the launch as the recorder's `launches.<wrapper>` counter
+(`utils.profiling.RECORDER`; `utils.graphs.launch_counts` reads them).
 
 Nothing here runs at import: the CPU tests import every module, and only
 a call on a CUDA tensor builds a kernel; the host libraries build at their
@@ -32,6 +35,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from gsvc_tpu_torch.utils.profiling import RECORDER
+
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 NATIVE_DIR = PKG_DIR / "native"
@@ -41,9 +46,17 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+# the C types of kernel entries' arguments in `bind`'s tables: pointers
+# and streams, int and int64
+VP, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LAUNCHES = "launches."  # + a wrapper's name: the recorder's counter of its launches
 
 _libs: dict = {}
+_bound: dict = {}  # name -> the library of `bind`, its table's types set
 _libs_lock = threading.Lock()
+# the entries every kernel library has (csrc/common.cuh)
+_KERNEL_ENTRIES = {"gsvc_error_string": (ctypes.c_char_p, [I32]),
+                   "gsvc_empty_launch": (I32, [VP])}
 # seconds each library's compiler ran in this process (absent: it was built)
 build_seconds: dict = {}
 
@@ -136,15 +149,28 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_compile(name)))
-            if is_host(name):
-                _libs[name] = lib
-                return lib
-            lib.gsvc_error_string.restype = ctypes.c_char_p
-            lib.gsvc_error_string.argtypes = [ctypes.c_int]
-            lib.gsvc_empty_launch.restype = ctypes.c_int
-            lib.gsvc_empty_launch.argtypes = [ctypes.c_void_p]
+            if not is_host(name):
+                _set_types(lib, _KERNEL_ENTRIES)
             _libs[name] = lib
         return lib
+
+
+def bind(name: str, table: dict) -> ctypes.CDLL:
+    """`load(name)` with each C entry of `table`, {entry: (restype,
+    argtypes)}, given its types, once a process."""
+    lib = _bound.get(name)
+    if lib is None:
+        lib = load(name)
+        with _libs_lock:
+            _set_types(lib, table)
+            _bound[name] = lib
+    return lib
+
+
+def _set_types(lib: ctypes.CDLL, table: dict) -> None:
+    for entry, (restype, argtypes) in table.items():
+        fn = getattr(lib, entry)
+        fn.restype, fn.argtypes = restype, list(argtypes)
 
 
 def build_all(names) -> None:
@@ -186,6 +212,20 @@ def empty_launch(device) -> None:
         return
     lib = load("fill")
     check(lib, lib.gsvc_empty_launch(stream_ptr(device)), "gsvc_empty_launch")
+
+
+def launch(lib: ctypes.CDLL, entry: str, device, *args, counter: str = "") -> None:
+    """Call the kernel entry `entry` of `lib` on `args` and the current
+    stream of CUDA `device` (its last argument), with `device` current;
+    raise on its CUDA error (`check`), else count the launch as the
+    recorder's `launches.<counter>` (default: the entry's name)."""
+    import torch
+
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args, stream_ptr(device))
+    counter = counter or entry
+    check(lib, rc, counter)
+    RECORDER.add(LAUNCHES + counter)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -62,6 +62,7 @@ from gsvc_tpu_torch.models.represent import (
     _clip01,
     _rows_target_for,
     _sharded_graph,
+    fit_attrs,
     shard_tile_rows,
     shard_valid_h,
     step_twins,
@@ -360,7 +361,7 @@ def fit_compress(state: CompressState, gt: torch.Tensor, cfg: FrameConfig,
     slice) every step runs eagerly and graph=True raises."""
     graph = _sharded_graph(graph, shard)
     state = graphs.run_fit(state, qat_plan(state, gt, cfg, draws, shard), gt.device,
-                           graph, kind="qat", cfg=cfg, capacity=state.params.xyz.shape[0])
+                           graph, kind="qat", **fit_attrs(cfg, state.params.xyz.shape[0]))
     return _reload_best(state) if reload_best else state
 
 

@@ -55,7 +55,7 @@ import torch.distributed as dist
 
 from gsvc_tpu_torch.config import FrameConfig
 from gsvc_tpu_torch.core import GaussianFrame, cholesky_bound, init_splats
-from gsvc_tpu_torch.ops.binning import budget_overflow, default_max_intersects
+from gsvc_tpu_torch.ops.binning import budget_overflow, default_max_intersects, key_attrs
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
 from gsvc_tpu_torch.ops.rasterize import (
     image_to_rows,
@@ -696,8 +696,17 @@ def fit_frame_partial(state: TrainState, gt: torch.Tensor, limit: int,
         return False
 
     plan = fit_plan(state, gt, lim, cfg, lambda_value, draws, shard)
-    return graphs.run_fit(state, plan, gt.device, graph, stop, kind="represent", cfg=cfg,
-                          capacity=state.alive.shape[0])
+    return graphs.run_fit(state, plan, gt.device, graph, stop, kind="represent",
+                          **fit_attrs(cfg, state.alive.shape[0]))
+
+
+def fit_attrs(cfg: FrameConfig, capacity: int) -> dict:
+    """A fit's `fit` span attributes (`utils.graphs.run_fit`): the config's
+    iterations and num_points as splats, and its binning keys' layout at
+    the config's grid and the state's `capacity` of splat rows
+    (`binning.key_attrs`)."""
+    return {"iterations": cfg.iterations, "splats": cfg.num_points,
+            **key_attrs(cfg.tile_bounds, capacity)}
 
 
 def _sharded_graph(graph: Optional[bool], shard) -> Optional[bool]:
@@ -751,7 +760,7 @@ def fit_frame_trace(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
                 images[(k + 1) // trace_every - 1].copy_(traced())
 
         state = graphs.run_fit(state, plan, gt.device, graph, before=trace, kind="trace",
-                               cfg=cfg, capacity=state.alive.shape[0])
+                               **fit_attrs(cfg, state.alive.shape[0]))
     return state, images
 
 
@@ -784,7 +793,7 @@ def pre_train_frame(state: TrainState, gt: torch.Tensor, cfg: FrameConfig,
     detection pass (SimpleTrainer2d.pre_train, train_video_Represent.py:117-133).
     `graph` as in `fit_frame_partial`."""
     plan = pre_train_plan(state, gt, cfg, lambda_value)
-    state = graphs.run_fit(state, plan, gt.device, graph, kind="pretrain", cfg=cfg,
-                           capacity=state.alive.shape[0])
+    state = graphs.run_fit(state, plan, gt.device, graph, kind="pretrain",
+                           **fit_attrs(cfg, state.alive.shape[0]))
     return FitResult(state=state,
                      image=render_frame(state.params, state.alive, cfg))

@@ -186,6 +186,14 @@ def bin_gaussians(
     )
 
 
+def key_attrs(tile_bounds: Tuple[int, int, int], n: int) -> dict:
+    """The keys' layout for `n` splat rows on the grid of `tile_bounds` as
+    a span's attributes: `key_bytes`, a key's width in bytes, and
+    `gauss_bits`, its gauss field's (`fill_cuda.key_layout`)."""
+    layout = fill_cuda.key_layout(int(tile_bounds[0]) * int(tile_bounds[1]), n)
+    return {"key_bytes": layout.dtype.itemsize, "gauss_bits": layout.gauss_bits}
+
+
 def budget_overflow(num_tiles_hit: torch.Tensor, max_intersects: int) -> torch.Tensor:
     """Intersections `bin_gaussians` would drop for this budget ([] int32)."""
     cum, _kept_mask, kept_nth = _kept(num_tiles_hit, max_intersects)

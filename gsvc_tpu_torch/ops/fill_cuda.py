@@ -54,10 +54,10 @@ launches are bitwise equal. Bytes bound it (one read and one write of the
 values, 6.2 MB for [9, 81920]).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises. `<wrapper>.launches` counts the calls that
-launched it. Every K1 call, kernel or plain version, adds the keys it
-wrote and their bytes to the recorder's counters `binning.keys` and
-`binning.key_bytes` (`utils.profiling.RECORDER`).
+launches its kernel (`_build.launch`, counted as the recorder's
+`launches.<wrapper>`) or raises. Every K1 call, kernel or plain version,
+adds the keys it wrote and their bytes to the recorder's counters
+`binning.keys` and `binning.key_bytes` (`utils.profiling.RECORDER`).
 """
 
 from __future__ import annotations
@@ -68,6 +68,7 @@ from typing import NamedTuple
 import torch
 
 from gsvc_tpu_torch import _build
+from gsvc_tpu_torch._build import I32, I64, VP
 from gsvc_tpu_torch.utils.profiling import RECORDER
 
 
@@ -145,25 +146,18 @@ def fill_decode_keys(
     total = total_kept.to(device=dev, dtype=torch.int32).reshape(1).contiguous()
     layout = key_layout(num_tiles, n)
     keys = torch.empty((num_slots,), dtype=layout.dtype, device=dev)
-    lib = _fill_lib()
-    with torch.cuda.device(dev):
-        rc = lib.fill_decode_keys(
-            *(_build.ptr(t) for t in ints), _build.ptr(total),
-            n, tb_x, num_tiles, num_slots, keys.element_size(), layout.gauss_bits,
-            _build.ptr(keys), _build.stream_ptr(dev),
-        )
-    _build.check(lib, rc, "fill_decode_keys")
-    fill_decode_keys.launches += 1
+    _build.launch(
+        _fill_lib(), "fill_decode_keys", dev, *(_build.ptr(t) for t in ints),
+        _build.ptr(total), n, tb_x, num_tiles, num_slots, keys.element_size(),
+        layout.gauss_bits, _build.ptr(keys),
+    )
     return _counted(keys)
-
-
-fill_decode_keys.launches = 0
 
 
 def _counted(keys: torch.Tensor) -> torch.Tensor:
     """`keys`, added to the recorder's counters `binning.keys` and
     `binning.key_bytes` (host side; a graph replay adds what its capture
-    added, `utils.graphs.REPLAYED_COUNTERS`)."""
+    added, as it does every counter's)."""
     RECORDER.add("binning.keys", keys.numel())
     RECORDER.add("binning.key_bytes", keys.numel() * keys.element_size())
     return keys
@@ -216,19 +210,12 @@ def rank_cap_decode(sorted_keys: torch.Tensor, cap: int, n: int,
     tile_ids = torch.empty((s,), dtype=torch.int32, device=dev)
     gauss_ids = torch.empty((s,), dtype=torch.int32, device=dev)
     edges = torch.empty((num_tiles + 1,), dtype=torch.int32, device=dev)
-    lib = _fill_lib()
-    with torch.cuda.device(dev):
-        rc = lib.rank_cap_decode(
-            _build.ptr(keys), s, keys.element_size(), layout.gauss_bits, cap, n,
-            num_tiles, _build.ptr(tile_ids), _build.ptr(gauss_ids), _build.ptr(edges),
-            _build.stream_ptr(dev),
-        )
-    _build.check(lib, rc, "rank_cap_decode")
-    rank_cap_decode.launches += 1
+    _build.launch(
+        _fill_lib(), "rank_cap_decode", dev, _build.ptr(keys), s, keys.element_size(),
+        layout.gauss_bits, cap, n, num_tiles, _build.ptr(tile_ids), _build.ptr(gauss_ids),
+        _build.ptr(edges),
+    )
     return tile_ids, gauss_ids, edges
-
-
-rank_cap_decode.launches = 0
 
 
 def segmented_cumsum_torch(vals: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
@@ -261,37 +248,19 @@ def segmented_cumsum(vals: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"segmented_cumsum: flags must be int32 [{s}] on {dev}")
     v = vals.contiguous()
     out = torch.empty_like(v)
-    lib = _segsum_lib()
-    with torch.cuda.device(dev):
-        rc = lib.segmented_cumsum(
-            _build.ptr(v), _build.ptr(flags.contiguous()), rows, s,
-            _build.ptr(out), _build.stream_ptr(dev),
-        )
-    _build.check(lib, rc, "segmented_cumsum")
-    segmented_cumsum.launches += 1
+    _build.launch(
+        _segsum_lib(), "segmented_cumsum", dev, _build.ptr(v),
+        _build.ptr(flags.contiguous()), rows, s, _build.ptr(out),
+    )
     return out
 
 
-segmented_cumsum.launches = 0
-
-
 def _segsum_lib() -> ctypes.CDLL:
-    lib = _build.load("segsum")
-    if not getattr(lib, "_gsvc_bound", False):
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.segmented_cumsum.restype = i32
-        lib.segmented_cumsum.argtypes = [vp, vp, i32, i64, vp, vp]
-        lib._gsvc_bound = True
-    return lib
+    return _build.bind("segsum", {
+        "segmented_cumsum": (I32, [VP, VP, I32, I64, VP, VP])})
 
 
 def _fill_lib() -> ctypes.CDLL:
-    lib = _build.load("fill")
-    if not getattr(lib, "_gsvc_bound", False):
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fill_decode_keys.restype = i32
-        lib.fill_decode_keys.argtypes = [vp] * 5 + [i32, i32, i32, i64, i32, i32, vp, vp]
-        lib.rank_cap_decode.restype = i32
-        lib.rank_cap_decode.argtypes = [vp, i64] + [i32] * 5 + [vp] * 4
-        lib._gsvc_bound = True
-    return lib
+    return _build.bind("fill", {
+        "fill_decode_keys": (I32, [VP] * 5 + [I32, I32, I32, I64, I32, I32, VP, VP]),
+        "rank_cap_decode": (I32, [VP, I64] + [I32] * 5 + [VP] * 4)})

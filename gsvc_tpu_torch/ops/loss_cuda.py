@@ -22,10 +22,10 @@ so the backward's `grad * gd` is bitwise autograd's gradient of the chain;
 only the sums move, by their order.
 
 `rows_loss` on a CPU tensor runs the plain version; on a CUDA tensor it
-launches E1 or raises (`check_inputs`), and counts the launch
-(`rows_loss.launches`, in `utils.graphs.kernel_counters`, so a replay adds
-it). E1 keeps one ticket a device for its last CTA: its launches must not
-overlap on two streams.
+launches E1 or raises (`check_inputs`), and counts the launch as the
+recorder's `launches.rows_loss` (`_build.launch`; a graph's replay adds
+it as its capture saw it). E1 keeps one ticket a device for its last CTA:
+its launches must not overlap on two streams.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from typing import Tuple
 import torch
 
 from gsvc_tpu_torch import _build
+from gsvc_tpu_torch._build import I32, I64, VP
 from gsvc_tpu_torch.ops import rasterize
 from gsvc_tpu_torch.ops.rasterize_cuda import sm_count
 
@@ -98,18 +99,10 @@ def rows_loss(raw: torch.Tensor, gt_rows: torch.Tensor, mask: torch.Tensor,
     partials = torch.empty((2 * grid,), dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     sq = torch.empty((), dtype=torch.float32, device=dev)
-    lib = _rows_loss_lib()
-    with torch.cuda.device(dev):
-        rc = lib.rows_loss(_build.ptr(raw), _build.ptr(gt_rows), _build.ptr(mask), rows, cols,
-                           _build.ptr(num_intersects), _build.ptr(gd), _build.ptr(partials),
-                           _build.ptr(loss), _build.ptr(sq), int(l1), grid,
-                           _build.stream_ptr(dev))
-    _build.check(lib, rc, "rows_loss")
-    rows_loss.launches += 1
+    _build.launch(_rows_loss_lib(), "rows_loss", dev, _build.ptr(raw), _build.ptr(gt_rows),
+                  _build.ptr(mask), rows, cols, _build.ptr(num_intersects), _build.ptr(gd),
+                  _build.ptr(partials), _build.ptr(loss), _build.ptr(sq), int(l1), grid)
     return gd, loss, sq
-
-
-rows_loss.launches = 0
 
 
 class RowsLoss(torch.autograd.Function):
@@ -131,10 +124,5 @@ class RowsLoss(torch.autograd.Function):
 
 
 def _rows_loss_lib() -> ctypes.CDLL:
-    lib = _build.load("rows_loss")
-    if not getattr(lib, "_gsvc_bound", False):
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.rows_loss.restype = i32
-        lib.rows_loss.argtypes = [vp, vp, vp, i64, i32, vp, vp, vp, vp, vp, i32, i32, vp]
-        lib._gsvc_bound = True
-    return lib
+    return _build.bind("rows_loss", {
+        "rows_loss": (I32, [VP, VP, VP, I64, I32, VP, VP, VP, VP, VP, I32, I32, VP])})

@@ -60,7 +60,8 @@ sums, no TMA or wgmma.
 
 On a CPU tensor each wrapper runs its plain version (dense [tiles,
 members, pixels] math over chunks of tiles); on a CUDA tensor it launches
-its kernel or raises. `<wrapper>.launches` counts the launches.
+its kernel or raises, counting each launch as the recorder's
+`launches.<wrapper>` (`_build.launch`).
 """
 
 from __future__ import annotations
@@ -71,6 +72,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from gsvc_tpu_torch import _build
+from gsvc_tpu_torch._build import I32, I64, VP
 from gsvc_tpu_torch.ops import fill_cuda
 from gsvc_tpu_torch.ops.binning import BinnedSplats, bin_gaussians
 from gsvc_tpu_torch.ops.projection import _tile_bbox
@@ -371,20 +373,13 @@ def alpha_forward(binned: BinnedSplats, xys, conics, colors, opacity, background
     null = ctypes.c_void_p(0)
     for gi, (c0, c1) in enumerate(groups(c_dim)):
         first = gi == 0  # the first group writes alpha, T and last
-        with torch.cuda.device(dev):
-            rc = lib.alpha_forward(
-                *(_build.ptr(t) for t in i32 + f32), n, c_dim, c0, c1 - c0,
-                _template(c1 - c0), img_height, img_width, tb_x, tb_x * tb_y,
-                _build.ptr(img), _build.ptr(alpha) if first and return_alpha else null,
-                _build.ptr(T) if first else null, _build.ptr(last) if first else null,
-                _build.stream_ptr(dev),
-            )
-        _build.check(lib, rc, "alpha_forward")
-        alpha_forward.launches += 1
+        _build.launch(
+            lib, "alpha_forward", dev, *(_build.ptr(t) for t in i32 + f32), n, c_dim, c0,
+            c1 - c0, _template(c1 - c0), img_height, img_width, tb_x, tb_x * tb_y,
+            _build.ptr(img), _build.ptr(alpha) if first and return_alpha else null,
+            _build.ptr(T) if first else null, _build.ptr(last) if first else null,
+        )
     return img, alpha, T, last
-
-
-alpha_forward.launches = 0
 
 
 def alpha_backward_slots(binned: BinnedSplats, xys, conics, colors, opacity,
@@ -425,16 +420,12 @@ def alpha_backward_slots(binned: BinnedSplats, xys, conics, colors, opacity,
         slots = torch.zeros((GEO_FIELDS + cg, s), dtype=torch.float32, device=dev)
         bg_part = torch.empty((num_tiles, cg), dtype=torch.float32, device=dev)
         va = v_alpha.contiguous() if (gi == 0 and v_alpha is not None) else None
-        with torch.cuda.device(dev):
-            rc = lib.alpha_backward(
-                *(_build.ptr(t) for t in i32 + f32 + per_pix),
-                _build.ptr(va) if va is not None else null,
-                n, c_dim, c0, cg, _template(cg), img_height, img_width, tb_x,
-                num_tiles, s, _build.ptr(slots), _build.ptr(bg_part),
-                _build.stream_ptr(dev),
-            )
-        _build.check(lib, rc, "alpha_backward")
-        alpha_backward_slots.launches += 1
+        _build.launch(
+            lib, "alpha_backward", dev, *(_build.ptr(t) for t in i32 + f32 + per_pix),
+            _build.ptr(va) if va is not None else null, n, c_dim, c0, cg, _template(cg),
+            img_height, img_width, tb_x, num_tiles, s, _build.ptr(slots),
+            _build.ptr(bg_part), counter="alpha_backward_slots",
+        )
         parts.append((slots, bg_part.sum(dim=0)))
     if len(parts) == 1:
         return parts[0]
@@ -445,19 +436,10 @@ def alpha_backward_slots(binned: BinnedSplats, xys, conics, colors, opacity,
             torch.cat([p[1] for p in parts]))
 
 
-alpha_backward_slots.launches = 0
-
-
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("rasterize_alpha")
-    if not getattr(lib, "_gsvc_bound", False):
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.alpha_forward.restype = i32
-        lib.alpha_forward.argtypes = [vp] * 8 + [i32] * 9 + [vp] * 5
-        lib.alpha_backward.restype = i32
-        lib.alpha_backward.argtypes = [vp] * 14 + [i32] * 9 + [i64, vp, vp, vp]
-        lib._gsvc_bound = True
-    return lib
+    return _build.bind("rasterize_alpha", {
+        "alpha_forward": (I32, [VP] * 8 + [I32] * 9 + [VP] * 5),
+        "alpha_backward": (I32, [VP] * 14 + [I32] * 9 + [I64, VP, VP, VP])})
 
 
 # -- the splat reduction and the autograd function ----------------------------

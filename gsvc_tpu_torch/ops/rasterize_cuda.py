@@ -54,7 +54,7 @@ exponential. So the mode's kernels are K4, K5 and K6 with `__expf(-sigma)`
 (one FMUL by log2(e) and MUFU.EX2) in place of `expf` (forward_kernel<.,
 kFastExp>, backward_kernel<., ., true>), forward and backward on the same
 alpha; their plain versions take `splat_vis(sigma, True)`. Off by default;
-each fast kernel counts its launches apart (`<wrapper>.fast.launches`).
+each fast kernel counts its launches apart (`launches.<wrapper>_fast`).
 
 Every forward and K6 takes a tile-row span, `tile_rows=(row0, num_rows)`
 (gsvc_tpu's `row0_ref` scalar prefetch, for the tile-sharded trainer):
@@ -62,9 +62,9 @@ only the span's tiles render or write their slots, in the grid's
 coordinates; a span's rows past the grid are empty. None is the whole
 grid, bitwise as before.
 
-Each kernel wrapper counts its launches (`<wrapper>.launches`). On a CPU
-tensor a wrapper runs its plain version; on a CUDA tensor it launches its
-kernel or raises.
+Each kernel wrapper counts its launches as the recorder's
+`launches.<wrapper>` (`_build.launch`). On a CPU tensor a wrapper runs its
+plain version; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -76,6 +76,7 @@ from typing import Tuple
 import torch
 
 from gsvc_tpu_torch import _build
+from gsvc_tpu_torch._build import I32, I64, VP
 from gsvc_tpu_torch.ops import fill_cuda
 from gsvc_tpu_torch.ops.binning import BinnedSplats
 from gsvc_tpu_torch.ops.rasterize_binned import (
@@ -166,16 +167,6 @@ def rasterize_forward_torch(
     return img
 
 
-class FastCounter:
-    """The launch count of a wrapper's fast-colour kernel, which the wrapper
-    launches with `fast_color=True` (`<wrapper>.fast`); named as the
-    wrappers are in `utils.graphs.launch_counts`."""
-
-    def __init__(self, name: str):
-        self.__name__ = name
-        self.launches = 0
-
-
 def _forward_wrapper(layout: str, doc: str):
     def wrapper(binned, xys, conics, colors, opacity, img_height, img_width,
                 tile_bounds, block_w=16, block_h=16, cap=256, tile_rows=None,
@@ -185,16 +176,12 @@ def _forward_wrapper(layout: str, doc: str):
                 binned, xys, conics, colors, opacity, img_height, img_width,
                 tile_bounds, block_w, block_h, cap, layout, tile_rows, fast_color,
             )
-        out = _launch_forward(binned, xys, conics, colors, opacity, img_height,
-                              img_width, tile_bounds, block_w, block_h, cap,
-                              layout, tile_rows, fast_color)
-        (wrapper.fast if fast_color else wrapper).launches += 1
-        return out
+        return _launch_forward(binned, xys, conics, colors, opacity, img_height,
+                               img_width, tile_bounds, block_w, block_h, cap,
+                               layout, tile_rows, fast_color)
 
     wrapper.__name__ = wrapper.__qualname__ = f"forward_{layout}"
     wrapper.__doc__ = doc
-    wrapper.launches = 0
-    wrapper.fast = FastCounter(f"forward_{layout}_fast")
     return wrapper
 
 
@@ -263,14 +250,12 @@ def _launch_forward(binned, xys, conics, colors, opacity, img_height,
         shape = (3, out_h, img_width) if layout == "chw" else (out_h, img_width, 3)
         out = torch.empty(shape, dtype=torch.float32, device=dev)
     grid = forward_grid(tb_x * num_rows, sm_count(dev))
-    lib = _fwd_lib()
-    with torch.cuda.device(dev):
-        rc = lib.rasterize_forward(
-            *(_build.ptr(t) for t in i32 + f32), xys.shape[0], img_height,
-            img_width, tb_x, tb_y, row0, num_rows, out_h, cap, _LAYOUT_ID[layout],
-            int(fast_color), r_out, grid, _build.ptr(out), _build.stream_ptr(dev),
-        )
-    _build.check(lib, rc, "rasterize_forward")
+    _build.launch(
+        _fwd_lib(), "rasterize_forward", dev, *(_build.ptr(t) for t in i32 + f32),
+        xys.shape[0], img_height, img_width, tb_x, tb_y, row0, num_rows, out_h, cap,
+        _LAYOUT_ID[layout], int(fast_color), r_out, grid, _build.ptr(out),
+        counter=f"forward_{layout}_fast" if fast_color else f"forward_{layout}",
+    )
     return out
 
 
@@ -281,13 +266,8 @@ def sm_count(dev) -> int:
 
 
 def _fwd_lib() -> ctypes.CDLL:
-    lib = _build.load("rasterize_fwd")
-    if not getattr(lib, "_gsvc_bound", False):
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rasterize_forward.restype = i32
-        lib.rasterize_forward.argtypes = [vp] * 7 + [i32] * 13 + [vp, vp]
-        lib._gsvc_bound = True
-    return lib
+    return _build.bind("rasterize_fwd", {
+        "rasterize_forward": (I32, [VP] * 7 + [I32] * 13 + [VP, VP])})
 
 
 # -- backward ---------------------------------------------------------------
@@ -471,31 +451,18 @@ def backward_slots(binned, xys, conics, colors, opacity, v_out, img_height,
     s = binned.sorted_gauss_ids.shape[0]
     out = torch.zeros((GRAD_FIELDS, s), dtype=torch.float32, device=dev)
     v = v_out.contiguous()
-    lib = _bwd_lib()
-    with torch.cuda.device(dev):
-        rc = lib.rasterize_backward(
-            *(_build.ptr(t) for t in i32 + f32), _build.ptr(v), xys.shape[0],
-            img_height, img_width, tb_x, tb_y, row0, num_rows, out_h, cap,
-            _LAYOUT_ID[layout], int(fast_color), r_out, s, _build.ptr(out),
-            _build.stream_ptr(dev),
-        )
-    _build.check(lib, rc, "rasterize_backward")
-    (backward_slots.fast if fast_color else backward_slots).launches += 1
+    _build.launch(
+        _bwd_lib(), "rasterize_backward", dev, *(_build.ptr(t) for t in i32 + f32),
+        _build.ptr(v), xys.shape[0], img_height, img_width, tb_x, tb_y,
+        row0, num_rows, out_h, cap, _LAYOUT_ID[layout], int(fast_color), r_out, s,
+        _build.ptr(out), counter="backward_slots_fast" if fast_color else "backward_slots",
+    )
     return out
 
 
-backward_slots.launches = 0
-backward_slots.fast = FastCounter("backward_slots_fast")
-
-
 def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load("rasterize_bwd")
-    if not getattr(lib, "_gsvc_bound", False):
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.rasterize_backward.restype = i32
-        lib.rasterize_backward.argtypes = [vp] * 10 + [i32] * 12 + [i64, vp, vp]
-        lib._gsvc_bound = True
-    return lib
+    return _build.bind("rasterize_bwd", {
+        "rasterize_backward": (I32, [VP] * 10 + [I32] * 12 + [I64, VP, VP])})
 
 
 def segment_flags(gauss_slot_start: torch.Tensor, s: int) -> torch.Tensor:

@@ -16,8 +16,8 @@ source).
 
 `adan_update` checks its inputs (`check_inputs`) and raises on what the
 kernel does not take; it runs only on CUDA tensors (`optim.adan.adan_step_`
-keeps CPU tensors on the plain version). `adan_update.launches` counts its
-calls, one launch each.
+keeps CPU tensors on the plain version). Each call is one launch, counted
+as the recorder's `launches.adan_update` (`_build.launch`).
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from gsvc_tpu_torch import _build
+from gsvc_tpu_torch._build import I32, I64, VP
 from gsvc_tpu_torch.ops.rasterize_cuda import sm_count
 
 MAX_LEAVES = 8  # csrc/adan.cu's kMaxLeaves
@@ -104,27 +105,14 @@ def adan_update(leaves, table: torch.Tensor, row: torch.Tensor, fresh: torch.Ten
     ptrs = (ctypes.c_void_p * (len(FIELDS) * n))(*(t.data_ptr() for leaf in leaves
                                                   for t in leaf))
     consts = (ctypes.c_float * 7)(b1, 1.0 - b1, b2, 1.0 - b2, b3, 1.0 - b3, eps)
-    lib = _adan_lib()
-    with torch.cuda.device(dev):
-        rc = lib.adan_update(
-            n, ptrs, (ctypes.c_longlong * n)(*counts), (ctypes.c_longlong * n)(*firsts),
-            units, _build.ptr(table), table.shape[0], _build.ptr(row), _build.ptr(fresh),
-            None if clip is None else _build.ptr(clip), consts, int(no_prox),
-            BLOCKS_PER_SM * sm_count(dev), _build.stream_ptr(dev),
-        )
-    _build.check(lib, rc, "adan_update")
-    adan_update.launches += 1
-
-
-adan_update.launches = 0
+    _build.launch(
+        _adan_lib(), "adan_update", dev, n, ptrs, (ctypes.c_longlong * n)(*counts),
+        (ctypes.c_longlong * n)(*firsts), units, _build.ptr(table), table.shape[0],
+        _build.ptr(row), _build.ptr(fresh), None if clip is None else _build.ptr(clip),
+        consts, int(no_prox), BLOCKS_PER_SM * sm_count(dev),
+    )
 
 
 def _adan_lib() -> ctypes.CDLL:
-    lib = _build.load("adan")
-    if not getattr(lib, "_gsvc_bound", False):
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.adan_update.restype = i32
-        lib.adan_update.argtypes = [i32, vp, vp, vp, i64, vp, i64, vp, vp, vp, vp, i32,
-                                    i32, vp]
-        lib._gsvc_bound = True
-    return lib
+    return _build.bind("adan", {
+        "adan_update": (I32, [I32, VP, VP, VP, I64, VP, I64, VP, VP, VP, VP, I32, I32, VP])})

@@ -12,8 +12,8 @@ them. `--eager` runs every fit step and render eagerly
 (`utils.graphs.eager`): the eager encoder whose launches and hashes phase 6
 holds its graphs to (`ENCODER_LAUNCHES`, `ENCODER_SHA256`). Run as a file with another tree's package first on
 PYTHONPATH, it encodes with that tree's kernels (its imports are the
-encoder's CLIs, `fill_cuda`'s two K3 functions and `scripts.common`'s
-scene). Card only: exits 1 without one.
+encoder's CLIs, `fill_cuda`'s two K3 functions, `scripts.common`'s scene
+and `utils.graphs`' `eager` and `launch_counts`). Card only: exits 1 without one.
 
 Also the clip and the CLI arguments that `chip_smoke.py` phase 6 runs.
 """
@@ -161,9 +161,7 @@ def main(argv=None) -> int:
         yuv = Path(tmp) / "clip.yuv"
         write_yuv(clip, yuv)
         run = Run(yuv, Path(tmp), H, W, N, len(clip), seed=args.seed, device=args.device)
-        counters = graphs.kernel_counters()
-        for c in counters:
-            c.launches = 0
+        before = graphs.launch_counts()
         for name, cli, cli_argv in (("represent", represent_cli.main, run.represent),
                                     ("compress", compress_cli.main, run.compress),
                                     ("decode", decode_cli.main, run.decode)):
@@ -172,7 +170,7 @@ def main(argv=None) -> int:
             if rc != 0:
                 print(f"encoder_drift: {name} returned {rc}", file=sys.stderr)
                 return 1
-        launches = {c.__name__: c.launches for c in counters}
+        launches = {k: v - before.get(k, 0) for k, v in graphs.launch_counts().items()}
         rep, enc = train_lines(run.rep_log), train_lines(run.qat_log)
         k_frames = [int(x) for x in run.k_frames.read_text().split()]
         sha = {f: hashlib.sha256((run.bitstream / f"frame_{f}.gsvc").read_bytes())

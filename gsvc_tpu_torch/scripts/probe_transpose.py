@@ -17,9 +17,9 @@ memory (csrc/probe_transpose.cu), exact:
 times both transposes at the probe's shapes and over a whole frame's rows
 buffer, beside the library call (`x.transpose(-1, -2).contiguous()`),
 then answers the probe's question for the card: K5's in-kernel planar
-store against K4 rows followed by `rows_to_chw`. Each wrapper (with
-`.launches`) runs its kernel on a CUDA tensor and its plain version on a
-CPU tensor.
+store against K4 rows followed by `rows_to_chw`. Each wrapper (counted
+as the recorder's `launches.<wrapper>`) runs its kernel on a CUDA tensor
+and its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import sys
 import torch
 
 from gsvc_tpu_torch import _build
+from gsvc_tpu_torch._build import I32, VP
 from gsvc_tpu_torch.ops import rasterize_cuda
 from gsvc_tpu_torch.scripts import common
 
@@ -54,16 +55,9 @@ def transpose_last2(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"transpose_last2: batch {batch} exceeds one grid axis")
     src = x.contiguous()
     out = torch.empty((*x.shape[:-2], cols, rows), dtype=x.dtype, device=x.device)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        rc = lib.transpose_batched(_build.ptr(src), _build.ptr(out), batch, rows, cols,
-                                   _build.stream_ptr(x.device))
-    _build.check(lib, rc, "transpose_last2")
-    transpose_last2.launches += 1
+    _build.launch(_lib(), "transpose_batched", x.device, _build.ptr(src), _build.ptr(out),
+                  batch, rows, cols, counter="transpose_last2")
     return out
-
-
-transpose_last2.launches = 0
 
 
 def rows_to_chw_torch(rows: torch.Tensor, img_height: int, img_width: int,
@@ -88,29 +82,15 @@ def rows_to_chw(rows: torch.Tensor, img_height: int, img_width: int, tile_bounds
                          f"{tuple(rows.shape)}")
     src = rows.contiguous()
     out = torch.empty((3, img_height, img_width), dtype=torch.float32, device=rows.device)
-    lib = _lib()
-    with torch.cuda.device(rows.device):
-        rc = lib.rows_to_chw(_build.ptr(src), _build.ptr(out), img_height, img_width,
-                             tb_x, tb_y, block_w, block_h, r_out,
-                             _build.stream_ptr(rows.device))
-    _build.check(lib, rc, "rows_to_chw")
-    rows_to_chw.launches += 1
+    _build.launch(_lib(), "rows_to_chw", rows.device, _build.ptr(src), _build.ptr(out),
+                  img_height, img_width, tb_x, tb_y, block_w, block_h, r_out)
     return out
 
 
-rows_to_chw.launches = 0
-
-
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("probe_transpose")
-    if not getattr(lib, "_gsvc_bound", False):
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.transpose_batched.restype = i32
-        lib.transpose_batched.argtypes = [vp, vp, i32, i32, i32, vp]
-        lib.rows_to_chw.restype = i32
-        lib.rows_to_chw.argtypes = [vp, vp] + [i32] * 7 + [vp]
-        lib._gsvc_bound = True
-    return lib
+    return _build.bind("probe_transpose", {
+        "transpose_batched": (I32, [VP, VP, I32, I32, I32, VP]),
+        "rows_to_chw": (I32, [VP, VP] + [I32] * 7 + [VP])})
 
 
 def probe_inputs(sc: common.Scene, device):

@@ -32,8 +32,9 @@ D in another summation order (rel 1e-4 of the largest entry).
 
 prints each variant's events and busy ms beside K6's, and C's and D's
 error against K6's slots. Each variant's wrapper (`BACKWARD_JOBS[v]`,
-with `.launches`) runs its kernel on a CUDA tensor and its plain version,
-`backward_jobs_torch`, on a CPU tensor.
+counted as the recorder's `launches.backward_jobs_<v>`) runs its kernel on
+a CUDA tensor and its plain version, `backward_jobs_torch`, on a CPU
+tensor.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from gsvc_tpu_torch import _build
+from gsvc_tpu_torch._build import I32, I64, VP
 from gsvc_tpu_torch.ops import rasterize_cuda
 from gsvc_tpu_torch.ops.rasterize_cuda import (
     GRAD_FIELDS,
@@ -169,20 +171,16 @@ def _jobs_wrapper(variant: str):
             raise ValueError(f"backward_jobs: binning and job arrays must be int32 on {dev}")
         s = binned.sorted_gauss_ids.shape[0]
         out = torch.zeros((GRAD_FIELDS, s), dtype=torch.float32, device=dev)
-        lib = _lib()
-        with torch.cuda.device(dev):
-            rc = lib.backward_jobs(
-                *(_build.ptr(t) for t in i32[:5] + f32), _build.ptr(v_rows.contiguous()),
-                *(_build.ptr(t) for t in i32[5:]), xys.shape[0], img_height, img_width,
-                tb_x, tb_y, cap, r_out, s, jobs.tile.shape[0], vid, _build.ptr(out),
-                _build.stream_ptr(dev))
-        _build.check(lib, rc, f"backward_jobs[{variant}]")
-        wrapper.launches += 1
+        v = v_rows.contiguous()
+        _build.launch(
+            _lib(), "backward_jobs", dev, *(_build.ptr(t) for t in i32[:5] + f32),
+            _build.ptr(v), *(_build.ptr(t) for t in i32[5:]), xys.shape[0], img_height,
+            img_width, tb_x, tb_y, cap, r_out, s, jobs.tile.shape[0], vid, _build.ptr(out),
+            counter=wrapper.__name__)
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = f"backward_jobs_{variant}"
     wrapper.__doc__ = f"P5 variant {variant}: the job-based backward into [9, S] slots."
-    wrapper.launches = 0
     return wrapper
 
 
@@ -190,13 +188,8 @@ BACKWARD_JOBS = {v: _jobs_wrapper(v) for v in VARIANTS}
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("profile_bwd_variants")
-    if not getattr(lib, "_gsvc_bound", False):
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.backward_jobs.restype = i32
-        lib.backward_jobs.argtypes = [vp] * 13 + [i32] * 7 + [i64, i32, i32, vp, vp]
-        lib._gsvc_bound = True
-    return lib
+    return _build.bind("profile_bwd_variants", {
+        "backward_jobs": (I32, [VP] * 13 + [I32] * 7 + [I64, I32, I32, VP, VP])})
 
 
 def main(argv=None) -> int:

@@ -22,8 +22,9 @@ and the ablations describe the loop that runs:
 
 prints each variant's events and busy ms and, for fast_exp and exp2, the
 max-abs error against full (:196-201). Each variant's wrapper
-(`FORWARD_PARTS[variant]`, with `.launches`) runs its kernel on a CUDA
-tensor and its plain version, `render_parts_torch`, on a CPU tensor.
+(`FORWARD_PARTS[variant]`, counted as the recorder's
+`launches.forward_parts_<variant>`) runs its kernel on a CUDA tensor and
+its plain version, `render_parts_torch`, on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import sys
 import torch
 
 from gsvc_tpu_torch import _build
+from gsvc_tpu_torch._build import I32, VP
 from gsvc_tpu_torch.ops.rasterize_binned import zrow
 from gsvc_tpu_torch.ops.rasterize_cuda import (
     check_inputs,
@@ -87,19 +89,14 @@ def _parts_wrapper(variant: str):
         alloc = torch.empty if r_out == 3 * tb_x else torch.zeros
         out = alloc((tb_y * r_out, block_h * block_w), dtype=torch.float32, device=dev)
         grid = forward_grid(tb_x * tb_y, sm_count(dev))
-        lib = _lib()
-        with torch.cuda.device(dev):
-            rc = lib.forward_parts(
-                *(_build.ptr(t) for t in i32 + f32), xys.shape[0], img_height,
-                img_width, tb_x, tb_y, cap, vid, r_out, grid, _build.ptr(out),
-                _build.stream_ptr(dev))
-        _build.check(lib, rc, f"forward_parts[{variant}]")
-        wrapper.launches += 1
+        _build.launch(
+            _lib(), "forward_parts", dev, *(_build.ptr(t) for t in i32 + f32),
+            xys.shape[0], img_height, img_width, tb_x, tb_y, cap, vid, r_out, grid,
+            _build.ptr(out), counter=wrapper.__name__)
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = f"forward_parts_{variant}"
     wrapper.__doc__ = f"P1 variant {variant!r}: K4's rows store with that switch."
-    wrapper.launches = 0
     return wrapper
 
 
@@ -107,13 +104,8 @@ FORWARD_PARTS = {v: _parts_wrapper(v) for v in VARIANTS}
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("profile_kernel_parts")
-    if not getattr(lib, "_gsvc_bound", False):
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.forward_parts.restype = i32
-        lib.forward_parts.argtypes = [vp] * 7 + [i32] * 9 + [vp, vp]
-        lib._gsvc_bound = True
-    return lib
+    return _build.bind("profile_kernel_parts", {
+        "forward_parts": (I32, [VP] * 7 + [I32] * 9 + [VP, VP])})
 
 
 def main(argv=None) -> int:

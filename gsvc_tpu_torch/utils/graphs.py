@@ -14,11 +14,12 @@ k-means, run eagerly, as before; `plan_runs` lays out which.
 WARMUP eagerly on a side stream (PyTorch's warm-up before capturing
 autograd; they are real steps of the fit, not extra ones), the next one
 captured and replayed, every later one a replay. A failed capture or replay
-raises: nothing falls back to the eager loop. The kernels' wrappers count
-launches in Python, so a replay counts nothing by itself: each replay adds
-the counts the capture saw. `runner(device, graph)` picks a `StepGraph` on
-a CUDA device unless `graph` is False, else `Eager`, which runs every step
-as it comes.
+raises: nothing falls back to the eager loop. The code a graph holds counts
+into the recorder's counters on the host (the kernels' launches,
+`launches.<wrapper>`; the binning's keys), so a replay counts nothing by
+itself: each replay adds what the capture added to every counter.
+`runner(device, graph)` picks a `StepGraph` on a CUDA device unless
+`graph` is False, else `Eager`, which runs every step as it comes.
 
 The renders that gsvc_tpu jits once and calls frame after frame (the
 decoder's render, one jitted function per FrameConfig kept by
@@ -42,6 +43,7 @@ from typing import Callable, Hashable, NamedTuple, Optional, Sequence, TypeVar
 import numpy as np
 import torch
 
+from gsvc_tpu_torch._build import LAUNCHES
 from gsvc_tpu_torch.utils.profiling import RECORDER
 
 T = TypeVar("T")
@@ -133,7 +135,7 @@ class FitPlan(NamedTuple):
 def run_fit(state: T, plan: FitPlan, device, graph: Optional[bool],
             stop: Optional[Callable[[T], bool]] = None,
             before: Optional[Callable[[T, int], None]] = None,
-            kind: str = "fit", cfg=None, capacity: Optional[int] = None) -> T:
+            kind: str = "fit", **attrs) -> T:
     """The steps of `plan` from `state`: eager steps by plan.step, plain ones
     through `runner(device, graph)`; `stop(state, read)`, asked after each
     step, ends the fit early, reading device values only through
@@ -141,27 +143,17 @@ def run_fit(state: T, plan: FitPlan, device, graph: Optional[bool],
     fit's k-th step (0-based). The graph is freed when the fit returns.
 
     The fit is a `fit` span (`profiling.RECORDER`) with the attributes
-    kind, first and last (the plan's first and last step), the config's
-    `iterations` and `num_points` as splats (where `cfg` is given), the
-    binning keys' width in bytes and gauss field in bits, `key_bytes` and
-    `gauss_bits` (`ops.fill_cuda.key_layout` at the config's grid and the
-    state's `capacity` of splat rows, where both are given), and, once it
-    ends, its counts: eager steps, warmups, captures, replays and host
-    reads (`read`). Inside it: a `fit.eager` span an eager step, the
-    runner's `fit.warmup`, `graph.capture` and `fit.replays` spans, and
+    kind, first and last (the plan's first and last step), then the
+    caller's `attrs` (the models' fits give the config's iterations and
+    splats and their binning keys' layout, `models.represent.fit_attrs`),
+    and, once it ends, its counts: eager steps, warmups, captures, replays
+    and host reads (`read`). Inside it: a `fit.eager` span an eager step,
+    the runner's `fit.warmup`, `graph.capture` and `fit.replays` spans, and
     `fit.sync` spans."""
     steps = [(i, eager) for first, count, eager in plan.runs
              for i in range(first, first + count)]
     attrs = {"kind": kind, "first": steps[0][0] if steps else None,
-             "last": steps[-1][0] if steps else None}
-    if cfg is not None:
-        attrs.update(iterations=cfg.iterations, splats=cfg.num_points)
-        if capacity is not None:
-            from gsvc_tpu_torch.ops import fill_cuda
-
-            tb_x, tb_y, _ = cfg.tile_bounds
-            layout = fill_cuda.key_layout(tb_x * tb_y, capacity)
-            attrs.update(key_bytes=layout.dtype.itemsize, gauss_bits=layout.gauss_bits)
+             "last": steps[-1][0] if steps else None, **attrs}
     eager_steps = 0
     with RECORDER("fit", device=device, **attrs) as span, runner(device, graph) as run:
         for k, (i, eager) in enumerate(steps):
@@ -182,28 +174,14 @@ def run_fit(state: T, plan: FitPlan, device, graph: Optional[bool],
     return state
 
 
-# The recorder's counters that captured work adds to, and so each replay
-# adds to as the capture saw: the keys K1 writes (`ops.fill_cuda`).
-REPLAYED_COUNTERS = ("binning.keys", "binning.key_bytes")
-
-
-def kernel_counters() -> tuple:
-    """The kernel wrappers whose `launches` a replay adds to: K1-K6, the
-    counters of their fast-colour kernels, the rows loss E1 and Adan's
-    update."""
-    from gsvc_tpu_torch.ops import fill_cuda, loss_cuda, rasterize_cuda
-    from gsvc_tpu_torch.optim import adan_cuda
-
-    raster = (rasterize_cuda.forward_image, rasterize_cuda.forward_chw,
-              rasterize_cuda.forward_rows, rasterize_cuda.backward_slots)
-    return (fill_cuda.fill_decode_keys, fill_cuda.rank_cap_decode,
-            fill_cuda.segmented_cumsum, *raster, *(w.fast for w in raster),
-            loss_cuda.rows_loss, adan_cuda.adan_update)
-
-
 def launch_counts() -> dict:
-    """{kernel wrapper name: launches} of `kernel_counters` in this process."""
-    return {c.__name__: c.launches for c in kernel_counters()}
+    """{kernel wrapper name: launches} in this process, graph replays
+    included: the recorder's `launches.<wrapper>` counters
+    (`_build.launch`). A kernel that has not launched is absent: read it
+    with `.get(name, 0)`, and the launches of a stretch of work as the
+    difference of two views."""
+    n = len(LAUNCHES)
+    return {k[n:]: v for k, v in RECORDER.counters.items() if k.startswith(LAUNCHES)}
 
 
 class Eager:
@@ -265,7 +243,7 @@ class StepGraph(Eager, metaclass=_Totals):
     side stream for the first WARMUP calls, then step() captured and
     replayed (its result carries the host fields), then a replay and
     after_plain(). step() must read and write only tensors that outlive the
-    graph. The totals over a process, like the kernels' launch counters:
+    graph. The totals over a process, like the kernels' launch counts:
     `captures`, `replays` and `capture_seconds` (host seconds a capture
     takes, the graph's instantiation included), the recorder's counters
     `graph.step.*`. Each warm-up step is a `fit.warmup` span; each run of
@@ -282,8 +260,7 @@ class StepGraph(Eager, metaclass=_Totals):
         self.warmed = 0
         self.captured = 0
         self.replayed = 0
-        self.counts: list = []
-        self.added: dict = {}
+        self.added: list = []
         self._run = None  # the open fit.replays span, the replays before it
 
     def __enter__(self):
@@ -328,13 +305,12 @@ class StepGraph(Eager, metaclass=_Totals):
         return out
 
     def _capture(self, step: Callable[[], T]) -> T:
-        self.graph, out, self.counts, self.added = _capture(step, self.device, self.side,
-                                                            self.kind)
+        self.graph, out, self.added = _capture(step, self.device, self.side, self.kind)
         self.captured += 1
         return out
 
     def replay(self) -> None:
-        _replay(self.graph, self.counts, self.added)
+        _replay(self.graph, self.added)
         RECORDER.add("graph.step.replays")
 
     def close(self) -> None:
@@ -348,19 +324,17 @@ class StepGraph(Eager, metaclass=_Totals):
 
 def _capture(fn: Callable[[], T], device, stream, kind: str) -> tuple:
     """fn() captured into a new CUDA graph on `stream`: (the graph, fn's
-    result, [(kernel wrapper, launches)] the capture saw, {recorder counter:
-    its addition} of `REPLAYED_COUNTERS`). On the given stream, without
-    `torch.cuda.graph`'s device sync and release of every cached block
-    (which the next calls would allocate again); the graph's own memory
-    pool holds what fn allocates. The capture ran nothing, so its launch
-    counts and counter additions are taken back off: they belong to each
-    replay (`_replay`). A `graph.capture` span (attribute graph: `kind`);
-    its host seconds, the graph's instantiation included, add to the
-    recorder's `graph.<kind>.capture_s` and the capture to
+    result, [(recorder counter, what the capture added to it)]). On the
+    given stream, without `torch.cuda.graph`'s device sync and release of
+    every cached block (which the next calls would allocate again); the
+    graph's own memory pool holds what fn allocates. The capture ran
+    nothing, so what it added to the counters, but the recorder's own
+    `spans.*` and the graphs' `graph.*`, is taken back off: it belongs to
+    each replay (`_replay`). A `graph.capture` span (attribute graph:
+    `kind`); its host seconds, the graph's instantiation included, add to
+    the recorder's `graph.<kind>.capture_s` and the capture to
     `graph.<kind>.captures`."""
-    counters = kernel_counters()
-    before = [c.launches for c in counters]
-    recorded = {k: RECORDER.counters.get(k, 0) for k in REPLAYED_COUNTERS}
+    before = dict(RECORDER.counters)
     graph = torch.cuda.CUDAGraph()
     with RECORDER("graph.capture", device=device, graph=kind):
         t0 = time.perf_counter()
@@ -375,25 +349,26 @@ def _capture(fn: Callable[[], T], device, stream, kind: str) -> tuple:
         main.wait_stream(stream)
         RECORDER.add(f"graph.{kind}.capture_s", time.perf_counter() - t0)
     RECORDER.add(f"graph.{kind}.captures")
-    counts = [(c, c.launches - b) for c, b in zip(counters, before)]
-    for c, b in zip(counters, before):
-        c.launches = b
-    added = {}
-    for k, v in recorded.items():
-        if RECORDER.counters.get(k, 0) != v:
-            added[k] = RECORDER.counters[k] - v
-            RECORDER.counters[k] = v
-    return graph, out, counts, added
+    counters = RECORDER.counters
+    added = []
+    for k, v in list(counters.items()):
+        if k.startswith(("spans.", "graph.")) or v == before.get(k, 0):
+            continue
+        added.append((k, v - before.get(k, 0)))
+        if k in before:
+            counters[k] = before[k]
+        else:
+            del counters[k]
+    return graph, out, added
 
 
-def _replay(graph: torch.cuda.CUDAGraph, counts: list, added: dict) -> None:
-    """Replay `graph` on the current stream and count its capture's launches
-    and counter additions."""
+def _replay(graph: torch.cuda.CUDAGraph, added: list) -> None:
+    """Replay `graph` on the current stream and add to the recorder's
+    counters what its capture added."""
     graph.replay()
-    for c, n in counts:
-        c.launches += n
-    for k, v in added.items():
-        RECORDER.add(k, v)
+    counters = RECORDER.counters
+    for k, n in added:
+        counters[k] = counters.get(k, 0) + n
 
 
 def _free(graph: torch.cuda.CUDAGraph, device) -> None:
@@ -495,8 +470,8 @@ class RenderGraph(EagerRender, metaclass=_Totals):
     Every later call is a replay on the current stream, which returns the
     graph's own output tensor: the next replay overwrites it, so read or
     copy it before the next call, on the same stream. A failed capture or
-    replay raises. A replay adds the capture's launch counts to the
-    kernels' counters, so the counts equal an eager run's. The totals over
+    replay raises. A replay adds what the capture added to the recorder's
+    counters, so the launch counts equal an eager run's. The totals over
     a process: `captures`, `replays` and `capture_seconds`, the recorder's
     counters `graph.render.*` (a render records no span of its own)."""
 
@@ -508,17 +483,16 @@ class RenderGraph(EagerRender, metaclass=_Totals):
         self.device = torch.device(device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.output: Optional[torch.Tensor] = None
-        self.counts: list = []
-        self.added: dict = {}
+        self.added: list = []
 
     def __call__(self) -> torch.Tensor:
         if self.graph is not None:
-            _replay(self.graph, self.counts, self.added)
+            _replay(self.graph, self.added)
             RECORDER.add("graph.render.replays")
             return self.output
         out = super().__call__()
         with torch.no_grad():
-            self.graph, self.output, self.counts, self.added = _capture(
+            self.graph, self.output, self.added = _capture(
                 lambda: self.fn(*self.inputs), self.device, side_stream(self.device),
                 self.kind)
         return out

@@ -193,10 +193,13 @@ class StepTimer:
 
     Closed spans are kept in a ring of `capacity` (the oldest go first;
     `counters["spans.dropped"]` counts them). `counters` holds named
-    process totals that code adds to (`add`): the graph classes' captures,
-    replays and capture seconds (`utils.graphs`). `enabled` False records
-    no span, no event and no range (counters still count: their readers
-    check the graphs with them), but for a span opened `timed`, whose
+    process totals that code adds to (`add`): each kernel wrapper's
+    launches, `launches.<wrapper>` (`_build.launch`), the binning's keys
+    (`binning.*`) and the graph classes' captures, replays and capture
+    seconds (`graph.*`); a graph's replay adds what its capture added to
+    the others (`utils.graphs`). `enabled` False records no span, no event
+    and no range (counters still count: their readers check the kernels
+    and the graphs with them), but for a span opened `timed`, whose
     seconds its caller reads itself (the decoder's stages): that one is
     still timed, its events included, and is kept nowhere (id 0, no
     parent, not in the ring, the totals or a profiler trace). `RECORDER`

@@ -8,23 +8,32 @@ what of it runs on the CPU.
   leaf that cover every element once, read as the kernel reads them;
 - `adan_step_` on CPU tensors takes the plain path (no launch counted), whose
   results equal the update rule in numpy float32 bitwise, op for op;
-- `utils.graphs.kernel_counters` lists the kernel's wrapper, so a replay adds
-  its launch.
+- `adan_step_` on the card counts its launch as the recorder's
+  `launches.adan_update`, which `utils.graphs.launch_counts` reads as
+  "adan_update" (on tensors that claim the card, the kernel's library,
+  stream and SM count stubbed), and on CPU tensors none.
 
 The kernel against the plain version on CUDA tensors is in
 tests/test_torch_kernels.py (marker `cuda`).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
+from gsvc_tpu_torch import _build
 from gsvc_tpu_torch.optim import adan, adan_cuda
 from gsvc_tpu_torch.utils import graphs
 
 REPRESENT = lambda n: [(n, 2), (n, 3), (n, 3), (n, 1)]  # noqa: E731
 QAT = lambda n: [(n, 2), (n, 3), (n, 3), (3,), (3,)]  # noqa: E731
 BETAS = (0.98, 0.92, 0.99)
+
+
+def _launches(name: str) -> int:
+    return graphs.launch_counts().get(name, 0)
 
 
 def _leaves(shapes, seed=0):
@@ -165,10 +174,10 @@ def test_adan_step_on_cpu_is_the_plain_update(leaf_set, fresh, max_grad_norm, we
            for j, f in enumerate(("exp_avg", "exp_avg_sq", "exp_avg_diff",
                                   "neg_pre_grad"), start=2)})
     flag = torch.tensor(fresh)
-    before = adan_cuda.adan_update.launches
+    before = _launches("adan_update")
     out = adan.adan_step_(params, grads, state, table, row, flag, betas=BETAS, eps=1e-8,
                           max_grad_norm=max_grad_norm, no_prox=no_prox)
-    assert adan_cuda.adan_update.launches == before == 0
+    assert _launches("adan_update") == before == 0
     assert out.step == 7 and out.fresh == {k: False for k in names} and not bool(flag)
     for i, k in enumerate(names):
         got = (params[k], state.exp_avg[k], state.exp_avg_sq[k], state.exp_avg_diff[k],
@@ -177,7 +186,45 @@ def test_adan_step_on_cpu_is_the_plain_update(leaf_set, fresh, max_grad_norm, we
             assert np.array_equal(a.numpy(), b), (k, name)
 
 
-def test_kernel_counters_list_the_adan_update():
-    counters = graphs.kernel_counters()
-    assert counters[-1] is adan_cuda.adan_update
-    assert graphs.launch_counts()["adan_update"] == adan_cuda.adan_update.launches
+class _Claimed(torch.Tensor):
+    """A CPU tensor that says it is on the card: `adan_step_` takes the
+    kernel's path with it."""
+
+    is_cuda = property(lambda self: True)
+    device = property(lambda self: torch.device("cuda"))
+
+
+def test_launch_counts_name_the_adan_update(monkeypatch):
+    """A step on the card launches Adan's kernel once, counted as
+    `launch_counts()["adan_update"]`; a step on CPU tensors (the plain path)
+    counts none. No card here: the tensors claim it, and the kernel's
+    library, the stream and the SM count are stubbed."""
+    calls = []
+
+    class Lib:  # adan.cu's entry: records its call, returns no error
+        def adan_update(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(adan_cuda, "_adan_lib", Lib)
+    monkeypatch.setattr(adan_cuda, "sm_count", lambda dev: 1)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: None)
+    names = ("xyz", "cholesky", "features_dc", "rgb_w")
+    for on_card in (True, False):
+        def put(t):
+            return t.as_subclass(_Claimed) if on_card else t
+
+        leaves = [[put(t) for t in leaf] for leaf in _leaves(REPRESENT(5))]
+        table, row, fresh, _clip = (put(t) for t in _step_inputs())
+        state = adan.AdanState(
+            step=6, fresh={k: False for k in names},
+            **{f: {k: leaf[j] for k, leaf in zip(names, leaves)}
+               for j, f in enumerate(("exp_avg", "exp_avg_sq", "exp_avg_diff",
+                                      "neg_pre_grad"), start=2)})
+        before = _launches("adan_update")
+        adan.adan_step_({k: leaf[0] for k, leaf in zip(names, leaves)},
+                        {k: leaf[1] for k, leaf in zip(names, leaves)}, state, table, row,
+                        fresh, betas=BETAS)
+        assert _launches("adan_update") - before == int(on_card)
+        assert len(calls) == 1

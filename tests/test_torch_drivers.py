@@ -40,6 +40,7 @@ from gsvc_tpu_torch.drivers import represent as drv
 from gsvc_tpu_torch.models import represent as rep
 from gsvc_tpu_torch.parallel import multihost as mh
 from gsvc_tpu_torch.utils.logwriter import LogWriter
+from torch_threads import one_thread  # noqa: F401
 
 H, W = 32, 48
 

@@ -49,19 +49,10 @@ from gsvc_tpu_torch.ops.projection import project_gaussians_2d
 from gsvc_tpu_torch.optim import adan
 from gsvc_tpu_torch.optim.schedule import step_lr
 from gsvc_tpu_torch.utils import graphs
+from torch_threads import one_thread  # noqa: F401
 
 H, W, N, CAP = 48, 64, 150, 200
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for these small CPU tensors: the suite runs in
-    several worker processes at once, whose thread pools would otherwise
-    contend for the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # -- the steps as they stood before the fits wrote in place ------------------
@@ -530,8 +521,8 @@ def dev():
     return torch.device("cuda")
 
 
-def _counts():
-    return [c.launches for c in graphs.kernel_counters()]
+def _launches(name: str) -> int:
+    return graphs.launch_counts().get(name, 0)
 
 
 def _three(fit):
@@ -539,12 +530,13 @@ def _three(fit):
     launches each counted; checks the graph replayed."""
     out, launches = [], []
     for graph in (None, None, False):
-        before, replays = _counts(), graphs.StepGraph.replays
+        before, replays = graphs.launch_counts(), graphs.StepGraph.replays
         out.append(fit(graph))
         torch.cuda.synchronize()
-        launches.append([a - b for a, b in zip(_counts(), before)])
+        launches.append({k: v - before.get(k, 0) for k, v in graphs.launch_counts().items()
+                         if v != before.get(k, 0)})
         assert (graphs.StepGraph.replays > replays) == (graph is None)
-    assert launches[0] == launches[1] == launches[2] and sum(launches[0]) > 0
+    assert launches[0] == launches[1] == launches[2] and sum(launches[0].values()) > 0
     return out
 
 
@@ -678,13 +670,13 @@ def test_graph_fit_at_1080p_equals_eager_with_adan_on_its_kernel(dev, monkeypatc
     gt = _gt(1080, 1920, device=dev)
     fits = []
     for graph in (None, False):
-        before, last = adan_cuda.adan_update.launches, RECORDER.last_id
+        before, last = _launches("adan_update"), RECORDER.last_id
         fits.append(rep.fit_frame_partial(_rep_state(cfg, device=dev), gt, 300, cfg,
                                           graph=graph))
         torch.cuda.synchronize()
         span = RECORDER.spans("fit", after=last)[-1].attrs
         rebuilt = 3  # the control steps 100, 200, 300
-        assert adan_cuda.adan_update.launches - before == 300 - rebuilt
+        assert _launches("adan_update") - before == 300 - rebuilt
         if graph is None:  # the eager runner counts only its control steps
             assert span["replays"] > 0
             assert span["eager"] + span["warmups"] + span["replays"] == 300

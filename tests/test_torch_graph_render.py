@@ -217,11 +217,11 @@ def _card_cfg(n, backend="auto"):
 
 
 def _launches():
-    return {c.__name__: c.launches for c in graphs.kernel_counters()}
+    return graphs.launch_counts()
 
 
 def _delta(after, before):
-    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
 
 
 @pytest.mark.cuda
@@ -241,11 +241,11 @@ def test_decode_render_replay_equals_eager(dev):
     assert graphs.RenderGraph.captures - captures == 2
     render = bitstream.decoded_renderer(300, _card_cfg(300), dev)
     assert isinstance(render, graphs.RenderGraph)
-    assert dict((c.__name__, k) for c, k in render.counts) == {
-        "fill_decode_keys": 1, "rank_cap_decode": 1, "segmented_cumsum": 0,
-        "forward_image": 1, "forward_chw": 0, "forward_rows": 0, "backward_slots": 0,
-        "forward_image_fast": 0, "forward_chw_fast": 0, "forward_rows_fast": 0,
-        "backward_slots_fast": 0, "rows_loss": 0, "adan_update": 0}
+    added = dict(render.added)  # what each replay adds to the recorder's counters
+    keys = added.get("binning.keys", 0)
+    assert keys > 0 and added == {
+        "launches.fill_decode_keys": 1, "launches.rank_cap_decode": 1,
+        "launches.forward_image": 1, "binning.keys": keys, "binning.key_bytes": 4 * keys}
 
 
 @pytest.mark.cuda

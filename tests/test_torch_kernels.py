@@ -57,6 +57,10 @@ from gsvc_tpu_torch.utils import graphs
 pytestmark = pytest.mark.cuda
 
 
+def _launches(name: str) -> int:
+    return graphs.launch_counts().get(name, 0)
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -91,9 +95,9 @@ def test_kernels_match_plain_versions(dev, n, hw, seed, budget, cap, big):
     tb, (_m, _l, colors, opacity), (xys, _d, radii, conics, nth) = _scene(
         dev, n, H, W, seed, big)
     ki = key_inputs(xys, radii, nth, tb, 16, 16, budget)
-    launches = fill_cuda.fill_decode_keys.launches
+    launches = _launches("fill_decode_keys")
     keys = fill_cuda.fill_decode_keys(*ki.k1)
-    assert fill_cuda.fill_decode_keys.launches == launches + 1
+    assert _launches("fill_decode_keys") == launches + 1
     assert torch.equal(keys, fill_cuda.fill_decode_keys_torch(*ki.k1))
     skeys = torch.sort(keys).values
     got = fill_cuda.rank_cap_decode(skeys, cap, n, ki.num_tiles)
@@ -130,11 +134,11 @@ def _check_k1_k2(ki, cap=256):
     skeys = torch.sort(keys).values
     want = fill_cuda.rank_cap_decode_torch(skeys, cap, n, ki.num_tiles)
     for k in (skeys, skeys.to(torch.int64)):  # K2 reads keys of either width
-        before = fill_cuda.rank_cap_decode.launches
+        before = _launches("rank_cap_decode")
         got = fill_cuda.rank_cap_decode(k, cap, n, ki.num_tiles)
         again = fill_cuda.rank_cap_decode(k, cap, n, ki.num_tiles)
         torch.cuda.synchronize()
-        assert fill_cuda.rank_cap_decode.launches == before + 2
+        assert _launches("rank_cap_decode") == before + 2
         for a, b, c in zip(got, want, again):
             assert torch.equal(a, b) and torch.equal(a, c)
     return skeys, want
@@ -232,10 +236,10 @@ def test_segmented_cumsum_kernel(dev, s, mode):
     for rows in (1, 9, 16, 32):
         vals = torch.as_tensor(rng.normal(size=(rows, s)).astype(np.float32), device=dev)
         want = fill_cuda.segmented_cumsum_torch(vals, flags)
-        before = fill_cuda.segmented_cumsum.launches
+        before = _launches("segmented_cumsum")
         got = fill_cuda.segmented_cumsum(vals, flags)
         torch.cuda.synchronize()
-        assert fill_cuda.segmented_cumsum.launches == before + 1
+        assert _launches("segmented_cumsum") == before + 1
         _close(got, want)
         assert torch.equal(fill_cuda.segmented_cumsum(vals, flags), got)
     buf = torch.zeros(rows * s + 1, device=dev)
@@ -249,10 +253,10 @@ def test_segmented_cumsum_kernel(dev, s, mode):
 def test_dispatch_and_refusals(dev):
     H, W = 40, 56
     tb, (_m, _l, colors, opacity), (xys, d, radii, conics, nth) = _scene(dev, 150, H, W, 5)
-    before = rasterize_cuda.forward_chw.launches
+    before = _launches("forward_chw")
     img = rasterize_gaussians_sum(xys, d, radii, conics, nth, colors, opacity, H, W,
                                   layout="chw")
-    assert rasterize_cuda.forward_chw.launches == before + 1  # auto -> cuda
+    assert _launches("forward_chw") == before + 1  # auto -> cuda
     ref = rasterize_gaussians_sum(xys, d, radii, conics, nth, colors, opacity, H, W,
                                   backend="torch", layout="chw")
     torch.testing.assert_close(img, ref, rtol=0, atol=1e-5)
@@ -310,11 +314,11 @@ def test_rasterize_sum_gradients_match_plain_autograd(dev):
     for kernels in (True, False):
         leaves = [t.clone().requires_grad_() for t in (xys, conics, colors, opacity)]
         a = (binned, *leaves, H, W, tb, 16, 16, 256)
-        before = rasterize_cuda.backward_slots.launches
+        before = _launches("backward_slots")
         img = (rasterize_cuda.rasterize_sum(*a) if kernels
                else rasterize_cuda.rasterize_forward_torch(*a))
         grads.append(torch.autograd.grad(torch.sum((img - 0.3) ** 2 * wgt), leaves))
-        assert rasterize_cuda.backward_slots.launches == before + int(kernels)
+        assert _launches("backward_slots") == before + int(kernels)
     for a, b in zip(*grads):
         _close(a, b)
 
@@ -341,11 +345,11 @@ def test_qat_step_kernels_match_plain_backend(dev, delta):
         cfg = FrameConfig(H=H, W=W, num_points=n, max_num_points=n, iterations=1,
                           backend=backend)
         state = comp.init_compress_state(gmodel, p_gmodel, dev)
-        before = rasterize_cuda.backward_slots.launches
+        before = _launches("backward_slots")
         out[backend] = comp._loss_and_grads(state, gt, cfg, _rows_target_for(gt, cfg),
                                             torch.Generator().manual_seed(0))
         torch.cuda.synchronize()
-        assert rasterize_cuda.backward_slots.launches == before + (backend == "cuda")
+        assert _launches("backward_slots") == before + (backend == "cuda")
     (recon, vq, grads, new_vq), (recon_p, vq_p, grads_p, new_vq_p) = out["cuda"], out["torch"]
     torch.testing.assert_close(recon, recon_p, rtol=1e-5, atol=0)
     torch.testing.assert_close(vq, vq_p, rtol=1e-6, atol=0)
@@ -374,10 +378,10 @@ def test_parts_kernels_match_plain_versions(dev, size):
 
     sc = _bench(dev, size)
     for v, wrapper in p1.FORWARD_PARTS.items():
-        before = wrapper.launches
+        before = _launches(wrapper.__name__)
         got = wrapper(*sc.rargs)
         torch.cuda.synchronize()
-        assert wrapper.launches == before + 1
+        assert _launches(wrapper.__name__) == before + 1
         want = p1.render_parts_torch(v, *sc.rargs)
         err, largest = float((got - want).abs().max()), float(want.abs().max())
         assert largest > 0 and err <= 1e-4 and err <= 1e-4 * largest, (v, err, largest)
@@ -396,10 +400,10 @@ def test_job_kernels_match_k6_and_plain_versions(dev, size):
     jobs = p5.build_jobs(sc.binned)
     k6 = rasterize_cuda.backward_slots(*bargs, 16, 16, 256, "rows")
     for name, wrapper in p5.BACKWARD_JOBS.items():
-        before = wrapper.launches
+        before = _launches(wrapper.__name__)
         got = wrapper(*bargs, jobs)
         torch.cuda.synchronize()
-        assert wrapper.launches == before + 1
+        assert _launches(wrapper.__name__) == before + 1
         plain = p5.backward_jobs_torch(name, *bargs, jobs)
         if name == "A":
             assert torch.equal(got, plain)
@@ -425,15 +429,15 @@ def test_transpose_kernels_are_exact(dev, size):
     inputs.append(torch.rand(1 + 16 * 16 * 360, generator=gen, device=dev)[1:]
                   .view(16, 16, 360))  # not 16-byte aligned: the 4-byte loads
     for x in [*p6.probe_inputs(sc, dev).values(), *inputs]:
-        before = p6.transpose_last2.launches
+        before = _launches("transpose_last2")
         got = p6.transpose_last2(x)
         torch.cuda.synchronize()
-        assert p6.transpose_last2.launches == before + 1
+        assert _launches("transpose_last2") == before + 1
         assert torch.equal(got, p6.transpose_last2_torch(x)), tuple(x.shape)
     rows = rasterize_cuda.forward_rows(*sc.rargs)
-    before = p6.rows_to_chw.launches
+    before = _launches("rows_to_chw")
     planar = p6.rows_to_chw(rows, sc.H, sc.W, sc.tb)
-    assert p6.rows_to_chw.launches == before + 1
+    assert _launches("rows_to_chw") == before + 1
     assert torch.equal(planar, p6.rows_to_chw_torch(rows, sc.H, sc.W, sc.tb))
     assert torch.equal(planar, rasterize_cuda.forward_chw(*sc.rargs))
     with pytest.raises(ValueError):
@@ -518,10 +522,10 @@ def test_alpha_kernels_match_plain_versions(dev, n, hw, c_dim, seed, kind):
     o = db.order
     splats = (xys[o].contiguous(), conics[o].contiguous(), colors[o].contiguous(),
               opacity[o].contiguous(), bg)
-    before = rac.alpha_forward.launches
+    before = _launches("alpha_forward")
     got = rac.alpha_forward(db.binned, *splats, H, W, tb, True)
     torch.cuda.synchronize()
-    assert rac.alpha_forward.launches == before + len(rac.groups(c_dim))
+    assert _launches("alpha_forward") == before + len(rac.groups(c_dim))
     want = rac.alpha_forward_torch(db.binned, *splats, H, W, tb, True)
     for name, a, b in zip(("image", "alpha", "T"), got[:3], want[:3]):
         assert torch.isfinite(a).all() and float((a - b).abs().max()) <= 1e-5, name
@@ -535,11 +539,11 @@ def test_alpha_kernels_match_plain_versions(dev, n, hw, c_dim, seed, kind):
     gen = torch.Generator(device=dev).manual_seed(seed)
     v_img = torch.randn((H, W, c_dim), device=dev, generator=gen)
     v_alpha = torch.randn((H, W), device=dev, generator=gen)
-    before = rac.alpha_backward_slots.launches
+    before = _launches("alpha_backward_slots")
     slots, v_bg = rac.alpha_backward_slots(db.binned, *splats, got[2], got[3], v_img, v_alpha,
                                            H, W, tb)
     torch.cuda.synchronize()
-    assert rac.alpha_backward_slots.launches == before + len(rac.groups(c_dim))
+    assert _launches("alpha_backward_slots") == before + len(rac.groups(c_dim))
     slots_p, v_bg_p = rac.alpha_backward_torch(db.binned, *splats, got[2], v_img, v_alpha,
                                                H, W, tb)
     for a, b in ((slots, slots_p), (v_bg, v_bg_p)):
@@ -595,11 +599,12 @@ def test_fast_color_kernels_match_plain_versions(dev, n, hw, seed, budget, cap, 
     near = rasterize_cuda.near_gate(binned, xys, conics, opacity, H, W, tb, cap, True)
     for store in ("image", "chw", "rows"):
         wrapper = rasterize_cuda.FORWARD[store]
-        before = (wrapper.launches, wrapper.fast.launches)
+        names = (wrapper.__name__, wrapper.__name__ + "_fast")
+        before = [_launches(k) for k in names]
         out = wrapper(*args, fast_color=True)
         again = wrapper(*args, fast_color=True)
         torch.cuda.synchronize()
-        assert (wrapper.launches, wrapper.fast.launches) == (before[0], before[1] + 2)
+        assert [_launches(k) for k in names] == [before[0], before[1] + 2]
         assert torch.equal(out, again), store
         img = (out if store == "image" else out.permute(1, 2, 0) if store == "chw"
                else rasterize_cuda.rows_to_image(out, tb[0], tb[1], H, W))
@@ -611,13 +616,13 @@ def test_fast_color_kernels_match_plain_versions(dev, n, hw, seed, budget, cap, 
     want = rasterize_cuda.rasterize_backward_torch(*args[:5], v, *args[5:], fast_color=True)
     for layout, vv in (("image", v), ("chw", v.permute(2, 0, 1).contiguous()),
                        ("rows", image_to_rows(v, H, W))):
-        before = rasterize_cuda.backward_slots.fast.launches
+        before = _launches("backward_slots_fast")
         got = rasterize_cuda.backward_slots(*args[:5], vv, *args[5:], layout=layout,
                                             fast_color=True)
         again = rasterize_cuda.backward_slots(*args[:5], vv, *args[5:], layout=layout,
                                               fast_color=True)
         torch.cuda.synchronize()
-        assert rasterize_cuda.backward_slots.fast.launches == before + 2
+        assert _launches("backward_slots_fast") == before + 2
         assert torch.equal(got, again), layout
         _close(got, want)
 
@@ -699,10 +704,10 @@ def test_adan_kernel_equals_plain_update(dev, leaf_set, n, offset, fresh, max_gr
     flag = torch.tensor(fresh, device=dev)
     scalars = torch.index_select(table, 0, row.view(1))[0].unbind()
     want = adan._update(params, grads, state, scalars, flag.clone(), **kw)
-    before = adan_cuda.adan_update.launches
+    before = _launches("adan_update")
     out = adan.adan_step_(params, grads, state, table, row, flag, **kw)
     torch.cuda.synchronize()
-    assert adan_cuda.adan_update.launches == before + 1
+    assert _launches("adan_update") == before + 1
     assert out.step == 7 and not bool(flag)
     got = [params, state.exp_avg, state.exp_avg_sq, state.exp_avg_diff, state.neg_pre_grad]
     for name, g, w in zip(("p", "m", "n", "d", "-g"), got, want):
@@ -732,12 +737,12 @@ def test_adan_kernel_replays_equal_eager_updates(dev):
             box[0] = adan.adan_host_step(box[0])
             return box[0]
 
-        before, replays = adan_cuda.adan_update.launches, graphs.StepGraph.replays
+        before, replays = _launches("adan_update"), graphs.StepGraph.replays
         with graphs.StepGraph(dev) if graph else graphs.Eager() as run:
             for _ in steps:
                 run(step, after)
         torch.cuda.synchronize()
-        assert adan_cuda.adan_update.launches - before == len(steps)
+        assert _launches("adan_update") - before == len(steps)
         assert graphs.StepGraph.replays - replays == (5 if graph else 0)
         assert box[0].step == 6 + len(steps) and int(row) == len(steps)
         runs.append(_adan_tensors(params, box[0]))
@@ -782,11 +787,11 @@ def test_rows_loss_kernel_matches_plain_version(dev, size, l1, total):
     from gsvc_tpu_torch.ops import loss_cuda
 
     args = _e1_inputs(dev, size, 7, total)
-    before = loss_cuda.rows_loss.launches
+    before = _launches("rows_loss")
     got = loss_cuda.rows_loss(*args, l1)
     again = loss_cuda.rows_loss(*args, l1)
     torch.cuda.synchronize()
-    assert loss_cuda.rows_loss.launches == before + 2
+    assert _launches("rows_loss") == before + 2
     want = loss_cuda.rows_loss_torch(*args, l1)
     assert torch.equal(got[0], want[0]) and bool(got[0].any()) == bool(total)
     for a, b in zip(got[1:], want[1:]):
@@ -828,7 +833,7 @@ def test_rows_loss_gradients_are_the_chains_on_the_card(dev, loss_type):
                                                                sc.W, sc.tb)
         splats = (xys, depths, radii, conics, nth, leaves[2], sc.opacity, sc.H, sc.W)
         kw = dict(backend="cuda", max_intersects=sc.budget)
-        before = loss_cuda.rows_loss.launches
+        before = _launches("rows_loss")
         if fused:
             loss, sq = rasterize_rows_loss(*splats, gt_rows, mask, loss_type=loss_type, **kw)
         else:
@@ -838,7 +843,7 @@ def test_rows_loss_gradients_are_the_chains_on_the_card(dev, loss_type):
             loss = sq if loss_type == "L2" else torch.sum(torch.abs(diff))
         out.append((loss.detach(), sq.detach(),
                     torch.autograd.grad(loss / denom, leaves)))
-        assert loss_cuda.rows_loss.launches == before + fused
+        assert _launches("rows_loss") == before + fused
     (loss, sq, grads), (loss_p, sq_p, grads_p) = out
     torch.testing.assert_close(loss, loss_p, rtol=1e-6, atol=0)
     torch.testing.assert_close(sq, sq_p, rtol=1e-6, atol=0)
@@ -849,11 +854,10 @@ def test_rows_loss_gradients_are_the_chains_on_the_card(dev, loss_type):
 @pytest.mark.parametrize("kind", ["represent", "qat"])
 def test_rows_loss_launches_once_a_replayed_step(dev, kind):
     """A represent fit and a QAT fit on CUDA graphs launch E1 once a step,
-    replays included (the counter is in `utils.graphs.kernel_counters`)."""
+    replays included (a replay adds the launches its capture counted)."""
     from gsvc_tpu_torch.config import FrameConfig
     from gsvc_tpu_torch.models import compress as comp
     from gsvc_tpu_torch.models import represent as rep
-    from gsvc_tpu_torch.ops import loss_cuda
 
     H, W, n, its = 128, 160, 300, 30
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -874,7 +878,6 @@ def test_rows_loss_launches_once_a_replayed_step(dev, kind):
         comp.fit_compress(comp.init_compress_state(gmodel, None, dev), gt, cfg,
                           reload_best=False, draws=torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
-    delta = {k: v - before[k] for k, v in graphs.launch_counts().items()}
+    delta = {k: v - before.get(k, 0) for k, v in graphs.launch_counts().items()}
     assert graphs.StepGraph.replays - replays > 0
     assert delta["rows_loss"] == delta["forward_rows"] == delta["backward_slots"] == its
-    assert loss_cuda.rows_loss.launches - before["rows_loss"] == its

@@ -36,20 +36,11 @@ from gsvc_tpu_torch.models import represent as rep
 from gsvc_tpu_torch.parallel import multihost as mh
 from gsvc_tpu_torch.scripts import measure_multihost_scaling as mhs
 from gsvc_tpu_torch.scripts.encoder_drift import train_lines
+from torch_threads import one_thread  # noqa: F401
 
 H, W, FRAMES, POINTS, ITERS, QAT_ITERS = 48, 64, 4, 48, 24, 12
 RUN, QRUN = f"GaussianVideo_{ITERS}_{POINTS}", f"GaussianVideo_{QAT_ITERS}_{POINTS}"
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """This file's torch work on one intra-op thread, as the spawned hosts
-    run (OMP_NUM_THREADS=1): the single-host runs they are held to use the
-    same threads, and a busy host's spinning thread pools cost minutes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # -- the barrier ----------------------------------------------------------

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 from gsvc_tpu_torch.scripts import run_rd_point as rd
+from torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 H, W, FRAMES, N, ITERS, COMP_ITERS = 32, 48, 3, 40, 30, 20

@@ -21,9 +21,15 @@ eager fit adds.
 The binning layer's record: a fit's `fit` span names its keys' width and
 gauss field (`key_bytes`, `gauss_bits`), and every K1 call adds its keys
 and their bytes to the counters `binning.keys` and `binning.key_bytes`.
+
+A graph's capture hands back what it added to the recorder's counters, and
+each replay adds it again (with the CUDA graph and streams stubbed on the
+CPU): the counts of a render on a graph are those of its eager renders.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import pytest
 import torch
@@ -34,16 +40,10 @@ from gsvc_tpu_torch.models import compress as comp
 from gsvc_tpu_torch.models import represent as rep
 from gsvc_tpu_torch.utils import graphs
 from gsvc_tpu_torch.utils.profiling import RECORDER, StepTimer
+from torch_threads import one_thread  # noqa: F401
 
 H, W, N, CAP = 48, 64, 150, 200
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _nested(rec: StepTimer, how: str) -> None:
@@ -254,21 +254,83 @@ def test_qat_spans(delta):
     (2160, 3840, 65535, 4, 16), (1080, 1920, 262143, 4, 18), (1080, 1920, 262144, 8, 19),
 ])
 def test_fit_span_names_its_key_layout(h, w, cap, key_bytes, bits):
-    """A fit's `fit` span carries its binning keys' width and gauss field,
-    `fill_cuda.key_layout` at the config's grid and the state's capacity;
-    none without a capacity (no step runs here)."""
+    """A model's fit gives its `fit` span its binning keys' width and gauss
+    field (`represent.fit_attrs`: `fill_cuda.key_layout` at the config's
+    grid and the state's capacity); a fit whose caller gives no attributes
+    carries none (no step runs here)."""
     from gsvc_tpu_torch.ops import fill_cuda
 
     cfg = _cfg(H=h, W=w, num_points=cap, max_num_points=cap, iterations=1)
     plan = graphs.FitPlan([], lambda s: s, lambda s: s)
     mark = RECORDER.last_id
-    graphs.run_fit(None, plan, "cpu", None, kind="represent", cfg=cfg, capacity=cap)
-    graphs.run_fit(None, plan, "cpu", None, kind="represent", cfg=cfg)
+    graphs.run_fit(None, plan, "cpu", None, kind="represent", **rep.fit_attrs(cfg, cap))
+    graphs.run_fit(None, plan, "cpu", None, kind="represent")
     with_cap, without = RECORDER.spans("fit", after=mark)
     layout = fill_cuda.key_layout(cfg.tile_bounds[0] * cfg.tile_bounds[1], cap)
     assert (with_cap.attrs["key_bytes"], with_cap.attrs["gauss_bits"]) == (key_bytes, bits)
     assert key_bytes == layout.dtype.itemsize and bits == layout.gauss_bits
     assert "key_bytes" not in without.attrs and "gauss_bits" not in without.attrs
+    assert (with_cap.attrs["iterations"], with_cap.attrs["splats"]) == (1, cap)
+
+
+class _Graph:
+    """A stand-in for torch.cuda.CUDAGraph on the CPU: counts its replays."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def capture_begin(self):
+        pass
+
+    def capture_end(self):
+        pass
+
+    def replay(self):
+        self.replays += 1
+
+    def reset(self):
+        pass
+
+
+class _Stream:
+    def wait_stream(self, other):
+        pass
+
+
+def test_capture_hands_back_its_counts_and_replays_add_them(monkeypatch):
+    """A render on a graph counts as its eager renders do: the capture takes
+    back what it added to the recorder's counters (a kernel's launch, the
+    keys), each replay adds it again, and the recorder's own `spans.*` and
+    the graphs' `graph.*` counters are not replayed. No card here: the
+    graph and the streams are stubbed."""
+    for name, stub in (("CUDAGraph", _Graph), ("current_stream", lambda d=None: _Stream()),
+                       ("device", lambda d: contextlib.nullcontext()),
+                       ("stream", lambda s: contextlib.nullcontext()),
+                       ("synchronize", lambda d=None: None)):
+        monkeypatch.setattr(torch.cuda, name, stub)
+    monkeypatch.setattr(graphs, "side_stream", lambda d: _Stream())
+    monkeypatch.setattr(RECORDER, "counters", dict(RECORDER.counters))  # restored after
+    x = torch.ones(3)
+
+    def render(t):
+        RECORDER.add("launches.test_render")
+        RECORDER.add("binning.keys", 5)
+        RECORDER.add("spans.test", 1)
+        return t * 2
+
+    counters = ("launches.test_render", "binning.keys", "spans.test",
+                "graph.render.captures", "graph.render.replays")
+    before = {k: RECORDER.counters.get(k, 0) for k in counters}
+    with graphs.RenderGraph(render, (x,), "cpu") as rg:
+        assert torch.equal(rg(), x * 2)  # the eager render, then the capture
+        assert dict(rg.added) == {"launches.test_render": 1, "binning.keys": 5}
+        rg()
+        rg()
+        assert rg.graph.replays == 2
+    moved = {k: RECORDER.counters.get(k, 0) - v for k, v in before.items()}
+    assert moved == {"launches.test_render": 3, "binning.keys": 15, "spans.test": 2,
+                     "graph.render.captures": 1, "graph.render.replays": 2}
+    assert graphs.launch_counts()["test_render"] == RECORDER.counters["launches.test_render"]
 
 
 def test_binning_counters_count_an_eager_fits_keys():
@@ -369,7 +431,7 @@ def test_card_fit_spans(dev, monkeypatch):
 
     mark = RECORDER.last_id
     state = graphs.run_fit(state, plan._replace(step=step), dev, None, kind="represent",
-                           cfg=cfg)
+                           **rep.fit_attrs(cfg, state.alive.shape[0]))
     torch.cuda.synchronize()
     spans = RECORDER.spans(after=mark)
     assert state.it == cfg.iterations and recorded and not any(recorded)
@@ -407,7 +469,7 @@ def test_card_replays_add_the_binning_counters(dev):
     for graph in (None, False):
         state = rep.init_train_state(cfg, generator=torch.Generator().manual_seed(0),
                                      device=dev)
-        before = {k: RECORDER.counters.get(k, 0) for k in graphs.REPLAYED_COUNTERS}
+        before = {k: RECORDER.counters.get(k, 0) for k in ("binning.keys", "binning.key_bytes")}
         replays = graphs.StepGraph.replays
         rep.fit_frame_partial(state, gt, cfg.iterations, cfg, graph=graph)
         torch.cuda.synchronize()

@@ -15,13 +15,16 @@ of it runs on the CPU.
 - a represent step with the L1 rows loss against gsvc_tpu (the L2 step and
   the QAT step: tests/test_torch_train.py, tests/test_torch_compress.py);
 - `rows_loss` on CPU tensors takes the plain version and counts no launch;
-  `check_inputs` refuses what the kernel does not take; the launch counter
-  is in `utils.graphs.kernel_counters`, before Adan's.
+  `check_inputs` refuses what the kernel does not take; on the card it
+  counts its launch as the recorder's `launches.rows_loss`, which
+  `utils.graphs.launch_counts` reads as "rows_loss" (on rows that claim
+  the card, the kernel's library, stream and SM count stubbed).
 
 E1 against its plain version on the card: tests/test_torch_kernels.py
 (marker `cuda`).
 """
 
+import contextlib
 from pathlib import Path
 
 import jax
@@ -32,6 +35,7 @@ import torch
 
 from gsvc_tpu.config import FrameConfig as JConfig
 from gsvc_tpu.models import represent as jrep
+from gsvc_tpu_torch import _build
 from gsvc_tpu_torch.config import FrameConfig
 from gsvc_tpu_torch.core import train_state_from_numpy
 from gsvc_tpu_torch.models import represent as rep
@@ -39,7 +43,6 @@ from gsvc_tpu_torch.models.represent import _clip01, make_rows_target
 from gsvc_tpu_torch.ops import loss_cuda
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
 from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum, rasterize_rows_loss
-from gsvc_tpu_torch.optim import adan_cuda
 from gsvc_tpu_torch.utils import graphs
 
 H, W = 40, 56  # 3 x 4 tiles: a partial tile row and column, 3 * 4 = 12 -> 16 block rows
@@ -200,13 +203,17 @@ def test_represent_l1_step_matches_jax():
         assert np.abs(g.numpy() - want).max() <= 1e-3 * np.abs(want).max() + 1e-12, name
 
 
+def _launches(name: str) -> int:
+    return graphs.launch_counts().get(name, 0)
+
+
 def test_rows_loss_on_cpu_tensors_is_the_plain_version():
     raw, gt_rows, mask = _rows_case(9)
     kept = torch.tensor(1, dtype=torch.int32)
-    before = loss_cuda.rows_loss.launches
+    before = _launches("rows_loss")
     got = loss_cuda.rows_loss(raw, gt_rows, mask, kept, True)
     want = loss_cuda.rows_loss_torch(raw, gt_rows, mask, kept, True)
-    assert loss_cuda.rows_loss.launches == before
+    assert _launches("rows_loss") == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -232,10 +239,38 @@ def test_check_inputs_refuses_what_the_kernel_does_not_take():
             loss_cuda.check_inputs(*args)
 
 
-def test_kernel_counters_list_the_rows_loss_before_adan():
-    counters = graphs.kernel_counters()
-    assert counters[-2] is loss_cuda.rows_loss and counters[-1] is adan_cuda.adan_update
-    assert graphs.launch_counts()["rows_loss"] == loss_cuda.rows_loss.launches
+class _Claimed(torch.Tensor):
+    """A CPU tensor that says it is on the card: `rows_loss` takes E1's
+    path with it."""
+
+    is_cuda = property(lambda self: True)
+
+
+def test_launch_counts_name_the_rows_loss(monkeypatch):
+    """`rows_loss` on the card launches E1 once, counted as
+    `launch_counts()["rows_loss"]`; on CPU tensors (the plain version) it
+    counts none. No card here: the rows claim it, and E1's library, the
+    stream and the SM count are stubbed."""
+    calls = []
+
+    class Lib:  # rows_loss.cu's entry: records its call, returns no error
+        def rows_loss(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(loss_cuda, "_rows_loss_lib", Lib)
+    monkeypatch.setattr(loss_cuda, "sm_count", lambda dev: 1)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: None)
+    kept = torch.tensor(1, dtype=torch.int32)
+    for on_card in (True, False):
+        rows = _rows_case(4)
+        if on_card:
+            rows = [t.as_subclass(_Claimed) for t in rows]
+        before = _launches("rows_loss")
+        loss_cuda.rows_loss(*rows, kept)
+        assert _launches("rows_loss") - before == int(on_card)
+    assert len(calls) == 1
 
 
 def test_threads_constant_is_the_kernels():

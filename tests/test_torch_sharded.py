@@ -62,19 +62,9 @@ from gsvc_tpu_torch.ops.projection import project_gaussians_2d
 from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum, rows_to_image
 from gsvc_tpu_torch.ops.rasterize_binned import span_height
 from gsvc_tpu_torch.parallel.launch import RankFailed, launch
+from torch_threads import one_thread  # noqa: F401
 
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """This file's torch work on one intra-op thread, as each rank runs
-    (`parallel.launch.rank_device`): on a host whose cores are all busy
-    (the suite's other workers), a pool of spinning threads turns the
-    seconds these tests take into minutes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # -- the rasterizer at a tile-row span (no ranks) -----------------------------
