@@ -34,8 +34,11 @@ the first fault:
    K6 / K3 and the autograd function's per-splat gradients (against
    autograd through the plain renderer) within 1e-4 of the largest entry;
    K3 also at the full budget with sparse flags, whose segments run over
-   several CTAs' spans; two launches of K2 (also on both wide scenes), K5,
-   K4 rows, K6 (rows) and K3 (both cases) bitwise equal;
+   several CTAs' spans; K4 image and K5 with the eval render's epilogue
+   (the background blend and the clamp in their store) within 1e-4 of
+   their plain version and bitwise the chain they fold on the raw
+   render; two launches of K2 (also on both wide scenes), K5, K5 with
+   the epilogue, K4 rows, K6 (rows) and K3 (both cases) bitwise equal;
 3. serving slice: a stream of DECODE_FRAMES K-frames of the scene written
    with `pack_frame` (`scripts.decode_rate`), decoded by `python -m
    gsvc_tpu_torch.decode --no_png` (its `main`), its renders replays of one
@@ -44,7 +47,8 @@ the first fault:
    eager before it and after a second graph run (whose capture is cached).
    decoded.rgb must be within 1 uint8 level of the plain path's render,
    the graph runs' bytes equal to the eager runs', the graph captured once
-   and replayed for every later frame with K1, K2 and K4 `image` inside,
+   and replayed for every later frame with K1, K2 and K4 `image` (with the
+   eval render's epilogue) inside,
    the native rANS decode equal to the numpy one, and the eval render
    within 1e-4. Prints the decoder's frames/s and ms a frame by stage for
    each run, and the rANS decode of a frame natively and in numpy;
@@ -102,7 +106,7 @@ the first fault:
    detection at the driver's defaults), compress (300 its) and decode
    CLIs. It fails unless every frame decodes within 0.1 dB of its encoder
    PSNR, the stream holds a P-frame, no CLI reports a budget overflow and
-   K1-K6 all launched; it prints
+   it launched the kernels phase 6's encoder launches; it prints
    seconds a frame, the decoder's frames/s and each CLI's peak memory;
 9. wide RD points: phase 8's point at WIDE_N splats and RD_WIDE_FRAMES
    frames at 1920x1080 (int32 wide keys) and at 3840x2160 (int64), each
@@ -121,8 +125,10 @@ the first fault:
    (K6: the slots of a full-grid K6 whose gradient is zero outside the
    span, so every other slot is 0), zero past the image, within 1e-4 of
    their plain versions, two launches bitwise equal, the per-splat
-   gradients summed over the spans within 1e-4 of the whole grid's; K4
-   rows and image, K5 and K6 timed at the first span of 2 shards; (b)
+   gradients summed over the spans within 1e-4 of the whole grid's, K4
+   image and K5 with the eval render's epilogue bitwise the chain on the
+   span's raw render; K4 rows and image, K5 and K6 timed at the first span
+   of 2 shards; (b)
    phase 4's removal-control fit through `fit_frame_sharded` and 5
    adaptive-control steps through `make_sharded_train_step`, (c) a
    SHARD_QAT_ITERS QAT fit through `fit_compress_sharded`: the ranks'
@@ -280,7 +286,8 @@ WIDE_CAP = 4
 # kernels; the bytes are compared and printed
 ENCODER_LAUNCHES = {"fill_decode_keys": 18487, "rank_cap_decode": 18487,
                     "forward_rows": 17660, "backward_slots": 17660,
-                    "segmented_cumsum": 17660, "forward_chw": 808, "forward_image": 19,
+                    "segmented_cumsum": 17660, "forward_chw": 0, "forward_image": 0,
+                    "forward_chw_clipped": 808, "forward_image_clipped": 19,
                     "forward_image_fast": 0, "forward_chw_fast": 0, "forward_rows_fast": 0,
                     "backward_slots_fast": 0, "rows_loss": 17660, "adan_update": 17568}
 ENCODER_SHA256 = ("8e76cbd280e9cef0", "40c8b44f5d5a4e3d", "afe1be16eebdc54a",
@@ -299,15 +306,18 @@ FAST_TOL, FAST_GRAD_TOL = 6.5e-3, 4e-3
 FAST_KERNELS = ("forward_image_fast", "forward_chw_fast", "forward_rows_fast",
                 "backward_slots_fast")
 # the kernel wrappers whose launches the phases read (names of
-# `utils.graphs.launch_counts`): K1-K6, their fast-colour variants, E1 and
-# Adan's update
+# `utils.graphs.launch_counts`): K1-K6, K4 image / K5 with the eval render's
+# epilogue (`_clipped`: the encoder's eval renders take them, so its plain
+# K4 image and K5 launch none), the fast-colour variants, E1 and Adan's
+# update
 KERNELS = tuple(ENCODER_LAUNCHES)
 TRACE_ITERS, TRACE_EVERY = 400, 50
 # phase 5: the splats of Adan's second timing (the paper's highest rate
 # point); phase 7's harnesses run the host-float `adan_step` and their own
-# loss chain (`_clip01` and a sum), never Adan's kernel or E1
+# loss chain (`_clip01` and a sum), never Adan's kernel or E1, and render
+# through the raw API, never the eval render's epilogue
 ADAN_WIDE_N = 50000
-NOT_IN_HARNESSES = ("rows_loss", "adan_update")
+NOT_IN_HARNESSES = ("rows_loss", "adan_update", "forward_image_clipped", "forward_chw_clipped")
 E1_SUM_TOL = 1e-6  # E1's sums against its plain version's (relative): another order
 E1_STEP_REPS = 5  # phase 5: timed calls of a step's loss through E1 and through the chain
 LIBS = ("fill", "segsum", "rasterize_fwd", "rasterize_bwd", "profile_kernel_parts",
@@ -447,12 +457,12 @@ def encoder_phase(torch, smi, clip, tmp: Path) -> dict:
     clis = [
         ("represent", represent_cli.main, run.represent,
          ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
-          "segmented_cumsum", "forward_chw", "rows_loss", "adan_update")),
+          "segmented_cumsum", "forward_chw_clipped", "rows_loss", "adan_update")),
         ("compress", compress_cli.main, run.compress,
          ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
-          "segmented_cumsum", "forward_chw", "rows_loss", "adan_update")),
+          "segmented_cumsum", "forward_chw_clipped", "rows_loss", "adan_update")),
         ("decode", decode_cli.main, run.decode,
-         ("fill_decode_keys", "rank_cap_decode", "forward_image")),
+         ("fill_decode_keys", "rank_cap_decode", "forward_image_clipped")),
     ]
     total = {k: 0 for k in KERNELS}
     for name, main, argv, needed in clis:
@@ -575,10 +585,10 @@ def rd_point_phase(torch, smi, tmp: Path, phase: int, n: int, frames: int,
     if "overflow" in err.getvalue():  # a compress WARNING or a represent refit
         fail(f"the RD point of phase {phase} reported an intersection budget overflow")
     launches = launches_since(counted, KERNELS)
-    missing = [k for k, v in launches.items() if (v <= 0) != (k in FAST_KERNELS)]
+    missing = [k for k, v in launches.items() if (v <= 0) != (ENCODER_LAUNCHES[k] == 0)]
     if missing:
-        fail(f"kernels not launched, or fast-colour kernels launched, by the RD point of "
-             f"phase {phase}: {missing}; launches {launches}")
+        fail(f"kernels not launched, or kernels launched that phase 6's encoder does not "
+             f"launch, by the RD point of phase {phase}: {missing}; launches {launches}")
     if point["max_decode_gap_db"] >= rd.DECODE_TOL_DB:
         fail(f"RD point of phase {phase}: decoded PSNR {point['frame_decoded_psnr']} vs "
              f"encoder {point['frame_psnr']} (tol {rd.DECODE_TOL_DB} dB)")
@@ -614,6 +624,14 @@ def rd_point_phase(torch, smi, tmp: Path, phase: int, n: int, frames: int,
           f"at start and end {point['held_gib']}; CLI seconds "
           f"{point['cli_seconds']}; {secs:.2f} s in all; launches {launches}")
     return launches
+
+
+def fast_kernel(kernel: str) -> bool:
+    """Whether a rasterizer kernel (`sass.pretty`'s name) is a fast-colour
+    one: forward_kernel<layout, 4> or backward_kernel<., ., 1> (the eval
+    render's epilogue, forward_kernel<layout, 0, 1>, is not)."""
+    args = kernel[kernel.index("<") + 1:-1].split(",")
+    return args[1] == "4" if kernel.startswith("forward_kernel") else args[-1] == "1"
 
 
 def timed_row(smi, phase, name, src, replaces, counter, err, kern, plain, work,
@@ -732,9 +750,9 @@ def rows_loss_rows(torch, dev, smi, sc) -> list:
     replaced (blend, clip, masked difference, squared sum and autograd's
     backward)."""
     from gsvc_tpu_torch.config import FrameConfig
-    from gsvc_tpu_torch.models.represent import _clip01, make_rows_target
+    from gsvc_tpu_torch.models.represent import make_rows_target
     from gsvc_tpu_torch.ops import loss_cuda, rasterize_cuda
-    from gsvc_tpu_torch.ops.rasterize import blend_background
+    from gsvc_tpu_torch.ops.rasterize import _clip01, blend_background
     from gsvc_tpu_torch.utils import work
     from gsvc_tpu_torch.utils.profiling import event_ms
 
@@ -1131,6 +1149,14 @@ def span_phase(torch, smi, sc, v_rows) -> list:
                     and not chw[:, valid:].any()):
                 fail(f"K4 / K5 at the span {span} of {shards} shards differ from the same "
                      "rows of the full-grid launch")
+            ones = torch.ones(3, device=image.device)
+            for layout, raw in (("image", image), ("chw", chw)):  # the eval render's epilogue
+                chain = torch.clamp(rc.blend_background(raw, sc.binned.num_intersects, ones,
+                                                        layout), 0.0, 1.0)
+                clipped = rc.CLIPPED[layout](*rargs, tile_rows=span)
+                if not torch.equal(clipped.view(torch.int32), chain.view(torch.int32)):
+                    fail(f"{layout} with the eval render's epilogue at the span {span} "
+                         "differs from clamp(blend_background(raw))")
             for layout, got in (("rows", rows), ("image", image), ("chw", chw)):
                 plain = rc.rasterize_forward_torch(*rargs, layout=layout, tile_rows=span)
                 err = errors(got, plain)[0]
@@ -1168,7 +1194,8 @@ def span_phase(torch, smi, sc, v_rows) -> list:
                 fail(f"per-splat {name} gradients summed over {shards} spans: rel {rel}")
     print(f"phase 10a spans: K4 rows / image, K5 and K6 at every span of {SPAN_SHARDS} "
           f"shards ({tb_y} tile rows) bitwise the full-grid launch's rows, zero past the "
-          f"image and the grid, two launches bitwise equal; max-abs against the plain "
+          f"image and the grid, K4 image / K5 with the eval render's epilogue bitwise "
+          f"the chain, two launches bitwise equal; max-abs against the plain "
           f"versions {worst['fwd']:.3g} (tol {RENDER_TOL}), K6 rel {worst['k6']:.3g}, "
           f"per-splat grads summed over the spans rel {worst['sum']:.3g} (tol {GRAD_TOL}); "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1364,7 +1391,7 @@ def multihost_phase(torch, smi, clip, gt, tmp: Path) -> None:
 
     dev = gt.device
     need = ("fill_decode_keys", "rank_cap_decode", "forward_rows", "backward_slots",
-            "segmented_cumsum", "forward_chw", "rows_loss") if dev.type == "cuda" else ()
+            "segmented_cumsum", "forward_chw_clipped", "rows_loss") if dev.type == "cuda" else ()
     # the budget sets the length of K3's scan: the same lanes (segments of up
     # to 700) padded to longer rows, and a fit whose budgets both hold it
     s1 = 163840
@@ -2066,7 +2093,7 @@ def main() -> int:
     from gsvc_tpu_torch.ops import fill_cuda, rasterize_cuda
     from gsvc_tpu_torch.ops.binning import bin_gaussians, key_inputs
     from gsvc_tpu_torch.ops.projection import project_gaussians_2d
-    from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum
+    from gsvc_tpu_torch.ops.rasterize import image_to_rows, rasterize_gaussians_sum_clipped
     from gsvc_tpu_torch.scripts.common import scene
     from gsvc_tpu_torch.utils import graphs, sass, work
     from gsvc_tpu_torch.utils.profiling import device_loop_time, event_ms
@@ -2091,7 +2118,7 @@ def main() -> int:
             # the fast-colour kernels (forward_kernel<., 4>, backward_kernel<., ., 1>):
             # one MUFU.EX2 a pair and none of expf's range reduction
             per = mix["per_pair"]
-            if kernel.endswith((",4>", ",1>")) and (per["EXPF"] > 0 or per["MUFU"] != 1):
+            if fast_kernel(kernel) and (per["EXPF"] > 0 or per["MUFU"] != 1):
                 fail(f"phase 1: the fast-colour kernel {kernel} takes expf's range "
                      f"reduction ({per['EXPF']:.2f} a pair) or {per['MUFU']:.2f} MUFU a pair")
     adan_unfused()
@@ -2139,9 +2166,26 @@ def main() -> int:
     errs["rows"] = float((rows - rows_ref).abs().max())
     if not torch.equal(rows, rows_ref):
         fail(f"forward rows differs from image_to_rows(K4 image): {errs['rows']}")
+    # the eval render's epilogue: within RENDER_TOL of its plain version (the
+    # chain on the plain render) and bitwise the chain on the raw kernel's
+    for layout in ("image", "chw"):
+        got = rasterize_cuda.CLIPPED[layout](*rargs)
+        errs[f"{layout}_clipped"] = err = float(
+            (got - rasterize_cuda.forward_clipped_torch(*rargs, layout=layout)).abs().max())
+        if not (torch.isfinite(got).all() and err <= RENDER_TOL):
+            fail(f"forward {layout} with the eval render's epilogue: max-abs {err} > "
+                 f"{RENDER_TOL} against forward_clipped_torch")
+        chain = torch.clamp(rasterize_cuda.blend_background(
+            rasterize_cuda.FORWARD[layout](*rargs), binned.num_intersects,
+            torch.ones(3, device=dev), layout), 0.0, 1.0)
+        if not torch.equal(got.view(torch.int32), chain.view(torch.int32)):
+            fail(f"forward {layout} with the eval render's epilogue differs from "
+                 f"clamp(blend_background(raw)) at {int((got != chain).sum())} values")
     print(f"phase 2 kernels: intersections {n_isect}, budget {budget}; K1 keys, K2 "
           f"ids and {ki.num_tiles + 1} tile edges exact; forward max-abs image "
-          f"{errs['image']:.3g} chw {errs['chw']:.3g} (tol {RENDER_TOL}); rows exact")
+          f"{errs['image']:.3g} chw {errs['chw']:.3g}, with the eval render's epilogue "
+          f"{errs['image_clipped']:.3g} / {errs['chw_clipped']:.3g} (tol {RENDER_TOL}), "
+          "bitwise the chain on the raw kernel's; rows exact")
 
     # K1 and K2 on wide keys: WIDE_N splats at 1080p (int32) and 4K UHD (int64)
     wide = {}
@@ -2206,6 +2250,7 @@ def main() -> int:
     twice = {"K2": lambda: torch.cat(fill_cuda.rank_cap_decode(skeys, 256, N,
                                                                ki.num_tiles)),
              "K5": lambda: rasterize_cuda.forward_chw(*rargs),
+             "K5 clipped": lambda: rasterize_cuda.forward_chw_clipped(*rargs),
              "K4 rows": lambda: rasterize_cuda.forward_rows(*rargs),
              "K6 rows": lambda: rasterize_cuda.backward_slots(
                  *bargs, v_by_layout["rows"], *geom, layout="rows")}
@@ -2266,8 +2311,8 @@ def main() -> int:
         f"lanes, a CTA's span {span}); per-splat grads of the "
         "autograd function vs plain autograd " + ", ".join(
             f"{k} ({a:.3g}, {r:.3g})" for k, (a, r) in grad_errs.items())
-        + f" (tol rel {GRAD_TOL}); two launches of K2, K5, K4 rows, K6 rows and K3 (both "
-        f"cases) bitwise equal; keys {str(keys.dtype)[6:]}; peak {peak_gb:.1f} GiB")
+        + f" (tol rel {GRAD_TOL}); two launches of K2, K5, K5 clipped, K4 rows, K6 rows and "
+        f"K3 (both cases) bitwise equal; keys {str(keys.dtype)[6:]}; peak {peak_gb:.1f} GiB")
 
     # -- phase 3: the slice, through the decoder CLI --------------------
     from gsvc_tpu_torch.scripts.decode_rate import (
@@ -2299,8 +2344,8 @@ def main() -> int:
                            iterations=1, backend=backend,
                            max_intersects=dec_budget)
 
-    serve_kernels = ("fill_decode_keys", "rank_cap_decode", "forward_image",
-                     "forward_chw")
+    serve_kernels = ("fill_decode_keys", "rank_cap_decode", "forward_image_clipped",
+                     "forward_chw_clipped")
     train_kernels = ("fill_decode_keys", "rank_cap_decode", "forward_rows",
                      "backward_slots", "segmented_cumsum", "rows_loss", "adan_update")
     with tempfile.TemporaryDirectory() as tmp:
@@ -2336,13 +2381,14 @@ def main() -> int:
             fail("decode.txt missing")
     # the decoder's graph: the cache's entry for its splat count and budget
     replayed = graph_launches(decoded_renderer(N, frame_cfg("auto"), dev))
-    inside = {"fill_decode_keys": 1, "rank_cap_decode": 1, "forward_image": 0}
+    inside = {"fill_decode_keys": 1, "rank_cap_decode": 1, "forward_image_clipped": 0}
     if (captures, replays) != (1, DECODE_FRAMES - 1) or any(
             replayed.get(k) != 1 for k in inside) or any(  # the eval render adds K1, K2
             launches[k] != DECODE_FRAMES + extra for k, extra in inside.items()):
         fail(f"decoder graphs: {captures} captures, {replays} replays, a replay's "
              f"launches {replayed}, the run's {launches}; want 1 capture, "
-             f"{DECODE_FRAMES - 1} replays, each launching K1, K2 and K4 image once")
+             f"{DECODE_FRAMES - 1} replays, each launching K1, K2 and K4 image (clipped) "
+             "once")
     ref = render_decoded(dec_means, dec_chol, dec_colors, frame_cfg("torch"), dev,
                          graph=False)
     ref8 = (ref.cpu().numpy() * 255.0).round().astype(np.int16)
@@ -2460,11 +2506,11 @@ def main() -> int:
     def eval_fps(backend: str, reps: int) -> float:
         def chained(m):
             x, d, r, c, k = project_gaussians_2d(m, L, H, W, tb)
-            img = rasterize_gaussians_sum(
+            img = rasterize_gaussians_sum_clipped(
                 x, d, r, c, k, colors, opacity, H, W, backend=backend,
                 layout="chw", max_intersects=budget,
             )
-            return m + torch.clamp(img, 0.0, 1.0).sum() * 0.0
+            return m + img.sum() * 0.0
 
         return 1.0 / device_loop_time(chained, means, reps=reps, outer=3)
 
@@ -2475,9 +2521,9 @@ def main() -> int:
 
     def eval_render():
         x, d, r, c, k = project_gaussians_2d(means, L, H, W, tb)
-        img = rasterize_gaussians_sum(x, d, r, c, k, colors, opacity, H, W, backend="cuda",
-                                      layout="chw", max_intersects=budget)
-        return torch.clamp(img, 0.0, 1.0)
+        return rasterize_gaussians_sum_clipped(x, d, r, c, k, colors, opacity, H, W,
+                                               backend="cuda", layout="chw",
+                                               max_intersects=budget)
 
     # the eval render as the represent driver's fps loop runs it: 100 calls
     # eagerly, and 100 replays of its graph after the eager first call
@@ -2498,7 +2544,7 @@ def main() -> int:
                 if not torch.equal(out, first):
                     fail("the eval render's replay differs from its eager render")
                 if any(inside.get(k) != 1 for k in ("fill_decode_keys", "rank_cap_decode",
-                                                    "forward_chw")):
+                                                    "forward_chw_clipped")):
                     fail(f"the eval render's graph launches {inside}: want K1, K2, K5 once")
     timed = [
         ("K1 fill_decode_keys", "gsvc_tpu_torch/csrc/fill.cu",
@@ -2517,6 +2563,14 @@ def main() -> int:
          "gsvc_tpu/ops/rasterize_pallas.py:523", "forward_chw",
          errs["chw"], lambda: rasterize_cuda.forward_chw(*rargs),
          lambda: rasterize_cuda.rasterize_forward_torch(*rargs, layout="chw")),
+        ("K4 forward image, clipped", "gsvc_tpu_torch/csrc/rasterize_fwd.cu",
+         "gsvc_tpu/ops/rasterize_pallas.py:428", "forward_image_clipped",
+         errs["image_clipped"], lambda: rasterize_cuda.forward_image_clipped(*rargs),
+         lambda: rasterize_cuda.forward_clipped_torch(*rargs, layout="image")),
+        ("K5 forward chw, clipped", "gsvc_tpu_torch/csrc/rasterize_fwd.cu",
+         "gsvc_tpu/ops/rasterize_pallas.py:523", "forward_chw_clipped",
+         errs["chw_clipped"], lambda: rasterize_cuda.forward_chw_clipped(*rargs),
+         lambda: rasterize_cuda.forward_clipped_torch(*rargs, layout="chw")),
     ]
     v_rows = v_by_layout["rows"]
     timed += [
@@ -2535,6 +2589,10 @@ def main() -> int:
          lambda: fill_cuda.segmented_cumsum_torch(slots_ref, flags)),
     ]
     bounds = work.kernel_work(sc, work.gated_pairs(sc), k3_rows=slots_ref.shape[0])
+    # the eval render's epilogue stores the same image: its kept total is 4
+    # bytes, its few operations a pixel not pairs'
+    for name in ("K4 forward image", "K5 forward chw"):
+        bounds[f"{name}, clipped"] = bounds[name]
     tile_range = torch.arange(ki.num_tiles + 1, dtype=torch.int32, device=dev)
     library = {"K2 rank_cap_decode": lambda: torch.searchsorted(tiles, tile_range)}
     kernels = [timed_row(smi, 5, *row, bounds[row[0]], library.get(row[0]))
@@ -2578,7 +2636,8 @@ def main() -> int:
           f"{fps['cuda']}, plain path {fps['torch']} (a chained device loop; order "
           f"plain, kernel, kernel, plain); 100 calls, CUDA events: eager "
           f"{call_fps['eager']}, graph replays {call_fps['graph']} (order eager, graph, "
-          f"graph, eager; each replay bitwise the eager render, launching K1, K2, K5)")
+          f"graph, eager; each replay bitwise the eager render, launching K1, K2, K5 "
+          "with the eval render's epilogue)")
 
     def represent_plan(backend: str, rows_loss: bool):
         """The plan of a removal-control fit's steps 1..99 (step 1 its only

@@ -204,18 +204,17 @@ def decode_frame(
 def _render(means, chol, colors, cfg: FrameConfig) -> torch.Tensor:
     """The decoded splats' render: [H, W, 3] clamped to [0, 1]."""
     from gsvc_tpu_torch.ops.projection import project_gaussians_2d
-    from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum
+    from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum_clipped
 
     xys, depths, radii, conics, nth = project_gaussians_2d(
         means, chol, cfg.H, cfg.W, cfg.tile_bounds, cfg.block_w, cfg.block_h,
     )
     opacity = torch.ones((xys.shape[0], 1), dtype=torch.float32, device=xys.device)
-    img = rasterize_gaussians_sum(
+    return rasterize_gaussians_sum_clipped(
         xys, depths, radii, conics, nth, colors, opacity,
         cfg.H, cfg.W, cfg.block_h, cfg.block_w,
         backend=cfg.backend, max_intersects=cfg.max_intersects,
     )
-    return torch.clamp(img, 0.0, 1.0)
 
 
 def decoded_renderer(n: int, cfg: FrameConfig, device="cpu",

@@ -56,6 +56,7 @@ GSVC_EXPORT int forward_parts(const void* tile_bin_start, const void* tile_count
                tb_x,                                    tb_x * tb_y,
                cap,                                     r_out,
                static_cast<float*>(out),                0,
-               tb_x * tb_y,                             img_h};
+               tb_x * tb_y,                             img_h,
+               nullptr};
   return kPartsLaunches[variant](a, grid, static_cast<cudaStream_t>(stream));
 }

@@ -33,6 +33,21 @@
 // in lane order, in f32 registers: deterministic, no atomics. The per-pair
 // arithmetic is the first port's, expression for expression (the alpha
 // gate must agree with the backward's, rasterize_bwd.cuh).
+//
+// The eval render's epilogue (kClip, the image and chw stores in kFull):
+// the store writes the final image, clamp(blend_background(raw), 0, 1) of
+// ops/rasterize.py on the default background (ones), in place of the raw
+// sum, so the render leaves no image-sized pass behind it (as PyTorch ops
+// the chain is three, each a read and a write of the image, ~3x this
+// kernel's time at 1080p). It reads the binning's kept total from device
+// memory at each tile's store, so a launch needs no host read and stays
+// capturable. Where the frame kept an intersection (every thread alike) a
+// value is clamped in two instructions; where it kept none, the chain's
+// v * 0 + 1 is one FMA more. Each op rounds as PyTorch's kernel does:
+// bitwise the chain, NaN passed on as torch.clamp passes it. On the bench
+// scene (H100) the epilogue costs K5 ~1 us of ~27: read once a CTA into
+// shared memory it cost 0.2 us more, as one FMA a value (no branch) 0.5
+// more.
 #pragma once
 
 #include "common.cuh"
@@ -75,6 +90,7 @@ struct Args {
   int row0;        // the span's first tile row
   int grid_tiles;  // tb_x * tb_y: a grid tile at or past it is empty
   int out_h;       // pixel rows of the image / chw store (img_h for the grid)
+  const int* total;  // kClip: the binning's kept intersections, one int32
 };
 
 // 4 bytes global -> shared, asynchronously; src_bytes 0 writes a zero.
@@ -126,7 +142,19 @@ __device__ __forceinline__ Chunk first_chunk(const Args& a, int tile) {
   return c;
 }
 
-template <int kLayout, int kVariant>
+// torch.clamp(v, 0, 1) of one stored value in the epilogue: max.NaN /
+// min.NaN pass a NaN on as torch.clamp's isnan test does (every NaN the
+// card's arithmetic makes is the canonical one, the bits torch.clamp hands
+// back). v is never -0 (a sum from +0, or +0 past the image), so the two
+// signed zeros never meet in max / min.
+__device__ __forceinline__ float clamp01(float v) {
+  float y;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(y) : "f"(v));
+  asm("min.NaN.f32 %0, %0, 0f3F800000;" : "+f"(y));
+  return y;
+}
+
+template <int kLayout, int kVariant, bool kClip = false>
 __global__ void __launch_bounds__(kThreads) forward_kernel(Args a) {
   __shared__ Lane bufs[2][kChunk];
   __shared__ float s_sum[3];  // kNoAcc: the tile's colour sums
@@ -252,6 +280,7 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(Args a) {
     }
 
     if (cur.last()) {
+      const bool live = !kClip || __ldg(a.total) >= 1;  // kClip: the frame kept one
 #pragma unroll
       for (int j = 0; j < kPix; ++j) {
         if (kVariant == kNoAcc) {
@@ -276,9 +305,21 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(Args a) {
           a.out[base + 2 * kNpix] = inside ? acc[j][2] : 0.0f;
         } else if (px < a.img_w && py < a.out_h) {
           const long long pix = static_cast<long long>(py) * a.img_w + px;
-          const float r = inside ? acc[j][0] : 0.0f;
-          const float g = inside ? acc[j][1] : 0.0f;
-          const float b = inside ? acc[j][2] : 0.0f;
+          float r = inside ? acc[j][0] : 0.0f;
+          float g = inside ? acc[j][1] : 0.0f;
+          float b = inside ? acc[j][2] : 0.0f;
+          // the span's pixels past the image too, as the chain's: v * live +
+          // 1 * (1 - live) is v where live (v * 1 + 0, v never -0) and
+          // v * 0 + 1 where not (one rounding: v * 0 is exact)
+          if (kClip && live) {
+            r = clamp01(r);
+            g = clamp01(g);
+            b = clamp01(b);
+          } else if (kClip) {
+            r = clamp01(__fmaf_rn(r, 0.0f, 1.0f));
+            g = clamp01(__fmaf_rn(g, 0.0f, 1.0f));
+            b = clamp01(__fmaf_rn(b, 0.0f, 1.0f));
+          }
           if (kLayout == kChw) {
             const long long plane = static_cast<long long>(a.out_h) * a.img_w;
             a.out[pix] = r;
@@ -301,13 +342,16 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(Args a) {
   }
 }
 
-// Launch forward_kernel<kLayout, kVariant> on a grid of `grid` CTAs;
+// Launch forward_kernel<kLayout, kVariant, kClip> on a grid of `grid` CTAs;
 // returns cudaGetLastError().
-template <int kLayout, int kVariant>
+template <int kLayout, int kVariant, bool kClip = false>
 int launch_forward(const Args& a, int grid, cudaStream_t stream) {
+  static_assert(!kClip || (kLayout != kRows && kVariant == kFull),
+                "the epilogue is the exact image and chw stores' (rows: E1, rows_loss.cu)");
   if (a.num_tiles <= 0) return static_cast<int>(cudaGetLastError());
   if (grid <= 0 || grid > a.num_tiles) return static_cast<int>(cudaErrorInvalidValue);
-  forward_kernel<kLayout, kVariant><<<grid, kThreads, 0, stream>>>(a);
+  if (kClip && a.total == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  forward_kernel<kLayout, kVariant, kClip><<<grid, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

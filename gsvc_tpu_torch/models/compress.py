@@ -59,7 +59,6 @@ from gsvc_tpu_torch.config import FrameConfig
 from gsvc_tpu_torch.core import cholesky_bound
 from gsvc_tpu_torch.models.represent import (
     TileShard,
-    _clip01,
     _rows_target_for,
     _sharded_graph,
     fit_attrs,
@@ -69,7 +68,7 @@ from gsvc_tpu_torch.models.represent import (
 )
 from gsvc_tpu_torch.ops.binning import budget_overflow, default_max_intersects
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
-from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum, rasterize_rows_loss
+from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum_clipped, rasterize_rows_loss
 from gsvc_tpu_torch.optim.adan import AdanState, adan_host_step, adan_init, adan_step_
 from gsvc_tpu_torch.utils import graphs
 from gsvc_tpu_torch.utils.profiling import RECORDER, _sync
@@ -185,12 +184,11 @@ def forward_quantize(
     un-initialised VQ."""
     splats, l_vqc, chol_codes, new_vq = _quantized_splats(
         params, vq, p_xyz, p_cholesky, p_features_dc, cfg, training, draws)
-    img = rasterize_gaussians_sum(
+    img = rasterize_gaussians_sum_clipped(
         *splats, cfg.H, cfg.W, cfg.block_h, cfg.block_w,
         backend=cfg.backend, max_intersects=cfg.max_intersects, layout=layout,
         tile_rows=tile_rows,
     )
-    img = _clip01(img) if img.requires_grad else torch.clamp(img, 0.0, 1.0)
     return img, l_vqc, chol_codes, new_vq
 
 

@@ -59,7 +59,7 @@ from gsvc_tpu_torch.ops.binning import budget_overflow, default_max_intersects, 
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
 from gsvc_tpu_torch.ops.rasterize import (
     image_to_rows,
-    rasterize_gaussians_sum,
+    rasterize_gaussians_sum_clipped,
     rasterize_rows_loss,
 )
 from gsvc_tpu_torch.optim.adan import (
@@ -213,11 +213,6 @@ def init_train_state(
         )
 
 
-def _clip01(x: torch.Tensor) -> torch.Tensor:
-    """clip to [0, 1] with jnp.clip's gradient (half at a tie)."""
-    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
-
-
 def _splats(params: GaussianFrame, alive, cfg: FrameConfig, rgb_w_trainable=True):
     """The rasterizer's splat arguments (xys, depths, radii, conics,
     num_tiles_hit, colors, opacity) of model.forward()
@@ -236,14 +231,14 @@ def _splats(params: GaussianFrame, alive, cfg: FrameConfig, rgb_w_trainable=True
 def _render(params: GaussianFrame, alive, cfg: FrameConfig, layout="image",
             rgb_w_trainable=True, tile_rows=None) -> torch.Tensor:
     """The differentiable model.forward(): render + clip to [0, 1] (the clip
-    outside the rasterizer); `tile_rows` as in `render_frame`."""
-    img = rasterize_gaussians_sum(
+    outside the rasterizer; an eval render's in K4 / K5's store);
+    `tile_rows` as in `render_frame`."""
+    return rasterize_gaussians_sum_clipped(
         *_splats(params, alive, cfg, rgb_w_trainable),
         cfg.H, cfg.W, cfg.block_h, cfg.block_w,
         backend=cfg.backend, max_intersects=cfg.max_intersects, layout=layout,
         tile_rows=tile_rows,
     )
-    return _clip01(img) if img.requires_grad else torch.clamp(img, 0.0, 1.0)
 
 
 @torch.no_grad()
@@ -280,12 +275,11 @@ def render_frame_pos(
         cfg.tile_bounds, cfg.block_w, cfg.block_h, alive=alive,
     )
     ones = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    img = rasterize_gaussians_sum(
+    return rasterize_gaussians_sum_clipped(
         xys, depths, radii, conics, nth, ones, ones[:, :1],
         cfg.H, cfg.W, cfg.block_h, cfg.block_w,
         backend=cfg.backend, max_intersects=cfg.max_intersects,
     )
-    return torch.clamp(img, 0.0, 1.0)
 
 
 def uses_kernels(cfg: FrameConfig, device) -> bool:

@@ -12,6 +12,11 @@ Backends:
   differentiated by autograd), on either device.
 - "dense": the O(N * pixels) oracle (ops/rasterize_dense.py), tests only.
 - "auto": "cuda" for CUDA tensors, "torch" for CPU tensors.
+
+`rasterize_gaussians_sum_clipped` is the render clipped to [0, 1], the
+models' forward(): an eval render on the kernel path is one launch of K4 /
+K5 whose store blends the background and clamps; every other render is
+the chain, `_clip01` where it has an autograd node.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from gsvc_tpu_torch.ops import loss_cuda, rasterize_cuda
 from gsvc_tpu_torch.ops.binning import bin_gaussians, default_max_intersects
+from gsvc_tpu_torch.ops.rasterize_cuda import blend_background
 
 # Per-tile gaussian cap: the reference 3-channel kernel renders only the
 # first BLOCK_SIZE=256 binned gaussians of a tile (forward.cu:613).
@@ -105,6 +111,46 @@ def rasterize_gaussians_sum(
     return img
 
 
+def rasterize_gaussians_sum_clipped(
+    xys: torch.Tensor,
+    depths: torch.Tensor,
+    radii: torch.Tensor,
+    conics: torch.Tensor,
+    num_tiles_hit: torch.Tensor,
+    colors: torch.Tensor,
+    opacity: torch.Tensor,
+    img_height: int,
+    img_width: int,
+    BLOCK_H: int = 16,
+    BLOCK_W: int = 16,
+    backend: str = "auto",
+    max_intersects: Optional[int] = None,
+    tile_rows=None,
+    layout: str = "image",
+    fast_color: bool = False,
+) -> torch.Tensor:
+    """`rasterize_gaussians_sum(...)` (the default background) clipped to
+    [0, 1]: bitwise `torch.clamp` of it, and with an autograd node
+    `_clip01` of it (jnp.clip's gradient). An eval render on the kernel
+    path (3 channels, layout "image" or "chw", exact colour) is one launch
+    of K4 / K5 whose store blends and clamps (`rasterize_cuda.CLIPPED`).
+    Arguments as `rasterize_gaussians_sum`'s."""
+    del depths
+    img, total = _render_sum(
+        xys, radii, conics, num_tiles_hit, colors, opacity, img_height, img_width,
+        BLOCK_H, BLOCK_W, False, backend, max_intersects, tile_rows, layout, fast_color,
+        clip=True)
+    if total is None:  # K4 / K5 stored the final image
+        return img
+    img = blend_background(img, total, img.new_ones((colors.shape[-1],)), layout)
+    return _clip01(img) if img.requires_grad else torch.clamp(img, 0.0, 1.0)
+
+
+def _clip01(x: torch.Tensor) -> torch.Tensor:
+    """clip to [0, 1] with jnp.clip's gradient (half at a tie)."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
 def rasterize_rows_loss(
     xys: torch.Tensor,
     depths: torch.Tensor,
@@ -142,29 +188,12 @@ def rasterize_rows_loss(
                                     loss_type == "L1")
 
 
-def blend_background(img: torch.Tensor, total: torch.Tensor, background: torch.Tensor,
-                     layout: str) -> torch.Tensor:
-    """`img` where the frame kept an intersection (`total` >= 1), else
-    `background` everywhere: gsplat's zero-intersect fast path as an
-    arithmetic select (no host sync)."""
-    live = (total >= 1).to(img.dtype)
-    bg = background.to(img.dtype)
-    if layout == "rows":
-        # background per block row (t, c) is background[row % 3], as in
-        # gsvc_tpu (the padding rows past 3*tb_x shift that phase)
-        bg = bg[torch.arange(img.shape[0], device=img.device) % 3][:, None]
-    elif layout == "chw":
-        bg = bg[:, None, None]
-    else:
-        bg = bg[None, None, :]
-    return img * live + bg * (1.0 - live)
-
-
 def _render_sum(xys, radii, conics, num_tiles_hit, colors, opacity, img_height, img_width,
                 BLOCK_H, BLOCK_W, return_alpha, backend, max_intersects, tile_rows, layout,
-                fast_color):
+                fast_color, clip=False):
     """(the render before its background blend, the kept intersections) of
-    `rasterize_gaussians_sum`."""
+    `rasterize_gaussians_sum`; with `clip`, an eval render that K4 / K5 can
+    store clipped is (the final image, None)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     if layout not in rasterize_cuda.LAYOUTS:
@@ -216,6 +245,11 @@ def _render_sum(xys, radii, conics, num_tiles_hit, colors, opacity, img_height, 
         total = binned.num_intersects
         args = (binned, xys, conics, colors, opacity, img_height, img_width,
                 tile_bounds, BLOCK_W, BLOCK_H, TILE_CAP)
+        if use_kernels and clip and layout in rasterize_cuda.CLIPPED and not fast_color \
+                and not (torch.is_grad_enabled()
+                         and any(t.requires_grad for t in (xys, conics, colors, opacity))):
+            # an eval render (no autograd node): the store blends and clamps
+            return rasterize_cuda.CLIPPED[layout](*args, tile_rows), None
         if use_kernels:
             img = rasterize_cuda.rasterize_sum(*args, layout=layout, tile_rows=tile_rows,
                                                fast_color=fast_color)

@@ -56,6 +56,16 @@ kFastExp>, backward_kernel<., ., true>), forward and backward on the same
 alpha; their plain versions take `splat_vis(sigma, True)`. Off by default;
 each fast kernel counts its launches apart (`launches.<wrapper>_fast`).
 
+The eval render's epilogue (`forward_image_clipped`, `forward_chw_clipped`):
+exact K4 / K5 whose store writes the final image, the blend on the default
+background (ones) and the clamp to [0, 1] of `ops.rasterize`'s chain
+(`blend_background`, then `torch.clamp`), bitwise, in the one launch. As
+PyTorch ops the chain is three image-sized passes over what the kernel has
+just written (~3x K5's time at 1080p: two of them stride-0 broadcasts) and
+~6 scalar launches; in the store it is two instructions a value. The
+kernel reads the kept total from device memory, so a launch stays
+capturable. Their plain version, `forward_clipped_torch`, is that chain.
+
 Every forward and K6 takes a tile-row span, `tile_rows=(row0, num_rows)`
 (gsvc_tpu's `row0_ref` scalar prefetch, for the tile-sharded trainer):
 only the span's tiles render or write their slots, in the grid's
@@ -167,6 +177,40 @@ def rasterize_forward_torch(
     return img
 
 
+def blend_background(img: torch.Tensor, total: torch.Tensor, background: torch.Tensor,
+                     layout: str) -> torch.Tensor:
+    """`img` where the frame kept an intersection (`total` >= 1), else
+    `background` everywhere: gsplat's zero-intersect fast path as an
+    arithmetic select (no host sync)."""
+    live = (total >= 1).to(img.dtype)
+    bg = background.to(img.dtype)
+    if layout == "rows":
+        # background per block row (t, c) is background[row % 3], as in
+        # gsvc_tpu (the padding rows past 3*tb_x shift that phase)
+        bg = bg[torch.arange(img.shape[0], device=img.device) % 3][:, None]
+    elif layout == "chw":
+        bg = bg[:, None, None]
+    else:
+        bg = bg[None, None, :]
+    return img * live + bg * (1.0 - live)
+
+
+def forward_clipped_torch(
+    binned: BinnedSplats, xys, conics, colors, opacity,
+    img_height: int, img_width: int, tile_bounds: Tuple[int, int, int],
+    block_w: int = 16, block_h: int = 16, cap: int = 256,
+    layout: str = "image", tile_rows=None,
+) -> torch.Tensor:
+    """Plain version of K4 / K5 with the eval render's epilogue: the chain
+    it folds, `torch.clamp(blend_background(raw), 0, 1)` on the kept total
+    `binned.num_intersects` and a background of ones."""
+    raw = rasterize_forward_torch(binned, xys, conics, colors, opacity, img_height,
+                                  img_width, tile_bounds, block_w, block_h, cap, layout,
+                                  tile_rows)
+    return torch.clamp(blend_background(raw, binned.num_intersects, raw.new_ones((3,)),
+                                        layout), 0.0, 1.0)
+
+
 def _forward_wrapper(layout: str, doc: str):
     def wrapper(binned, xys, conics, colors, opacity, img_height, img_width,
                 tile_bounds, block_w=16, block_h=16, cap=256, tile_rows=None,
@@ -196,6 +240,29 @@ forward_rows = _forward_wrapper(
     "rows", "K4, rows store: the sum render as `image_to_rows` blocks (a span's "
     "num_rows blocks)." + _FAST_DOC)
 FORWARD = {"image": forward_image, "chw": forward_chw, "rows": forward_rows}
+
+
+def _clipped_wrapper(layout: str, doc: str):
+    def wrapper(binned, xys, conics, colors, opacity, img_height, img_width,
+                tile_bounds, block_w=16, block_h=16, cap=256, tile_rows=None):
+        args = (binned, xys, conics, colors, opacity, img_height, img_width, tile_bounds,
+                block_w, block_h, cap, layout, tile_rows)
+        if not xys.is_cuda:
+            return forward_clipped_torch(*args)
+        return _launch_forward(*args, False, clip=True)
+
+    wrapper.__name__ = wrapper.__qualname__ = f"forward_{layout}_clipped"
+    wrapper.__doc__ = doc
+    return wrapper
+
+
+_CLIP_DOC = (", ones where the binning kept no intersection, clamped to [0, 1]: "
+             "`forward_clipped_torch`'s values, bitwise.")
+forward_image_clipped = _clipped_wrapper(
+    "image", "K4 with the eval render's epilogue: the final [H, W, 3] image" + _CLIP_DOC)
+forward_chw_clipped = _clipped_wrapper(
+    "chw", "K5 with the eval render's epilogue: the final [3, H, W] image" + _CLIP_DOC)
+CLIPPED = {"image": forward_image_clipped, "chw": forward_chw_clipped}
 
 
 def check_inputs(what, binned, xys, conics, colors, opacity, tile_bounds,
@@ -230,7 +297,7 @@ def check_inputs(what, binned, xys, conics, colors, opacity, tile_bounds,
 
 def _launch_forward(binned, xys, conics, colors, opacity, img_height,
                     img_width, tile_bounds, block_w, block_h, cap,
-                    layout, tile_rows, fast_color) -> torch.Tensor:
+                    layout, tile_rows, fast_color, clip=False) -> torch.Tensor:
     dev = xys.device
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
     row0, num_rows = tile_span(tile_rows, tb_y)
@@ -249,12 +316,17 @@ def _launch_forward(binned, xys, conics, colors, opacity, img_height,
     else:
         shape = (3, out_h, img_width) if layout == "chw" else (out_h, img_width, 3)
         out = torch.empty(shape, dtype=torch.float32, device=dev)
+    total = binned.num_intersects if clip else None
+    if clip and (total.dtype != torch.int32 or total.numel() != 1 or total.device != dev):
+        raise ValueError(f"rasterize_forward: num_intersects must be one int32 on {dev}, "
+                         f"got {total.dtype} {tuple(total.shape)} on {total.device}")
     grid = forward_grid(tb_x * num_rows, sm_count(dev))
     _build.launch(
         _fwd_lib(), "rasterize_forward", dev, *(_build.ptr(t) for t in i32 + f32),
         xys.shape[0], img_height, img_width, tb_x, tb_y, row0, num_rows, out_h, cap,
-        _LAYOUT_ID[layout], int(fast_color), r_out, grid, _build.ptr(out),
-        counter=f"forward_{layout}_fast" if fast_color else f"forward_{layout}",
+        _LAYOUT_ID[layout], int(fast_color), r_out, grid,
+        None if total is None else _build.ptr(total), _build.ptr(out),
+        counter=f"forward_{layout}" + ("_clipped" if clip else "_fast" if fast_color else ""),
     )
     return out
 
@@ -267,7 +339,7 @@ def sm_count(dev) -> int:
 
 def _fwd_lib() -> ctypes.CDLL:
     return _build.bind("rasterize_fwd", {
-        "rasterize_forward": (I32, [VP] * 7 + [I32] * 13 + [VP, VP])})
+        "rasterize_forward": (I32, [VP] * 7 + [I32] * 13 + [VP] * 3)})
 
 
 # -- backward ---------------------------------------------------------------

@@ -33,8 +33,8 @@ import sys
 
 import torch
 
-from gsvc_tpu_torch.models.represent import _clip01
 from gsvc_tpu_torch.ops import fill_cuda, rasterize_cuda
+from gsvc_tpu_torch.ops.rasterize import _clip01
 from gsvc_tpu_torch.optim.adan import adan_init, adan_step
 from gsvc_tpu_torch.scripts import common
 

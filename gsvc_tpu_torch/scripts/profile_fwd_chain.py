@@ -28,10 +28,10 @@ import sys
 
 import torch
 
-from gsvc_tpu_torch.models.represent import _clip01
 from gsvc_tpu_torch.ops import rasterize_cuda
 from gsvc_tpu_torch.ops.binning import bin_gaussians
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
+from gsvc_tpu_torch.ops.rasterize import _clip01
 from gsvc_tpu_torch.optim.adan import adan_init, adan_step
 from gsvc_tpu_torch.scripts import common
 

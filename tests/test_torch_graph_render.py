@@ -21,8 +21,9 @@ the CPU tests, so `python -m pytest --noconftest
 tests/test_torch_graph_render.py -m cuda` runs where JAX is not
 installed): the replayed decode render and the replayed eval render equal
 the eager ones bitwise, also after new values are loaded; two splat counts
-give two captures; a replay adds its capture's launch counts (K1, K2, K4
-`image` or K5 once each); the uint8 conversion on the card equals numpy's.
+give two captures; a replay adds its capture's launch counts (K1, K2, and
+K4 `image` or K5 with the eval render's epilogue, once each); the uint8
+conversion on the card equals numpy's.
 """
 
 import dataclasses
@@ -237,7 +238,7 @@ def test_decode_render_replay_equals_eager(dev):
             torch.cuda.synchronize()
             assert torch.equal(got, want), (n, seed)
             assert _delta(_launches(), before) == {
-                "fill_decode_keys": 1, "rank_cap_decode": 1, "forward_image": 1}
+                "fill_decode_keys": 1, "rank_cap_decode": 1, "forward_image_clipped": 1}
     assert graphs.RenderGraph.captures - captures == 2
     render = bitstream.decoded_renderer(300, _card_cfg(300), dev)
     assert isinstance(render, graphs.RenderGraph)
@@ -245,7 +246,7 @@ def test_decode_render_replay_equals_eager(dev):
     keys = added.get("binning.keys", 0)
     assert keys > 0 and added == {
         "launches.fill_decode_keys": 1, "launches.rank_cap_decode": 1,
-        "launches.forward_image": 1, "binning.keys": keys, "binning.key_bytes": 4 * keys}
+        "launches.forward_image_clipped": 1, "binning.keys": keys, "binning.key_bytes": 4 * keys}
 
 
 @pytest.mark.cuda
@@ -265,7 +266,7 @@ def test_eval_render_replay_equals_eager(dev):
         torch.cuda.synchronize()
         assert graphs.RenderGraph.replays == replays + 1
         assert _delta(_launches(), before) == {
-            "fill_decode_keys": 1, "rank_cap_decode": 1, "forward_chw": 1}
+            "fill_decode_keys": 1, "rank_cap_decode": 1, "forward_chw_clipped": 1}
         assert torch.equal(again, first)
         with torch.no_grad():  # the graph reads the state's own tensors
             params.xyz.mul_(0.5)

@@ -28,7 +28,10 @@ a multiple of 4 and an input that is not 16-byte aligned). Adan's update
 (csrc/adan.cu, one launch for every leaf of a step) bitwise `_update` on
 the same CUDA tensors, for the represent and QAT leaf sets at 0 to 50,000
 splats, odd and misaligned leaves, fresh or not, a clip, no_prox, and as
-a CUDA graph replayed across table rows. The rows loss E1 (csrc/rows_loss.cu)
+a CUDA graph replayed across table rows. K4 / K5 with the eval render's
+epilogue (the background blend and the clamp in the store) bitwise the
+chain they fold, grid and span, no kept intersection, NaN colours; an eval
+render one launch of them. The rows loss E1 (csrc/rows_loss.cu)
 at 1080p's rows, 4K UHD's and a ragged tile-row span, L2 and L1, the kept
 total 0, 1 and more: its gradient bitwise its plain version's, its sums
 within 1e-6 relative, two launches bitwise equal; the per-splat gradients
@@ -643,6 +646,96 @@ def test_fast_color_gradients_match_plain_autograd(dev):
         _close(a, b)
 
 
+# -- the eval render's epilogue: K4 / K5 writing the clipped image ---------------
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("layout", ["image", "chw"])
+def test_clipped_forward_is_the_chain_bitwise(dev, layout):
+    """K4 / K5 with the eval render's epilogue against the chain it folds,
+    clamp(blend_background(raw)) on ones of the same kernel's raw render,
+    bit for bit: the whole grid and a tile-row span whose rows pass the
+    image's edge and the grid's, a frame with no kept intersection (ones
+    everywhere, the span's padding too), colour sums below 0 and above 1,
+    NaN colours (passed on as torch.clamp passes them); one launch a call
+    on the clipped counter, none on the raw one."""
+    H, W = 40, 56
+    names = (f"forward_{layout}_clipped", f"forward_{layout}")
+    tb, (_m, _l, colors, opacity), (xys, _d, radii, conics, nth) = _scene(dev, 300, H, W, 8)
+    colors = colors * 2.0 - 0.5
+    colors[::60] = float("nan")
+    ones = torch.ones(3, device=dev)
+    for empty in (False, True):
+        binned = bin_gaussians(xys, radii, nth * 0 if empty else nth, tb, 16, 16, 8192)
+        assert (int(binned.num_intersects) == 0) == empty
+        args = (binned, xys, conics, colors, opacity, H, W, tb, 16, 16, 256)
+        for span in (None, (2, 2)):
+            raw = rasterize_cuda.FORWARD[layout](*args, span)
+            if not empty and span is None:
+                finite = raw.nan_to_num()
+                assert raw.isnan().any() and finite.min() < 0 and finite.max() > 1
+            want = torch.clamp(rasterize_cuda.blend_background(
+                raw, binned.num_intersects, ones, layout), 0.0, 1.0)
+            before = [_launches(k) for k in names]
+            got = rasterize_cuda.CLIPPED[layout](*args, span)
+            again = rasterize_cuda.CLIPPED[layout](*args, span)
+            torch.cuda.synchronize()
+            assert [_launches(k) for k in names] == [before[0] + 2, before[1]]
+            assert torch.equal(_bits(got), _bits(want)), (empty, span)
+            assert torch.equal(_bits(again), _bits(got)), (empty, span)
+            if empty:
+                assert torch.equal(got, torch.ones_like(got)), span
+
+
+def test_clipped_render_launches_once(dev):
+    """An eval render through `rasterize_gaussians_sum_clipped` and
+    `render_frame` is one clipped launch and no raw one, bitwise
+    `torch.clamp(rasterize_gaussians_sum(...))`; in fast colour, and with
+    an autograd node, the render is the raw kernel and the chain, the
+    latter differentiable."""
+    from gsvc_tpu_torch.config import FrameConfig
+    from gsvc_tpu_torch.core import init_splats
+    from gsvc_tpu_torch.models.represent import render_frame
+    from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum_clipped
+
+    H, W = 72, 88
+    _tb, (_m, _l, colors, opacity), splats = _scene(dev, 600, H, W, 9)
+    args = (*splats, colors, opacity, H, W)
+    for layout in ("image", "chw"):
+        before = [_launches(k) for k in (f"forward_{layout}_clipped", f"forward_{layout}")]
+        got = rasterize_gaussians_sum_clipped(*args, layout=layout)
+        torch.cuda.synchronize()
+        assert [_launches(k) for k in (f"forward_{layout}_clipped", f"forward_{layout}")] \
+            == [before[0] + 1, before[1]]
+        want = torch.clamp(rasterize_gaussians_sum(*args, layout=layout), 0.0, 1.0)
+        assert torch.equal(_bits(got), _bits(want)), layout
+    before = [_launches(k) for k in ("forward_chw_clipped", "forward_chw_fast")]
+    got = rasterize_gaussians_sum_clipped(*args, layout="chw", fast_color=True)
+    torch.cuda.synchronize()
+    assert [_launches(k) for k in ("forward_chw_clipped", "forward_chw_fast")] \
+        == [before[0], before[1] + 1]
+    want = torch.clamp(rasterize_gaussians_sum(*args, layout="chw", fast_color=True), 0.0, 1.0)
+    assert torch.equal(_bits(got), _bits(want))
+    leaf = colors.clone().requires_grad_()
+    before = _launches("forward_chw")
+    img = rasterize_gaussians_sum_clipped(*splats, leaf, opacity, H, W, layout="chw")
+    assert img.requires_grad and _launches("forward_chw") == before + 1
+    assert torch.isfinite(torch.autograd.grad(img.sum(), leaf)[0]).all()
+
+    cfg = FrameConfig(H=H, W=W, num_points=500, max_num_points=500, iterations=1)
+    params, alive = init_splats(500, generator=torch.Generator().manual_seed(0), device=dev)
+    before = graphs.launch_counts()
+    frame = render_frame(params, alive, cfg, layout="chw")
+    torch.cuda.synchronize()
+    delta = {k: v - before.get(k, 0) for k, v in graphs.launch_counts().items()
+             if v != before.get(k, 0)}
+    assert delta == {"fill_decode_keys": 1, "rank_cap_decode": 1, "forward_chw_clipped": 1}
+    assert frame.shape == (3, H, W) and float(frame.min()) >= 0 and float(frame.max()) <= 1
+
+
 # -- Adan's update: every leaf of a step in one launch -----------------------------
 
 
@@ -816,9 +909,9 @@ def test_rows_loss_gradients_are_the_chains_on_the_card(dev, loss_type):
     1080p/10k are bitwise those of autograd through the rows render, the
     clip and the masked sum: the gradient K6 reads is the same."""
     from gsvc_tpu_torch.config import FrameConfig
-    from gsvc_tpu_torch.models.represent import _clip01, make_rows_target
+    from gsvc_tpu_torch.models.represent import make_rows_target
     from gsvc_tpu_torch.ops import loss_cuda
-    from gsvc_tpu_torch.ops.rasterize import rasterize_rows_loss
+    from gsvc_tpu_torch.ops.rasterize import _clip01, rasterize_rows_loss
 
     sc = _bench(dev, "1080p")
     cfg = FrameConfig(H=sc.H, W=sc.W, num_points=sc.n, max_num_points=sc.n, iterations=1)

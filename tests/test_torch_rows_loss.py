@@ -39,10 +39,10 @@ from gsvc_tpu_torch import _build
 from gsvc_tpu_torch.config import FrameConfig
 from gsvc_tpu_torch.core import train_state_from_numpy
 from gsvc_tpu_torch.models import represent as rep
-from gsvc_tpu_torch.models.represent import _clip01, make_rows_target
+from gsvc_tpu_torch.models.represent import make_rows_target
 from gsvc_tpu_torch.ops import loss_cuda
 from gsvc_tpu_torch.ops.projection import project_gaussians_2d
-from gsvc_tpu_torch.ops.rasterize import rasterize_gaussians_sum, rasterize_rows_loss
+from gsvc_tpu_torch.ops.rasterize import _clip01, rasterize_gaussians_sum, rasterize_rows_loss
 from gsvc_tpu_torch.utils import graphs
 
 H, W = 40, 56  # 3 x 4 tiles: a partial tile row and column, 3 * 4 = 12 -> 16 block rows
