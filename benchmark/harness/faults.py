@@ -1,7 +1,9 @@
 """Faults planted in the port under the timed path, to show that the
 check reads them: each takes `setattr`-like `patch(obj, name, value)`
 (pytest's `monkeypatch.setattr`, or `setattr` for a process of
-`benchmark/control.py --fault`)."""
+`benchmark/control.py --fault`). A loop lists the faults its cells can
+have in its own module (`FAULTS`, `CARD_FAULTS`): these, or faults it
+defines itself."""
 
 from __future__ import annotations
 
@@ -65,11 +67,3 @@ def replay_unchanged(patch) -> None:
 
     patch(graphs.StepGraph, "replay", replay)
 
-
-# the faults each loop's cells can have, planted on any device, and those
-# that only a card's run reaches
-BY_LOOP = {
-    "encode": [state_unchanged, half_the_batch, coded_frame_altered],
-    "render": [render_altered],
-}
-CARD_ONLY = {"encode": [replay_unchanged], "render": []}

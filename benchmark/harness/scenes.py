@@ -8,6 +8,8 @@
 - `splat_stream`: bench.py's scene (means U(-0.999, 0.999), cholesky
   diagonals U(1, 6), off-diagonal N(0, 1), colours U(0, 1): ~8
   intersections a splat at 1080p), moved smoothly from frame to frame.
+- `reshuffled`: one splat stream in another order, so that every seed
+  draws the same work.
 """
 
 from __future__ import annotations
@@ -105,5 +107,23 @@ def splat_stream(seed: int, frames: int, n: int, device, stream: int = 2) -> dic
     return {
         "xyz": torch.atanh(moved),
         "cholesky": (L - bound).expand(frames, n, 3).contiguous(),
+        "features_dc": colors.expand(frames, n, 3).contiguous(),
+    }
+
+
+def reshuffled(stream: dict, seed: int, device, key: int = 4) -> dict:
+    """The frames of `stream` in an order drawn from the seed: a permutation
+    of the splats (the same in every frame, so the motion stays smooth),
+    their colours drawn anew, and the frame the stream starts at. Each
+    frame keeps its splats' shapes and places, so its intersections, and
+    the work a render of it does, are the same for every seed."""
+    g = generator(seed, key, device)
+    frames, n, _ = stream["xyz"].shape
+    perm = torch.randperm(n, generator=g, device=device)
+    start = int(torch.randint(0, frames, (1,), generator=g, device=device))
+    colors = torch.rand((n, 3), generator=g, device=device)
+    return {
+        "xyz": torch.roll(stream["xyz"][:, perm], -start, 0).contiguous(),
+        "cholesky": torch.roll(stream["cholesky"][:, perm], -start, 0).contiguous(),
         "features_dc": colors.expand(frames, n, 3).contiguous(),
     }

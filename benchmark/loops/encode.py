@@ -37,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from benchmark.harness import scenes, work
+from benchmark.harness import faults, scenes, work
 from benchmark.reference import codec, qat, splats
 
 
@@ -52,6 +52,13 @@ def _program():
 
 # the checked frames: the window's first K-frame and first P-frame
 CHECKED = 2
+
+# the faults this loop's cells can have: planted on any device, and those
+# that only a card's run reaches (the CPU runs every step eagerly)
+FAULTS = [faults.state_unchanged, faults.half_the_batch, faults.coded_frame_altered]
+CARD_FAULTS = [faults.replay_unchanged]
+# the traffic's cut for the benchmark's CPU tests
+TINY_TRAFFIC = {"warmup_iterations": 4, "warmup_qat_iterations": 4}
 
 
 class State:

@@ -16,6 +16,9 @@ import torch
 
 from benchmark.loops import encode
 from benchmark.loops.encode import (  # noqa: F401  (the loop's interface)
+    CARD_FAULTS,
+    FAULTS,
+    TINY_TRAFFIC,
     State,
     compare,
     free,

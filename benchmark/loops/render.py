@@ -5,8 +5,11 @@ Each render copies its frame's splats into the inputs of one
 `utils.graphs.RenderGraph` of `models.represent.render_frame(...,
 layout="chw")` (projection, K1, the sort, K2, K5, the clip), as the
 drivers' fps loops do, and replays it; the window ends with one
-synchronize. One intersection budget serves the stream: the most
-intersections a frame of it has, x `budget_slack`, in buckets of 8192.
+synchronize. The stream's shapes and paths are the traffic's `scene_seed`'s;
+the run's seed permutes its splats, draws their colours and the frame it
+starts at (`scenes.reshuffled`), so every seed renders the same work. One
+intersection budget serves the stream: the most intersections a frame of
+it has, x `budget_slack`, in buckets of 8192.
 The check: a sample of (frame, cycle) renders drawn from the seed keeps
 its output; the reference renders those frames from the same splats.
 """
@@ -17,8 +20,15 @@ import time
 
 import torch
 
-from benchmark.harness import scenes, work
+from benchmark.harness import faults, scenes, work
 from benchmark.reference import splats
+
+# the faults this loop's cells can have: planted on any device, and those
+# that only a card's run reaches
+FAULTS = [faults.render_altered]
+CARD_FAULTS = []
+# the traffic's cut for the benchmark's CPU tests
+TINY_TRAFFIC = {"frames": 6, "check_cycles": 2}
 
 
 class State:
@@ -61,7 +71,8 @@ def setup(run) -> State:
     H, W, n = _sizes(run)
     t = run.traffic
     st = State()
-    st.stream = scenes.splat_stream(run.seed, t["frames"], n, run.device)
+    st.stream = scenes.reshuffled(
+        scenes.splat_stream(t["scene_seed"], t["frames"], n, run.device), run.seed, run.device)
     st.rgb_w = torch.ones((n, 1), device=run.device)
     st.alive = torch.ones((n,), dtype=torch.bool, device=run.device)
     st.budget = budget_of(st.stream, H, W, t["budget_slack"])

@@ -1,6 +1,8 @@
 """Shared helpers of the benchmark's own tests: each cell at a tiny size,
 driven on the CPU through the port's plain versions of its kernels
-(backend "cuda" on CPU tensors)."""
+(backend "cuda" on CPU tensors). What a cell's loop needs beyond the
+shared cut it declares itself (`TINY_TRAFFIC`, `TINY_CONFIG`), as it
+declares its faults (`FAULTS`, `CARD_FAULTS`)."""
 
 from __future__ import annotations
 
@@ -22,13 +24,12 @@ SEED = 2 ** 31 + 12345  # wider than 32 signed bits, as the driver's seeds are
 
 
 def tiny_cell(name: str, root: Path = ROOT) -> Cell:
-    """The cell with its configuration and traffic cut to a CPU test's size."""
+    """The cell with its configuration and traffic cut to a CPU test's size:
+    `TINY`, then its loop's own cuts."""
     cell = Cell(name, root)
-    cell.config = {**cell.config, **TINY}
-    if cell.traffic["loop"] == "encode":
-        cell.traffic = {**cell.traffic, "warmup_iterations": 4, "warmup_qat_iterations": 4}
-    else:
-        cell.traffic = {**cell.traffic, "frames": 6, "check_cycles": 2}
+    loop = cell.loop()
+    cell.config = {**cell.config, **TINY, **getattr(loop, "TINY_CONFIG", {})}
+    cell.traffic = {**cell.traffic, **loop.TINY_TRAFFIC}
     return cell
 
 
@@ -36,7 +37,17 @@ def tiny_run(cell: Cell, seconds: float = 1.0, seed: int = SEED) -> Run:
     return Run(cell, seed, seconds, False, torch.device("cpu"))
 
 
-CELLS = [w["name"] for w in load_spec(ROOT)["workloads"]]
+def cells(root: Path = ROOT) -> list:
+    return [w["name"] for w in load_spec(root)["workloads"]]
+
+
+def fault_cases(kind: str, root: Path = ROOT) -> list:
+    """(cell, fault) for each fault that each cell's loop lists under
+    `kind`: "FAULTS" (planted on any device) or "CARD_FAULTS"."""
+    return [(c, f) for c in cells(root) for f in getattr(Cell(c, root).loop(), kind)]
+
+
+CELLS = cells()
 
 
 @pytest.fixture(params=CELLS)

@@ -1,6 +1,7 @@
 """Each cell run once through benchmark/run.py on the card, untraced and
-traced, at a short window, and the encode check read from graph replays.
-Card only: skips without a CUDA device."""
+traced, at a short window, and the check read from graph replays in each
+cell whose loop can have a fault there. Card only: skips without a CUDA
+device."""
 
 from __future__ import annotations
 
@@ -10,7 +11,9 @@ import sys
 
 import pytest
 import torch
-from conftest import CELLS, ROOT, SEED, tiny_cell
+from conftest import CELLS, ROOT, SEED, fault_cases, tiny_cell
+
+from benchmark.harness.faults import replay_unchanged
 
 
 @pytest.mark.cuda
@@ -28,11 +31,11 @@ def test_cell_on_the_card(name, trace):
     assert line["metrics"]
 
 
-ENCODE = [c for c in CELLS if tiny_cell(c).traffic["loop"] == "encode"]
+REPLAYED = [c for c, f in fault_cases("CARD_FAULTS") if f is replay_unchanged]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ENCODE)
+@pytest.mark.parametrize("name", REPLAYED)
 def test_encode_check_reads_replays(name):
     """The checked slices' steps past WARMUP replay a captured graph."""
     if not torch.cuda.is_available():

@@ -1,20 +1,19 @@
 """A run with the timed path broken underneath reads `correct` false: each
-fault a cell can have (`benchmark/harness/faults.py`), planted in the port
+fault a cell can have (its loop's `FAULTS`), planted in the port
 at a tiny size on the CPU (the harness's look for a card skipped, the rest
 of a run driven); a fault that only a card's run reaches (a graph's
-replays) is planted there."""
+replays, its loop's `CARD_FAULTS`) is planted there."""
 
 from __future__ import annotations
 
 import pytest
 import torch
-from conftest import CELLS, SEED, tiny_cell, tiny_run
+from conftest import SEED, fault_cases, tiny_cell, tiny_run
 
-from benchmark.harness import faults
 from benchmark.harness.core import Run
 from benchmark.harness.runner import execute
 
-CASES = [(c, f) for c in CELLS for f in faults.BY_LOOP[tiny_cell(c).traffic["loop"]]]
+CASES = fault_cases("FAULTS")
 
 
 @pytest.mark.parametrize("name,fault", CASES,
@@ -26,7 +25,7 @@ def test_fault_reads_incorrect(name, fault, monkeypatch):
     assert not out.correct, out.checks
 
 
-CARD_CASES = [(c, f) for c in CELLS for f in faults.CARD_ONLY[tiny_cell(c).traffic["loop"]]]
+CARD_CASES = fault_cases("CARD_FAULTS")
 
 
 @pytest.mark.cuda

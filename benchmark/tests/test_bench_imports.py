@@ -45,8 +45,9 @@ def _loaded_after(code: str) -> list:
 
 
 def test_reference_loads_no_program():
-    mods = _loaded_after("import benchmark.reference.splats, benchmark.reference.qat, "
-                         "benchmark.reference.codec")
+    names = [f"benchmark.reference.{p.stem}" for p in REFERENCE]
+    mods = _loaded_after("import " + ", ".join(names))
+    assert set(names) <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in set(FORBIDDEN) | {"gsvc_tpu_torch"}]
     assert not bad
 

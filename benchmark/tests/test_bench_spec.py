@@ -4,13 +4,16 @@ entries alone."""
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import shutil
 
-from conftest import ROOT
+from conftest import ROOT, TINY, fault_cases, tiny_cell, tiny_run
 
+from benchmark.control import faults_of
 from benchmark.harness.core import Cell, load_spec, metric_reader
+from benchmark.harness.runner import execute
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -83,3 +86,72 @@ def test_new_files_are_found_without_an_edit(tmp_path):
     assert [m["name"] for m in cell.per_layer()] == ["render.new_share"]
     assert metric_reader("render.new_share", tmp_path)(None) == 42.0
     assert {m["name"] for m in cell.end_to_end()} == {"render_fps", "setup_s"}
+
+
+PROBE = '''"""A loop added as new files alone: render's interface, a fault of its
+own, and its own cuts for the CPU tests."""
+
+from benchmark.loops.render import (  # noqa: F401  (the loop's interface)
+    State, compare, free, outputs, reference, setup, trace_counts, window)
+
+
+def probe_dimmed(patch):
+    """The eval render halved where it is produced."""
+    from gsvc_tpu_torch.models import represent
+
+    orig = represent.render_frame
+    patch(represent, "render_frame", lambda *a, **k: orig(*a, **k) * 0.5)
+
+
+FAULTS = [probe_dimmed]
+CARD_FAULTS = []
+TINY_TRAFFIC = {"frames": 3, "check_cycles": 1, "check_samples": 2}
+TINY_CONFIG = {"num_points": 40}
+'''
+
+
+def _digests(root) -> dict:
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def test_new_loop_is_found_without_an_edit(tmp_path, monkeypatch):
+    """A loop added in a copy as new files (its module, traffic mix and
+    limits) with its cell's entries brings its faults to the fault tests and
+    to control.py and its cuts to the CPU tests; no file that was in the
+    copy changes."""
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+    bench = tmp_path / "benchmark"
+    before = _digests(bench)
+    (bench / "loops" / "probe.py").write_text(PROBE)
+    traffic = json.loads((bench / "traffic" / "render.json").read_text())
+    (bench / "traffic" / "probe.json").write_text(json.dumps({**traffic, "loop": "probe"}))
+    name = "probe.gsvc-1080p-10k"
+    (bench / "limits" / f"{name}.json").write_text(
+        (bench / "limits" / "render.gsvc-1080p-10k.json").read_text())
+    spec = load_spec(ROOT)
+    spec["workloads"].append({"name": name, "config": "gsvc-1080p-10k", "traffic": "probe",
+                              "chips": 1, "why": "x"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "render.gsvc-1080p-10k" in m.get("workloads", []):
+            m["workloads"].append(name)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    cases = [(c, f.__name__) for c, f in fault_cases("FAULTS", tmp_path)]
+    assert cases == [(c, f.__name__) for c, f in fault_cases("FAULTS")] + [
+        (name, "probe_dimmed")]
+    assert fault_cases("CARD_FAULTS", tmp_path) == fault_cases("CARD_FAULTS")
+    cell = tiny_cell(name, tmp_path)
+    assert cell.traffic["loop"] == "probe"
+    assert [cell.traffic[k] for k in ("frames", "check_cycles", "check_samples")] == [3, 1, 2]
+    assert cell.config == {**Cell(name, tmp_path).config, **TINY, "num_points": 40}
+    # the check reads two renders of the first cycle, which a loaded CPU
+    # reaches in the window
+    out = execute(tiny_run(cell, 2.0), cell.loop())
+    assert out.correct, out.checks
+    faults_of(cell.loop())["probe_dimmed"](monkeypatch.setattr)
+    out = execute(tiny_run(cell, 2.0), cell.loop())
+    assert not out.correct, out.checks
+    after = _digests(bench)
+    assert {k: after.get(k) for k in before} == before
